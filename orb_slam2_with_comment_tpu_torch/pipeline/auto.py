@@ -1,0 +1,414 @@
+"""Autonomous RGB-D tracker: per-frame state machine over device tensors
+(port of pipeline/auto.py, RGB-D path without loop closing).
+
+The JAX package runs the whole state machine inside one jitted program
+with lax.cond branches, because each host readback was costly over its
+TPU transport. Here the map, the previous frame bundle, the poses and the
+trajectory rings stay on the device, while the decisions (initialization
+gate, NeedNewKeyFrame, lost, the amortized maintenance phase) are taken on
+the host from a few scalars per frame. The decisions are the JAX
+package's, rule for rule (reference: Tracking.cc:287-581, 1140-1244).
+
+Not ported yet: the monocular and stereo steps, BoW relocalization and
+loop closing, landmark/keyframe slot compaction, localization-only mode
+and batched dispatch.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..frontend.extractor import OrbExtractor
+from ..geometry import se3
+from ..mapstate.map import MapState, covisibility_weights, empty_map
+from ..matching.search import FeatureSet
+from ..ops.fast import sort_top_k
+from . import steps
+from .tracking import TrackerConfig
+
+N_NEIGHBORS = 10  # covisibility window kept across maintenance phases
+NO_NEIGHBORS = (-1,) * N_NEIGHBORS
+
+
+class AutoState(NamedTuple):
+    """Tracker state: device tensors, plus the host scalars that drive the
+    state machine (Python ints and bools)."""
+    map: MapState
+    prev: steps.FrameObs  # previous frame bundle
+    last_R: torch.Tensor  # [3, 3]
+    last_t: torch.Tensor  # [3]
+    vel_R: torch.Tensor  # [3, 3]
+    vel_t: torch.Tensor  # [3]
+    have_vel: bool
+    ref_kf: int
+    last_kf_frame: int
+    frame_idx: int  # frames processed so far
+    initialized: bool
+    lost: int  # frame index where tracking was lost, -1 while tracking
+    # amortized keyframe maintenance (LocalMapping.cc:47-128 as one bounded
+    # phase per frame after an insertion; a new keyframe preempts)
+    maint_kf: int  # keyframe under maintenance, -1 idle
+    maint_phase: int  # next phase index
+    maint_neighbors: tuple  # [10] covisibility window, -1 padded
+    maint_lambda: torch.Tensor  # [] local-BA damping carried across chunks
+    n_compact_lm: int
+    n_compact_kf: int
+    # trajectory rings [T, ...] (Tracking.cc:562-579)
+    traj_R: torch.Tensor
+    traj_t: torch.Tensor
+    traj_Rcr: torch.Tensor
+    traj_tcr: torch.Tensor
+    traj_ref: torch.Tensor  # [T] int32
+    traj_valid: torch.Tensor  # [T] bool
+    traj_stats: torch.Tensor  # [T, 8] int32
+
+
+def _empty_prev(N: int, device) -> steps.FrameObs:
+    f32, i32 = torch.float32, torch.int32
+    z = torch.zeros
+    return steps.FrameObs(
+        FeatureSet(z((N, 2), dtype=f32, device=device),
+                   torch.full((N,), -1.0, device=device),
+                   z(N, dtype=i32, device=device),
+                   z(N, dtype=f32, device=device),
+                   z((N, 8), dtype=i32, device=device),
+                   z(N, dtype=torch.bool, device=device)),
+        torch.full((N,), -1.0, device=device),
+        torch.full((N,), -1, dtype=i32, device=device))
+
+
+def empty_auto_state(cfg: TrackerConfig, traj_capacity: int,
+                     device) -> AutoState:
+    T = traj_capacity
+    f32 = torch.float32
+    eye = torch.eye(3, dtype=f32, device=device)
+    return AutoState(
+        map=empty_map(cfg.map_cfg, device),
+        prev=_empty_prev(cfg.n_features, device),
+        last_R=eye, last_t=torch.zeros(3, device=device),
+        vel_R=eye, vel_t=torch.zeros(3, device=device),
+        have_vel=False, ref_kf=0, last_kf_frame=-1, frame_idx=0,
+        initialized=False, lost=-1, maint_kf=-1, maint_phase=0,
+        maint_neighbors=NO_NEIGHBORS,
+        maint_lambda=torch.tensor(1e-4, dtype=f32, device=device),
+        n_compact_lm=0, n_compact_kf=0,
+        traj_R=eye.repeat(T, 1, 1), traj_t=torch.zeros((T, 3), device=device),
+        traj_Rcr=eye.repeat(T, 1, 1),
+        traj_tcr=torch.zeros((T, 3), device=device),
+        traj_ref=torch.full((T,), -1, dtype=torch.int32, device=device),
+        traj_valid=torch.zeros(T, dtype=torch.bool, device=device),
+        traj_stats=torch.zeros((T, 8), dtype=torch.int32, device=device))
+
+
+def _f32_lt_scaled(a: int, b: int, factor: float) -> bool:
+    """a < b * factor in float32, as the JAX package compares them."""
+    return bool(np.float32(a) < np.float32(b) * np.float32(factor))
+
+
+class AutoStep:
+    """The per-frame step: AutoState x (img, raw depth) -> AutoState.
+    ``build_auto_step`` makes one."""
+
+    def __init__(self, extractor: OrbExtractor, cfg: TrackerConfig,
+                 traj_capacity: int):
+        self.extractor = extractor
+        self.cfg = cfg
+        self.cam = cfg.cam
+        self.T = traj_capacity
+        self.k_max = cfg.map_cfg.k_max
+        self.th_depth = float(np.float32(cfg.depth_threshold))
+        self.depth_factor = float(np.float32(cfg.depth_factor))
+        self.maint_phases = [self.ph_fuse_in, self.ph_fuse_out, self.ph_merge,
+                             self.ph_refresh_cull, self.ph_ba1, self.ph_ba2]
+
+    def __call__(self, s: AutoState, img: torch.Tensor,
+                 depth_raw: torch.Tensor) -> AutoState:
+        cfg = self.cfg
+        feats, d = steps.extract_rgbd_features(
+            self.extractor, self.cam, img, depth_raw, self.depth_factor,
+            cfg.width, cfg.height)
+        return self.run_frame(s, feats, d)
+
+    def write_traj(self, s: AutoState, R, t, Rcr, tcr, ref: int, valid: bool,
+                   stats8: torch.Tensor) -> AutoState:
+        i = s.frame_idx % self.T
+
+        def put(a, v):
+            a = a.clone()
+            a[i] = v
+            return a
+
+        return s._replace(
+            traj_R=put(s.traj_R, R), traj_t=put(s.traj_t, t),
+            traj_Rcr=put(s.traj_Rcr, Rcr), traj_tcr=put(s.traj_tcr, tcr),
+            traj_ref=put(s.traj_ref, ref), traj_valid=put(s.traj_valid, valid),
+            traj_stats=put(s.traj_stats, stats8))
+
+    def _stats8(self, s: AutoState, col6: int = 0) -> torch.Tensor:
+        st = torch.zeros(8, dtype=torch.int32, device=s.last_t.device)
+        st[6] = col6
+        return st
+
+    def do_initialize(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
+        """StereoInitialization (Tracking.cc:584-636): more than
+        min_init_features valid features required."""
+        if int(feats.valid.sum()) <= self.cfg.min_init_features:
+            return s
+        dev = d.device
+        N = d.shape[0]
+        obs = steps.FrameObs(feats, d, torch.full((N,), -1, dtype=torch.int32,
+                                                  device=dev))
+        R = torch.eye(3, device=dev)
+        t = torch.zeros(3, device=dev)
+        m = steps.insert_keyframe(s.map, obs, R, t, s.frame_idx)
+        m = steps.create_depth_landmarks(m, self.cam, 0, 1e9)
+        s = s._replace(map=m, prev=steps.FrameObs(feats, d, m.kf_lm[0]),
+                       last_R=R, last_t=t, have_vel=False, ref_kf=0,
+                       last_kf_frame=s.frame_idx, initialized=True)
+        return self.write_traj(s, R, t, R, t, 0, True, self._stats8(s, 1))
+
+    # ---- amortized keyframe-maintenance phases (LocalMapping.cc:47-128) ----
+
+    def ph_fuse_in(self, m, nbrs, lam, kf):
+        """Covisibility window + inward fusion (LocalMapping.cc:589-633)."""
+        kk = min(N_NEIGHBORS, self.k_max)
+        top_w, top_i = sort_top_k(covisibility_weights(m, kf), kk)
+        nbrs = (torch.where(top_w > 0, top_i, -1).tolist()
+                + [-1] * (N_NEIGHBORS - kk))
+        cfg = self.cfg
+        m = steps.fuse_neighbors(m, self.cam, kf, nbrs[:5], cfg.width,
+                                 cfg.height, into=True)
+        return m, tuple(nbrs), lam
+
+    def ph_fuse_out(self, m, nbrs, lam, kf):
+        cfg = self.cfg
+        m = steps.fuse_neighbors(m, self.cam, kf, list(nbrs[:5]), cfg.width,
+                                 cfg.height, into=False)
+        return m, nbrs, lam
+
+    def ph_merge(self, m, nbrs, lam, kf):
+        return steps.merge_duplicate_landmarks(m, kf), nbrs, lam
+
+    def ph_refresh_cull(self, m, nbrs, lam, kf):
+        m = steps.refresh_landmarks_for_kf(m, kf)
+        return steps.cull_landmarks(m, kf), nbrs, lam
+
+    def ph_ba1(self, m, nbrs, lam, kf):
+        """Local BA chunk 1: 3 robust iterations (Optimizer.cc:689)."""
+        if max(nbrs) >= 0:
+            m, lam = steps.local_bundle_adjustment(
+                m, self.cam, kf, iters_a=3, erase_outliers=False,
+                init_lambda=1e-4)
+        return m, nbrs, lam
+
+    def ph_ba2(self, m, nbrs, lam, kf):
+        """Local BA chunk 2 (resumed damping) + outlier erasure + keyframe
+        culling (Optimizer.cc:739-807, LocalMapping.cc:775-841)."""
+        if max(nbrs) >= 0:
+            m, lam = steps.local_bundle_adjustment(
+                m, self.cam, kf, iters_a=2, erase_outliers=True,
+                init_lambda=lam)
+        return steps.cull_keyframes(m, kf, list(nbrs)), nbrs, lam
+
+    def do_track(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
+        cfg = self.cfg
+        n_kf = int(s.map.n_kf)
+        res = steps.track_frame_core(
+            self.cam, s.map, s.prev, s.last_R, s.last_t, s.vel_R, s.vel_t,
+            s.have_vel, s.ref_kf, feats, d, self.th_depth, cfg.desc_th,
+            cfg.desc_th_local, 2 if n_kf > 2 else 1, cfg.width, cfg.height)
+        _, _, track1_in, local_in, ref_matches, close_pack = (
+            res.stats.tolist())
+        now_lost = track1_in < 10 or local_in < 30
+        # NeedNewKeyFrame (Tracking.cc:1140-1244)
+        need_close = close_pack // 10000 < 100 and close_pack % 10000 > 70
+        th_ref = 0.4 if n_kf < 2 else 0.75
+        c1a = s.frame_idx - s.last_kf_frame >= cfg.fps
+        c1b = s.maint_kf < 0  # mapping idle: no keyframe under maintenance
+        c1c = _f32_lt_scaled(local_in, ref_matches, 0.25) or need_close
+        c2 = ((_f32_lt_scaled(local_in, ref_matches, th_ref) or need_close)
+              and local_in > 15)
+        live_kf = int(res.map.kf_valid.sum())
+        need_kf = ((c1a or c1b or c1c) and c2 and live_kf < self.k_max
+                   and not now_lost)
+        m = res.map
+        new_kf = -1
+        lm_after = res.lm
+        if need_kf:
+            if int(m.n_lm) + d.shape[0] > m.lm_pw.shape[0]:
+                raise NotImplementedError(
+                    "landmark slot compaction before keyframe insertion "
+                    "(n_lm + n_features > l_max) is not ported yet")
+            if n_kf >= self.k_max:
+                raise NotImplementedError(
+                    "keyframe slot compaction before keyframe insertion "
+                    "(n_kf == k_max) is not ported yet")
+            new_kf = n_kf
+            m = steps.insert_keyframe(
+                m, steps.FrameObs(res.feats, res.depth, res.lm), res.R, res.t,
+                s.frame_idx)
+            m = steps.create_depth_landmarks(m, self.cam, new_kf,
+                                             self.th_depth)
+            lm_after = m.kf_lm[new_kf]
+        inserted = new_kf >= 0
+        stats8 = torch.cat([res.stats, torch.tensor(
+            [int(inserted), 0], dtype=torch.int32, device=d.device)])
+        if now_lost:
+            # freeze: keep the map and pose (Tracking.cc:528)
+            s = s._replace(lost=s.frame_idx, have_vel=False)
+            return self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t,
+                                   s.ref_kf, False, stats8)
+        nbrs, lam = s.maint_neighbors, s.maint_lambda
+        mkf, phase = s.maint_kf, s.maint_phase
+        if not inserted and mkf >= 0:
+            step = self.maint_phases[min(max(phase, 0),
+                                         len(self.maint_phases) - 1)]
+            m, nbrs, lam = step(m, nbrs, lam, mkf)
+            phase += 1
+            if phase >= len(self.maint_phases):
+                phase, mkf = 0, -1
+        if inserted:  # a fresh insert (re)starts maintenance (mbAbortBA)
+            mkf, phase, nbrs = new_kf, 0, NO_NEIGHBORS
+            lam = torch.full_like(lam, 1e-4)
+        old_ref = s.ref_kf
+        s = s._replace(
+            map=m, prev=steps.FrameObs(res.feats, res.depth, lm_after),
+            last_R=res.R, last_t=res.t, vel_R=res.vel_R, vel_t=res.vel_t,
+            have_vel=True, ref_kf=new_kf if inserted else s.ref_kf,
+            last_kf_frame=s.frame_idx if inserted else s.last_kf_frame,
+            maint_kf=mkf, maint_phase=phase, maint_neighbors=nbrs,
+            maint_lambda=lam)
+        return self.write_traj(s, res.R, res.t, res.Rcr, res.tcr, old_ref,
+                               True, stats8)
+
+    def do_reset(self, s: AutoState) -> AutoState:
+        """Lost with an immature map resets the tracker (Tracking.cc:542-551);
+        the trajectory rings are kept."""
+        dev = s.last_t.device
+        eye = torch.eye(3, device=dev)
+        s = s._replace(
+            map=empty_map(self.cfg.map_cfg, dev),
+            prev=_empty_prev(self.cfg.n_features, dev),
+            last_R=eye, last_t=torch.zeros(3, device=dev), have_vel=False,
+            ref_kf=0, last_kf_frame=-1, initialized=False, lost=-1,
+            maint_kf=-1, maint_phase=0, maint_neighbors=NO_NEIGHBORS,
+            maint_lambda=torch.full_like(s.maint_lambda, 1e-4))
+        return self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t, 0,
+                               False, self._stats8(s, 3))
+
+    def run_frame(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
+        if s.lost >= 0:
+            if int(s.map.n_kf) <= 5:
+                s = self.do_reset(s)
+            else:  # no relocalization without a vocabulary: frame invalid
+                s = self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t,
+                                    s.ref_kf, False, self._stats8(s))
+        elif s.initialized:
+            s = self.do_track(s, feats, d)
+        else:
+            s = self.do_initialize(s, feats, d)
+        return s._replace(frame_idx=s.frame_idx + 1)
+
+
+def build_auto_step(extractor: OrbExtractor, cfg: TrackerConfig,
+                    traj_capacity: int) -> AutoStep:
+    return AutoStep(extractor, cfg, traj_capacity)
+
+
+@dataclass
+class AutoTrackerConfig:
+    traj_capacity: int = 4096  # trajectory ring size (frames)
+    # BoW loop closing and relocalization are not ported yet: the port
+    # runs only with loop_closing=False
+    loop_closing: bool = True
+
+
+class AutoTracker:
+    """RGB-D tracker whose map and trajectory live on ``device``.
+
+        tr = AutoTracker(cfg, AutoTrackerConfig(loop_closing=False))
+        for img, depth in frames:          # uint8 [H, W], uint16 [H, W]
+            tr.process_rgbd(img, depth)
+        result = tr.finalize()
+    """
+
+    def __init__(self, cfg: TrackerConfig,
+                 auto_cfg: AutoTrackerConfig | None = None,
+                 device="cuda"):
+        auto_cfg = auto_cfg or AutoTrackerConfig()
+        if cfg.map_cfg.n_feat != cfg.n_features:
+            raise ValueError("map_cfg.n_feat must equal n_features")
+        if auto_cfg.loop_closing:
+            raise NotImplementedError(
+                "loop closing and relocalization are not ported yet: use "
+                "AutoTrackerConfig(loop_closing=False)")
+        if cfg.sensor != "rgbd" or cfg.has_distortion:
+            raise NotImplementedError(
+                "the port runs undistorted RGB-D input only")
+        self.cfg = cfg
+        self.auto_cfg = auto_cfg
+        self.device = torch.device(device)
+        self.extractor = OrbExtractor(n_features=cfg.n_features)
+        self._step = build_auto_step(self.extractor, cfg,
+                                     auto_cfg.traj_capacity)
+        self.state = empty_auto_state(cfg, auto_cfg.traj_capacity,
+                                      self.device)
+        self.frame_count = 0
+        self.timestamps: list[float] = []
+
+    def process_rgbd(self, img, depth, timestamp: float | None = None):
+        """Track one frame: uint8 image and raw (e.g. uint16) depth, as
+        numpy arrays or tensors."""
+        self.timestamps.append(self.frame_count / self.cfg.fps
+                               if timestamp is None else timestamp)
+        self.frame_count += 1
+        if not isinstance(depth, torch.Tensor):
+            depth = np.asarray(depth).astype(np.int32)
+        self.state = self._step(self.state,
+                                torch.as_tensor(img).to(self.device),
+                                torch.as_tensor(depth).to(self.device))
+
+    def finalize(self) -> dict:
+        """The run's trajectory, flags and per-frame statistics, in frame
+        order."""
+        s = self.state
+        T = self.auto_cfg.traj_capacity
+        n = self.frame_count
+        order = np.arange(n) if n <= T else np.arange(n - T, n) % T
+
+        def host(a):
+            return a.cpu().numpy()[order]
+
+        return {
+            "R": host(s.traj_R), "t": host(s.traj_t),
+            "Rcr": host(s.traj_Rcr), "tcr": host(s.traj_tcr),
+            "ref_kf": host(s.traj_ref), "valid": host(s.traj_valid),
+            "stats": host(s.traj_stats),
+            "timestamps": np.asarray(self.timestamps[-len(order):]),
+            "lost_at": s.lost, "initialized": s.initialized,
+            "n_keyframes": int(s.map.n_kf), "n_frames": n,
+            "n_loops_closed": 0,
+            "n_obs_dropped": int(s.map.n_obs_drop),
+            "n_compact_kf": s.n_compact_kf, "n_compact_lm": s.n_compact_lm,
+        }
+
+    def trajectory_tum(self) -> list[str]:
+        """TUM lines (timestamp tx ty tz qx qy qz qw), camera->world
+        (SaveTrajectoryTUM, System.cc:336-394)."""
+        out = self.finalize()
+        lines = []
+        for i in range(len(out["timestamps"])):
+            if not out["valid"][i]:
+                continue
+            R, t = out["R"][i], out["t"][i]
+            Rwc = R.T
+            twc = -R.T @ t
+            qw, qx, qy, qz = se3.matrix_to_quat(
+                torch.as_tensor(np.ascontiguousarray(Rwc))).tolist()
+            lines.append(f"{out['timestamps'][i]:.6f} {twc[0]:.7f} "
+                         f"{twc[1]:.7f} {twc[2]:.7f} {qx:.7f} {qy:.7f} "
+                         f"{qz:.7f} {qw:.7f}")
+        return lines
