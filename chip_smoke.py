@@ -10,10 +10,11 @@ Phases (any failure raises and the script exits nonzero without the final
 2. Build the Hamming kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
    and print the build time and ptxas' register report.
 3. Hold both kernel entry points against their plain PyTorch versions on the
-   card, bit-exact, on random [300,257], [1000,1000], [8000,1000] and
-   [1024,8000] (the duplicate-landmark merge's grid) problems whose masks
-   include ties, all-masked rows and N = 1; time kernel and plain version
-   with CUDA events at the main path's largest shapes.
+   card, bit-exact, on random [300,257], [1000,1000], [8000,1000],
+   [1024,8000] (the duplicate-landmark merge's grid) and [4096,1000] (the
+   loop closer's projection searches) problems whose masks include ties,
+   all-masked rows and N = 1; time kernel and plain version with CUDA
+   events at the main path's largest shapes and at [4096,1000].
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track the same frames once more; assert
@@ -22,10 +23,43 @@ Phases (any failure raises and the script exits nonzero without the final
    launched.
 5. Run a 16-frame reduced-size slice on the card and on the CPU (plain
    versions) and compare keyframe decisions and poses.
+6. The default tracker, AutoTrackerConfig() (loop closing and
+   relocalization on), at the bench configuration: the 60-frame orbit,
+   3 black frames, then frames 2-4 again. Every build frame valid, the
+   black frames invalid, the first revisit frame relocalized (stats column
+   6 == 2) within 0.05 m of ground truth, not lost at the end, and no loop
+   closed (the JAX package closes none on this sequence on the CPU: the
+   orbit has no loop to close). Both kernels launch on the relocalization
+   frame. Prints the tracker's build time (vocabulary load and the
+   forward-mode AD warm-up), the ms of the frames that ran the
+   loop-closing phase and
+   of the relocalization frame, by stage on that first call and on a
+   second call from the same state and random draws.
+7. A controlled loop at full width (tests/test_auto_loop.py's scenario):
+   640x480, 1000 features, MapConfig(20, 1000, 10000, 8), a 14-frame lap
+   plus 4 frames, drift injected into the poses the map is told for
+   keyframes 8-13, driven through keyframe_step + close_loop_step. A loop
+   fires at a keyframe >= 10, the corrected keyframe's error falls below
+   0.35 of its error before, keyframe 0 stays within 1e-3 m. Prints the ms
+   of the close_loop_step that fires, by stage on that first call and on a
+   second call from the same input and random draws.
+8. Slot compaction with loop closing on, every frame valid and median
+   error < 0.02 m: the landmark-pressure configuration of
+   tests/test_auto.py (MapConfig(12, 1000, 2500, 8), the 40-frame orbit)
+   compacts landmarks (n_compact_lm >= 1); the first 40 frames of the
+   60-frame orbit with 2% depth noise (SyntheticWorld(seed=1,
+   depth_noise=0.02)) at MapConfig(12, 1000, 8000, 8) compact keyframes
+   (n_compact_kf >= 1). The noise keeps the tracked share low, so a
+   keyframe is inserted at nearly every early frame, maintenance culls a
+   redundant one, and the insert at frame 33 recycles its slot. The JAX
+   package does the same on the CPU: inserts at frames 0-4, 6, 7, 9, 12,
+   13, 16, 21 and 33, n_compact_kf = 1, median error 4.7 mm.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is the JSON ``ok`` record.
 """
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -36,11 +70,18 @@ import torch
 
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     SyntheticWorld, orbit_trajectory)
-from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
+from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
+from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
+from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming
+from orb_slam2_with_comment_tpu_torch.pipeline import auto_loop, steps
 from orb_slam2_with_comment_tpu_torch.pipeline.auto import (
     AutoTracker, AutoTrackerConfig)
 from orb_slam2_with_comment_tpu_torch.pipeline.tracking import TrackerConfig
+from orb_slam2_with_comment_tpu_torch.place import vocabulary as V
+from orb_slam2_with_comment_tpu_torch.solvers import pnp
+
+BENCH_MAP = MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=8)
 
 
 def log(*a):
@@ -83,7 +124,7 @@ def check_kernels(dev):
     gen = torch.Generator().manual_seed(0)
     err_bt = err_dm = 0
     for q, n in ((300, 257), (1000, 1000), (8000, 1000), (1024, 8000),
-                 (37, 1), (1, 5)):
+                 (4096, 1000), (37, 1), (1, 5)):
         dq, dt, mask = random_problem(gen, q, n, dev)
         got = hamming.masked_best_two(dq, dt, mask)
         want = hamming.masked_best_two_plain(dq, dt, mask)
@@ -110,6 +151,12 @@ def check_kernels(dev):
     dm_plain = cuda_ms(lambda: hamming.distance_matrix_plain(dr, dl), 5)
     log(f"masked_best_two [8000,1000]: kernel {bt_ms:.4f} ms, plain "
         f"{bt_plain:.4f} ms")
+    dq, dt, mask = random_problem(gen, 4096, 1000, dev)  # the loop's searches
+    log(f"masked_best_two [4096,1000]: kernel "
+        f"{cuda_ms(lambda: hamming.masked_best_two(dq, dt, mask), 50):.4f} "
+        f"ms, plain "
+        f"{cuda_ms(lambda: hamming.masked_best_two_plain(dq, dt, mask), 5):.4f}"
+        f" ms")
     log(f"distance_matrix [1024,8000]: kernel {dm_ms:.4f} ms, plain "
         f"{dm_plain:.4f} ms")
     src = "orb_slam2_with_comment_tpu_torch/csrc/hamming.cu"
@@ -124,10 +171,39 @@ def check_kernels(dev):
     ]
 
 
+def reset_launches():
+    for k in hamming.LAUNCHES:
+        hamming.LAUNCHES[k] = 0
+
+
+def bench_cfg(map_cfg=BENCH_MAP):
+    """The bench configuration (bench.py:74-77)."""
+    return TrackerConfig(n_features=1000, min_init_features=200,
+                         map_cfg=map_cfg, fps=30, depth_factor=1.0 / 5000.0)
+
+
+def synced_ms(fn) -> float:
+    """Host-clock ms of fn() between two device syncs."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)  # a rehearsal of a phase on the CPU
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return 1000 * (time.perf_counter() - t0)
+
+
 def render_frames(world, poses, **cam):
     return [(np.clip(img, 0, 255).astype(np.uint8),
              np.clip(depth * 5000.0, 0, 65535).astype(np.uint16))
             for img, depth in (world.render(R, t, **cam) for R, t in poses)]
+
+
+@functools.lru_cache(maxsize=None)
+def orbit_frames(n: int):
+    """The n-frame synthetic orbit at 640x480, rendered once per run (a
+    render takes longer than a tracked frame)."""
+    return render_frames(SyntheticWorld(seed=1), orbit_trajectory(n_frames=n))
 
 
 def pose_errors(out, poses, offset=0):
@@ -142,10 +218,9 @@ def pose_errors(out, poses, offset=0):
 
 def run_slice(dev):
     """Phase 4: the full-width RGB-D slice, counted launches, timed passes."""
-    world = SyntheticWorld(seed=1)
     n = 60
     poses = orbit_trajectory(n_frames=n)
-    frames = render_frames(world, poses)
+    frames = orbit_frames(n)
     cfg = TrackerConfig(
         n_features=1000, min_init_features=200,
         map_cfg=MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=8),
@@ -218,6 +293,233 @@ def compare_devices(dev):
     assert dt < 1e-3, "card and CPU poses differ"
 
 
+def run_default(dev):
+    """Phase 6: AutoTrackerConfig() at the bench configuration, with a
+    kidnap (3 black frames) and a revisit that must relocalize."""
+    n = 60
+    poses = orbit_trajectory(n_frames=n)
+    frames = orbit_frames(n)
+    black =(np.zeros((480, 640), np.uint8), np.zeros((480, 640), np.uint16))
+    seq = frames + [black] * 3 + frames[2:5]
+    r = n + 3  # the first revisit frame
+    box = {}
+    ctor_ms = synced_ms(lambda: box.setdefault("t", AutoTracker(
+        bench_cfg(), AutoTrackerConfig(), device=dev)))
+    tracker = box["t"]
+    log(f"default tracker: built in {ctor_ms:.2f} ms (the vocabulary's "
+        f"load and the forward-mode AD warm-up, the first in this run)")
+    n_phases = len(tracker._step.maint_phases)
+    assert n_phases == 7, "loop closing is not the seventh phase"
+    reset_launches()
+    loop_ms, build_ms = [], []
+    for i, (img, depth) in enumerate(seq):
+        s = tracker.state
+        may_loop = (s.initialized and s.lost < 0 and s.maint_kf >= 0
+                    and s.maint_phase == n_phases - 1)
+        before, gen_state = dict(hamming.LAUNCHES), s.loop.gen.get_state()
+        with stage_ms(*(RELOC_STAGES if i == r else ())) as cold:
+            ms = synced_ms(lambda: tracker.process_rgbd(img, depth))
+        if may_loop and tracker.state.maint_kf < 0:  # ph_loop ran
+            loop_ms.append(ms)
+        if i < n:
+            build_ms.append(ms)
+        if i == r:
+            reloc_ms, reloc_cold = ms, cold
+            reloc_launches = {k: hamming.LAUNCHES[k] - before[k]
+                              for k in before}
+            # the same frame again from the same state: the warm cost
+            reloc_warm = warm_rerun(lambda: tracker._step(
+                s, torch.as_tensor(img, device=dev),
+                torch.as_tensor(depth.astype(np.int32), device=dev)),
+                s.loop.gen, gen_state, RELOC_STAGES)
+    launches = dict(hamming.LAUNCHES)
+    out = tracker.finalize()
+    t_err = float(np.linalg.norm(out["t"][r] - poses[2][1]))
+    log(f"default tracker: valid={int(out['valid'].sum())}/{len(seq)} "
+        f"keyframes={out['n_keyframes']} lost_at={out['lost_at']} "
+        f"loops={out['n_loops_closed']} reloc frame {r}: stats "
+        f"{out['stats'][r].tolist()} t err {t_err:.5f} m")
+    log(f"default tracker: build frames median {np.median(build_ms):.2f} "
+        f"ms; ph_loop frames {[round(v, 2) for v in loop_ms]} ms; "
+        f"relocalization frame {reloc_ms:.2f} ms (host clock, synced)")
+    log(f"default tracker: relocalization frame by stage (ms, synced): "
+        f"first {reloc_cold}, again {reloc_warm}")
+    log(f"default tracker launches: run {launches}, relocalization frame "
+        f"{reloc_launches}")
+    assert out["valid"][:n].all(), "a build frame is invalid"
+    assert not out["valid"][n:r].any(), "a black frame is valid"
+    assert out["valid"][r:].all() and out["stats"][r, 6] == 2, \
+        "did not relocalize at the first revisit frame"
+    assert t_err < 0.05, "relocalized pose error"
+    assert out["lost_at"] == -1
+    assert out["n_loops_closed"] == 0, "the JAX package closes no loop here"
+    assert loop_ms, "no frame ran the loop-closing phase"
+    assert reloc_launches["masked_best_two"] > 0
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} never launched on the main path"
+    return launches, {"ph_loop_ms": loop_ms, "reloc_ms": reloc_ms}
+
+
+@contextlib.contextmanager
+def stage_ms(*targets):
+    """Within the block, each (module, function name) of ``targets`` adds
+    the synced host-clock ms of its calls to the yielded dict (nested
+    stages count in their callers too)."""
+    out = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            box = {}
+            ms = synced_ms(lambda: box.setdefault("r", fn(*a, **kw)))
+            out[name] = round(out.get(name, 0.0) + ms, 2)
+            return box["r"]
+        return run
+
+    saved = [getattr(mod, name) for mod, name in targets]
+    try:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, timed(
+                f"{mod.__name__.rsplit('.', 1)[-1]}.{name}", fn))
+        yield out
+    finally:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
+
+
+RELOC_STAGES = ((steps, "extract_rgbd_features"), (V, "transform"),
+                (msearch, "search_brute"), (pnp, "solve_ransac"),
+                (steps, "_pose_optimize_from_matches"),
+                (steps, "track_local_map"))
+LOOP_STAGES = ((auto_loop, "add_keyframe_bow"), (auto_loop, "detect"),
+               (auto_loop, "sim3_solve"),
+               (auto_loop.sim3solver, "solve_ransac"),
+               (auto_loop, "sim3_grow_matches"),
+               (auto_loop.sim3_opt, "optimize_sim3"),
+               (auto_loop, "sim3_accept_gate"), (auto_loop, "correct_loop"),
+               (steps, "loop_search_and_fuse"),
+               (auto_loop.pose_graph, "optimize_pose_graph"),
+               (auto_loop.ba, "ba_solve"))
+
+
+def warm_rerun(fn, gen: torch.Generator, gen_state, stages) -> dict:
+    """fn() once more with the generator rewound to ``gen_state``, timed
+    by stage; the generator and the launch counts are left as they were."""
+    after, counts = gen.get_state(), dict(hamming.LAUNCHES)
+    gen.set_state(gen_state)
+    with stage_ms(*stages) as out:
+        fn()
+    gen.set_state(after)
+    hamming.LAUNCHES.update(counts)
+    return out
+
+
+def run_controlled_loop(dev):
+    """Phase 7: tests/test_auto_loop.py's controlled loop at full width,
+    through keyframe_step + close_loop_step."""
+    cfg = TrackerConfig(
+        n_features=1000, min_init_features=200,
+        map_cfg=MapConfig(k_max=20, n_feat=1000, l_max=10000, d_max=8),
+        fps=30, depth_factor=1.0)
+    world = SyntheticWorld(seed=1)
+    lap = orbit_trajectory(n_frames=14)
+    poses = lap + lap[:4]
+    ext = OrbExtractor(n_features=1000)
+    voc = V.load_default_vocabulary(dev)
+    auto_loop.warm_up_autodiff()  # as AutoTracker does (cheap after it)
+    cam = cfg.cam
+    th_depth = float(np.float32(cfg.depth_threshold))
+    m = empty_map(cfg.map_cfg, dev)
+    loop = auto_loop.empty_loop_carry(cfg.map_cfg.k_max, 1000, dev)
+    drift = np.zeros(3, np.float32)
+    events, err_before, fire_ms, stages = [], None, None, {}
+    reset_launches()
+    for k, (R, t) in enumerate(poses):
+        img, depth = world.render(R, t)
+        feats, d = steps.extract_rgbd_features(
+            ext, cam, torch.as_tensor(np.clip(img, 0, 255).astype(
+                np.float32), device=dev),
+            torch.as_tensor(depth, device=dev), 1.0, cfg.width, cfg.height)
+        obs = steps.FrameObs(feats, d, torch.full(
+            (d.shape[0],), -1, dtype=torch.int32, device=dev))
+        if 8 <= k < 14:
+            drift = drift + np.float32([0.015, 0.0, 0.008])
+        m = steps.keyframe_step(
+            m, cam, obs, torch.as_tensor(R, device=dev),
+            torch.as_tensor(t + drift, device=dev), k, th_depth, cfg.width,
+            cfg.height)
+        n_before = loop.n_loops
+        if err_before is None:
+            err_now = float(np.linalg.norm(m.kf_t[k].cpu().numpy()
+                                           - poses[k][1]))
+        box = {}
+
+        def close(loop=loop, m=m, k=k):
+            box["r"] = auto_loop.close_loop_step(
+                loop, m, cam, k, voc, fix_scale=True, width=cfg.width,
+                height=cfg.height)
+
+        gen_state = loop.gen.get_state()
+        with stage_ms(*LOOP_STAGES) as cold:
+            ms = synced_ms(close)
+        m, loop = box["r"]
+        if loop.n_loops > n_before:
+            events.append(k)
+            if err_before is None:
+                err_before, fire_ms, stages = err_now, ms, {"first": cold}
+                # the same step again from the same input and draws
+                stages["again"] = warm_rerun(close, loop.gen, gen_state,
+                                             LOOP_STAGES)
+    launches = dict(hamming.LAUNCHES)
+    assert events, "no loop closed over a perfect revisit"
+    k0 = events[0]
+    err_after = float(np.linalg.norm(m.kf_t[k0].cpu().numpy() - poses[k0][1]))
+    anchor = float(np.abs(m.kf_t[0].cpu().numpy() - poses[0][1]).max())
+    log(f"controlled loop: fired at keyframes {events}, error {err_before:.5f}"
+        f" -> {err_after:.5f} m, keyframe 0 moved {anchor:.2e} m, the firing "
+        f"close_loop_step took {fire_ms:.2f} ms (host clock, synced); "
+        f"launches {launches}")
+    log(f"controlled loop: the firing step by stage (ms, synced): {stages}")
+    assert k0 >= 10 and err_before > 0.05
+    assert err_after < 0.35 * err_before, "loop correction did not reduce drift"
+    assert anchor < 1e-3, "keyframe 0 moved"
+    assert torch.isfinite(m.kf_t).all() and torch.isfinite(m.lm_pw).all()
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} never launched on the loop path"
+    return launches, fire_ms
+
+
+def run_compaction(dev):
+    """Phase 8: landmark and keyframe slot compaction with loop closing
+    on."""
+    results = {}
+    for name, map_cfg, poses, noise, key in (
+            ("landmark pressure", MapConfig(12, 1000, 2500, 8),
+             orbit_trajectory(n_frames=40), 0.0, "n_compact_lm"),
+            ("noisy depth", MapConfig(12, 1000, 8000, 8),
+             orbit_trajectory(n_frames=60)[:40], 0.02, "n_compact_kf")):
+        frames = render_frames(SyntheticWorld(seed=1, depth_noise=noise),
+                               poses)
+        tracker = AutoTracker(bench_cfg(map_cfg), AutoTrackerConfig(
+            traj_capacity=len(frames)), device=dev)
+        reset_launches()
+        for img, depth in frames:
+            tracker.process_rgbd(img, depth)
+        launches = dict(hamming.LAUNCHES)
+        out = tracker.finalize()
+        t_med, r_med = pose_errors(out, poses)
+        log(f"compaction ({name}): n_compact_lm={out['n_compact_lm']} "
+            f"n_compact_kf={out['n_compact_kf']} "
+            f"valid={int(out['valid'].sum())}/{len(frames)} keyframe slots "
+            f"{out['n_keyframes']} inserted at "
+            f"{np.nonzero(out['stats'][:, 6] == 1)[0].tolist()} median t err "
+            f"{t_med:.5f} m, rot err {r_med:.4f} deg; launches {launches}")
+        assert out[key] >= 1, f"{key} == 0"
+        assert out["valid"].all() and out["lost_at"] == -1
+        assert t_med < 0.02, "pose error gate"
+        results[name] = launches
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -236,9 +538,12 @@ def main():
     log(f"built csrc/hamming.cu in {time.perf_counter() - t0:.2f} s")
     log(cuda_lib.build_logs.get("hamming", "").strip())
     rows = check_kernels(dev)
-    launches = run_slice(dev)
+    run_slice(dev)
     compare_devices(dev)
-    for row in rows:
+    launches, _ = run_default(dev)
+    run_controlled_loop(dev)
+    run_compaction(dev)
+    for row in rows:  # the main path: the default tracker of phase 6
         row["launches"] = launches[row["name"].removeprefix("hamming_")]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ MapState / AutoState NamedTuple of numpy arrays, or a dict keyed by the
 same field names (nested for ``prev`` and its ``feats``). They return the
 port's state on ``device``. ``*_to_numpy`` give back dicts keyed by the
 JAX field names, with descriptors as uint32 again. Nothing here imports
-JAX. The JAX AutoState's loop-closing carry and monocular bootstrap id
-have no counterpart in the port and are ignored.
+JAX. The JAX AutoState's monocular bootstrap id has no counterpart in the
+port and is ignored. Its loop carry's PRNG key has none either: a carry
+made here starts a fresh torch.Generator seeded with auto_loop.SEED (7, as
+the JAX carry's PRNGKey(7)), so random draws after a conversion differ
+from the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,12 +18,16 @@ import torch
 
 from .mapstate.map import MapState
 from .matching.search import FeatureSet
+from .pipeline import auto_loop
 from .pipeline.auto import AutoState
 from .pipeline.steps import FrameObs
 
 _DESC_FIELDS = ("kf_desc", "lm_desc", "desc")
 _AUTO_HOST_INT = ("ref_kf", "last_kf_frame", "frame_idx", "lost", "maint_kf",
                   "maint_phase", "n_compact_lm", "n_compact_kf")
+_LOOP_TENSORS = ("bow_idx", "bow_w", "prev_groups", "prev_counts",
+                 "loop_edges")
+_LOOP_HOST_INT = ("last_loop_kf", "n_loops")
 _AUTO_TENSORS = ("last_R", "last_t", "vel_R", "vel_t", "maint_lambda",
                  "traj_R", "traj_t", "traj_Rcr", "traj_tcr", "traj_ref",
                  "traj_valid", "traj_stats")
@@ -51,6 +58,18 @@ def map_to_numpy(m: MapState) -> dict:
     return {f: _to_numpy(f, getattr(m, f)) for f in MapState._fields}
 
 
+def loop_from_numpy(c, device) -> auto_loop.LoopCarry:
+    out = {f: _to_tensor(f, _get(c, f), device) for f in _LOOP_TENSORS}
+    out.update({f: int(np.asarray(_get(c, f))) for f in _LOOP_HOST_INT})
+    return auto_loop.LoopCarry(gen=auto_loop.new_generator(device), **out)
+
+
+def loop_to_numpy(c: auto_loop.LoopCarry) -> dict:
+    out = {f: _to_numpy(f, getattr(c, f)) for f in _LOOP_TENSORS}
+    out.update({f: np.int32(getattr(c, f)) for f in _LOOP_HOST_INT})
+    return out
+
+
 def _prev_from_numpy(p, device) -> FrameObs:
     feats = _get(p, "feats")
     return FrameObs(
@@ -69,6 +88,7 @@ def auto_state_from_numpy(s, device) -> AutoState:
     out["maint_neighbors"] = tuple(
         int(v) for v in np.asarray(_get(s, "maint_neighbors")))
     out["map"] = map_from_numpy(_get(s, "map"), device)
+    out["loop"] = loop_from_numpy(_get(s, "loop"), device)
     out["prev"] = _prev_from_numpy(_get(s, "prev"), device)
     return AutoState(**out)
 
@@ -80,6 +100,7 @@ def auto_state_to_numpy(s: AutoState) -> dict:
     out["initialized"] = np.bool_(s.initialized)
     out["maint_neighbors"] = np.asarray(s.maint_neighbors, np.int32)
     out["map"] = map_to_numpy(s.map)
+    out["loop"] = loop_to_numpy(s.loop)
     out["prev"] = {"feats": {f: _to_numpy(f, getattr(s.prev.feats, f))
                              for f in FeatureSet._fields},
                    "depth": _to_numpy("depth", s.prev.depth),

@@ -129,6 +129,29 @@ def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
     return w * m.kf_valid.to(I32)
 
 
+def covisibility_matrix(m: MapState) -> torch.Tensor:
+    """[K, K] int32 covisibility weights of every keyframe pair, by the
+    same registered-observation rule as covisibility_weights; zero on the
+    diagonal and for dead keyframes."""
+    K, N = m.kf_lm.shape
+    dev = m.kf_lm.device
+    safe = m.kf_lm.clamp(min=0).long()
+    ok = (m.kf_lm >= 0) & m.kf_feat_valid & m.lm_valid[safe]  # [K, N]
+    rows = m.lm_obs_kf[safe]  # [K, N, D]
+    feat = m.lm_obs_feat[safe]
+    kf_ids = torch.arange(K, dtype=I32, device=dev)
+    primary = ((rows == kf_ids[:, None, None])
+               & (feat == torch.arange(N, dtype=I32, device=dev)[None, :, None])
+               ).any(2)
+    contrib = ((ok & primary)[:, :, None] & (rows >= 0)).to(I32)
+    flat = kf_ids[:, None, None].long() * K + rows.clamp(min=0).long()
+    W = torch.zeros(K * K, dtype=I32, device=dev).index_add(
+        0, flat.reshape(-1), contrib.reshape(-1)).reshape(K, K)
+    W = W * (1 - torch.eye(K, dtype=I32, device=dev))
+    kv = m.kf_valid.to(I32)
+    return W * kv[:, None] * kv[None, :]
+
+
 def landmark_obs_count(m: MapState) -> torch.Tensor:
     """[L] number of observations per landmark."""
     return (m.lm_obs_kf >= 0).sum(1, dtype=I32)
@@ -221,3 +244,76 @@ def merge_landmarks(m: MapState, keep, kill, mask) -> MapState:
     m = m._replace(kf_lm=kf_lm, lm_valid=lm_valid, lm_found=found,
                    lm_visible=visible)
     return rebuild_observations(m)
+
+
+def landmark_compaction_order(lm_valid: torch.Tensor) -> torch.Tensor:
+    """new->old landmark permutation of compact_landmarks: live rows
+    first, in slot order."""
+    return torch.argsort((~lm_valid).to(torch.uint8), stable=True)
+
+
+def compact_landmarks(m: MapState) -> MapState:
+    """Pack live landmarks to the front of the slot arrays, remap the
+    keyframe back-references and rewind n_lm to the live count (slots are
+    append-only; culls and merges only clear lm_valid)."""
+    L = m.lm_pw.shape[0]
+    order = landmark_compaction_order(m.lm_valid)
+    inv = torch.empty(L, dtype=I32, device=order.device)
+    inv[order] = torch.arange(L, dtype=I32, device=order.device)
+
+    def take(a):
+        return a[order]
+
+    return m._replace(
+        lm_pw=take(m.lm_pw), lm_valid=take(m.lm_valid),
+        lm_desc=take(m.lm_desc), lm_normal=take(m.lm_normal),
+        lm_dmin=take(m.lm_dmin), lm_dmax=take(m.lm_dmax),
+        lm_visible=take(m.lm_visible), lm_found=take(m.lm_found),
+        lm_first_kf=take(m.lm_first_kf), lm_ref_kf=take(m.lm_ref_kf),
+        lm_obs_kf=take(m.lm_obs_kf), lm_obs_feat=take(m.lm_obs_feat),
+        kf_lm=torch.where(m.kf_lm >= 0, inv[m.kf_lm.clamp(min=0).long()], -1),
+        n_lm=m.lm_valid.sum(dtype=I32))
+
+
+def keyframe_compaction(kf_valid: torch.Tensor):
+    """(order, rank) of compact_keyframes: the new->old permutation (live
+    slots first, in slot order) and, for every old slot, the number of
+    live slots before it (its new slot when it is live)."""
+    order = torch.argsort((~kf_valid).to(torch.uint8), stable=True)
+    live = kf_valid.to(I32)
+    return order, torch.cumsum(live, 0, dtype=I32) - live
+
+
+def compact_keyframes(m: MapState) -> MapState:
+    """Pack live keyframes to the front of the slot arrays (order kept)
+    and reset n_kf. Observation rows are remapped and repacked (entries
+    of evicted keyframes dropped), and landmark first/ref anchors move to
+    the live rank, which keeps their order. Holders of keyframe slots
+    outside the map remap them with keyframe_compaction's rank."""
+    K = m.kf_R.shape[0]
+    order, rank = keyframe_compaction(m.kf_valid)
+    n_live = m.kf_valid.sum(dtype=I32)
+
+    def take(a):
+        return a[order]
+
+    def remap_anchor(a):
+        return torch.minimum(rank[a.clamp(0, K - 1).long()],
+                             (n_live - 1).clamp(min=0))
+
+    obs = m.lm_obs_kf.clamp(min=0).long()
+    alive = (m.lm_obs_kf >= 0) & m.kf_valid[obs]
+    new_obs_kf = torch.where(alive, rank[obs], -1)
+    holes = torch.argsort((new_obs_kf < 0).to(torch.uint8), dim=1,
+                          stable=True)
+    return m._replace(
+        kf_R=take(m.kf_R), kf_t=take(m.kf_t), kf_valid=take(m.kf_valid),
+        kf_frame_id=take(m.kf_frame_id), kf_xy=take(m.kf_xy),
+        kf_ur=take(m.kf_ur), kf_depth=take(m.kf_depth),
+        kf_octave=take(m.kf_octave), kf_angle=take(m.kf_angle),
+        kf_desc=take(m.kf_desc), kf_feat_valid=take(m.kf_feat_valid),
+        kf_lm=take(m.kf_lm),
+        lm_obs_kf=new_obs_kf.gather(1, holes),
+        lm_obs_feat=m.lm_obs_feat.gather(1, holes),
+        lm_first_kf=remap_anchor(m.lm_first_kf),
+        lm_ref_kf=remap_anchor(m.lm_ref_kf), n_kf=n_live)

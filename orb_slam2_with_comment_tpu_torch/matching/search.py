@@ -33,6 +33,10 @@ def scale_at(octave):
     return _table_at(SCALE_FACTORS, octave)
 
 
+def sigma2_at(octave):
+    return _table_at(SIGMA2, octave)
+
+
 def inv_sigma2_at(octave):
     return _table_at(INV_SIGMA2, octave)
 
@@ -185,3 +189,72 @@ def fuse_candidates(cam, R, t, lm: LandmarkSet, feats: FeatureSet,
     matched = best <= core.TH_LOW
     matched &= core.dedupe_matches(idx, best, matched, feats.desc.shape[0])
     return idx, best, matched
+
+
+def search_by_sim3(cam, R12, t12, s12, R1w, t1w, R2w, t2w,
+                   lm1: LandmarkSet, lm2: LandmarkSet, feats1: FeatureSet,
+                   feats2: FeatureSet, th: float = 7.5):
+    """Mutual Sim3 cross-projection matching (reference: ORBmatcher.cc:
+    1285+ SearchBySim3) for per-feature landmark bundles (landmark row i
+    is feature i of its keyframe, the loop closer's layout): keyframe 2's
+    landmarks go into image 1 through S12 and keyframe 1's into image 2
+    through S12^-1, radius th * scale[predicted level], TH_HIGH, no ratio
+    test; only mutually consistent pairs are kept.
+    Returns (idx [M1] feature of keyframe 2 per landmark of keyframe 1,
+    mutual [M1])."""
+    def project_side(Rrel, trel, srel, Rw, tw, lm_src: LandmarkSet,
+                     feats_dst: FeatureSet):
+        Xc_dst = srel * (se3.transform(Rw, tw, lm_src.pw) @ Rrel.T) + trel
+        z = Xc_dst[:, 2]
+        iz = 1.0 / torch.where(z.abs() < 1e-9, 1e-9, z)
+        u = cam.fx * Xc_dst[:, 0] * iz + cam.cx
+        v = cam.fy * Xc_dst[:, 1] * iz + cam.cy
+        dist = torch.linalg.norm(Xc_dst, dim=-1)
+        lvl = predict_scale(dist, lm_src.dmax)
+        ok = (z > 0) & (dist >= lm_src.dmin) & (dist <= lm_src.dmax) \
+            & lm_src.valid
+        in_win, _, _ = _in_window(feats_dst, u, v, th * scale_at(lvl))
+        ot = feats_dst.octave[None, :]
+        mask = (in_win & (ot >= lvl[:, None] - 1) & (ot <= lvl[:, None] + 1)
+                & ok[:, None] & feats_dst.valid[None, :])
+        best, idx, _, _ = hamming.masked_best_two(lm_src.desc,
+                                                  feats_dst.desc, mask)
+        return idx, best <= core.TH_HIGH
+
+    R21 = R12.T
+    t21 = -(R21 @ t12) / s12
+    idx_f1_of_lm2, ok21 = project_side(R12, t12, s12, R2w, t2w, lm2, feats1)
+    idx_f2_of_lm1, ok12 = project_side(R21, t21, 1.0 / s12, R1w, t1w, lm1,
+                                       feats2)
+    lm2_of_lm1 = torch.where(ok12, idx_f2_of_lm1, -1)
+    lm1_of_lm2 = torch.where(ok21, idx_f1_of_lm2, -1)
+    back = lm1_of_lm2[lm2_of_lm1.clamp(0, lm1_of_lm2.shape[0] - 1).long()]
+    ids = torch.arange(lm2_of_lm1.shape[0], dtype=torch.int32,
+                       device=back.device)
+    return lm2_of_lm1, (lm2_of_lm1 >= 0) & (back == ids)
+
+
+def search_by_scw_projection(cam, Rcw, tcw, scw, lm: LandmarkSet,
+                             feats: FeatureSet, already_matched, width: int,
+                             height: int, th: float = 10.0):
+    """Sim3 world->camera projection search (reference: ORBmatcher.cc:
+    359-478, the loop-group projection of ComputeSim3, LoopClosing.cc:
+    459-471): Rcw stays, tcw / scw is the SE3 translation; z > 0, in the
+    image, distance within [dmin, dmax], viewing cos >= 0.5, feature level
+    in [pred-1, pred], window th * scale[pred], TH_LOW, features already
+    matched excluded. Returns (feat_idx [M], matched [M])."""
+    t_se3 = tcw / scw.clamp(min=1e-12)
+    z, u, v, _ = _project(cam, Rcw, t_se3, lm.pw)
+    PO = lm.pw - (-(Rcw.T @ t_se3))
+    dist = torch.linalg.norm(PO, dim=-1)
+    view_cos = (PO * lm.normal).sum(-1) / dist.clamp(min=1e-9)
+    lvl = predict_scale(dist, lm.dmax)
+    ok = (lm.valid & (z > 0) & (u >= 0) & (u < width) & (v >= 0)
+          & (v < height) & (dist >= lm.dmin) & (dist <= lm.dmax)
+          & (view_cos >= 0.5))
+    in_win, _, _ = _in_window(feats, u, v, th * scale_at(lvl))
+    ot = feats.octave[None, :]
+    mask = (in_win & (ot >= lvl[:, None] - 1) & (ot <= lvl[:, None])
+            & ok[:, None] & feats.valid[None, :] & ~already_matched[None, :])
+    best, idx, _, _ = hamming.masked_best_two(lm.desc, feats.desc, mask)
+    return idx, best <= core.TH_LOW

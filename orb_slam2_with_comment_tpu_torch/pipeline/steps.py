@@ -594,3 +594,58 @@ def local_bundle_adjustment(m: MapState, cam, cur_kf: int, iters_a: int = 5,
             lm_valid=set_last(m.lm_valid, sel, m.lm_valid[sel] & torch.where(
                 g_ok, nobs_after > 0, True)))
     return m, res.final_lambda
+
+
+def loop_search_and_fuse(m: MapState, cam, loop_lm_mask, group_kfs: list[int],
+                         width: int, height: int,
+                         lm_cap: int = 4096) -> MapState:
+    """SearchAndFuse (reference: LoopClosing.cc:725-754): project the loop
+    group's landmarks (the first ``lm_cap`` of ``loop_lm_mask`` [L]) into
+    each corrected keyframe of ``group_kfs`` (-1 padded), radius th=4;
+    observations go onto free features, and a conflicting landmark is
+    always replaced by the loop landmark (:746-752)."""
+    L = m.lm_pw.shape[0]
+    dev = m.lm_pw.device
+    sel, g_ok = gather_mask_indices(loop_lm_mask & m.lm_valid, min(lm_cap, L))
+    C = sel.shape[0]
+    sel_i = sel.to(I32)
+    for j in group_kfs:
+        if j < 0:
+            continue
+        ok_lm = g_ok & m.lm_valid[sel]
+        lmset = LandmarkSet(m.lm_pw[sel], m.lm_normal[sel], m.lm_dmin[sel],
+                            m.lm_dmax[sel], m.lm_desc[sel], ok_lm)
+        idx, _, matched = msearch.fuse_candidates(
+            cam, m.kf_R[j], m.kf_t[j], lmset, _kf_featureset(m, j), width,
+            height, th=4.0)
+        feat_free = m.kf_lm[j, idx.long()] < 0
+        already = (m.lm_obs_kf[sel] == j).any(1)
+        ok = matched & feat_free & ~already & ok_lm
+        m = add_observation(m, sel_i, _full(C, j, dev), idx, ok)
+        other = m.kf_lm[j, idx.long()]
+        dup = (matched & ok_lm & (other >= 0) & (other != sel_i)
+               & m.lm_valid[sel])
+        m = merge_landmarks(m, sel_i, other.clamp(min=0), dup)
+    return m
+
+
+def keyframe_step(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
+                  th_depth: float, width: int, height: int) -> MapState:
+    """A whole keyframe maintenance chunk at once: insertion, the top-5
+    covisible neighbors, inward fusion, depth landmarks, outward fusion,
+    duplicate merge, landmark refresh and culling, local BA (when the
+    keyframe has a neighbor) and keyframe culling over the top-10."""
+    k = int(m.n_kf)
+    m = insert_keyframe(m, obs, R, t, frame_id)
+    top_w, top_i = sort_top_k(covisibility_weights(m, k), 10)
+    window = torch.where(top_w > 0, top_i, -1).tolist()
+    neighbors = window[:5]
+    m = fuse_neighbors(m, cam, k, neighbors, width, height, into=True)
+    m = create_depth_landmarks(m, cam, k, th_depth)
+    m = fuse_neighbors(m, cam, k, neighbors, width, height, into=False)
+    m = merge_duplicate_landmarks(m, k)
+    m = refresh_landmarks_for_kf(m, k)
+    m = cull_landmarks(m, k)
+    if max(neighbors) >= 0:
+        m, _ = local_bundle_adjustment(m, cam, k)
+    return cull_keyframes(m, k, window)
