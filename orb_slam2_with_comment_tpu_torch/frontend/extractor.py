@@ -56,9 +56,30 @@ class OrbExtractor:
     def __call__(self, img: torch.Tensor) -> FrameFeatures:
         return self._extract(img)
 
+    def stereo(self, img_l: torch.Tensor, img_r: torch.Tensor, bf: float,
+               fx: float):
+        """Extract the left and right features of a rectified pair and
+        associate them along the rows (frontend/stereo.py). Returns (left
+        FrameFeatures, StereoDepth)."""
+        from . import stereo as _stereo
+        # one pyramid per view, shared by the extraction and the SAD
+        # refinement; left then right
+        pyr_l = self._pyramid(img_l)
+        pyr_r = self._pyramid(img_r)
+        feats_l = self._extract_from_pyramid(pyr_l)
+        feats_r = self._extract_from_pyramid(pyr_r)
+        sd = _stereo.match_stereo(feats_l, feats_r, pyr_l, pyr_r,
+                                  self.budgets, bf, fx)
+        return feats_l, sd
+
+    def _pyramid(self, img: torch.Tensor) -> list[torch.Tensor]:
+        return image.build_pyramid(img.to(torch.float32), self.n_levels,
+                                   self.scale_factor)
+
     def _extract(self, img: torch.Tensor) -> FrameFeatures:
-        pyr = image.build_pyramid(img.to(torch.float32), self.n_levels,
-                                  self.scale_factor)
+        return self._extract_from_pyramid(self._pyramid(img))
+
+    def _extract_from_pyramid(self, pyr) -> FrameFeatures:
         parts = [self._level_features(lvl_img, lvl, budget)
                  for lvl, (lvl_img, budget) in enumerate(zip(pyr, self.budgets))
                  if budget > 0]

@@ -8,8 +8,8 @@ a gather clamped to the image edge (the JAX package clamps its patch
 reads the same way). Bit k of word w is comparison 32 w + k; words are
 int32 holding the JAX package's uint32 patterns.
 
-The sampling pattern is read by path from the JAX package's data file, so
-this module imports nothing of that package.
+The sampling pattern, ``frontend/data/brief_pattern.npy`` of this package,
+is a byte-for-byte copy of the JAX package's data file.
 """
 from __future__ import annotations
 
@@ -19,9 +19,8 @@ import numpy as np
 import torch
 
 PATTERN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))),
-    "orb_slam2_with_comment_tpu", "frontend", "data", "brief_pattern.npy")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "frontend", "data", "brief_pattern.npy")
 PATTERN = np.load(PATTERN_PATH).astype(np.float32)  # [256, 4] (ax, ay, bx, by)
 BRIEF_RADIUS = 19
 

@@ -8,6 +8,7 @@ failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -53,6 +54,12 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {src}:\n{build_logs[name]}")
     os.replace(tmp, out)
     return out
+
+
+def build_all(names) -> list[str]:
+    """Build several sources at once, one nvcc process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

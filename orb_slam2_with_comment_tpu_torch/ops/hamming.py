@@ -18,6 +18,7 @@ import torch
 from . import cuda_lib
 
 BIG = 10_000  # matching/core.py: distance of a masked candidate
+MAX_TARGETS = 1 << 22  # the fused kernel's keys hold a column in 22 bits
 LAUNCHES = {"distance_matrix": 0, "masked_best_two": 0}
 _CHUNK_ELEMS = 1 << 22  # bounds the plain versions' [rows, N, 8] temporaries
 
@@ -69,16 +70,20 @@ def masked_best_two_plain(dq, dt, mask):
             second.to(torch.int32), idx2.to(torch.int32))
 
 
+_lib: ctypes.CDLL | None = None
+
+
 def _kernel_lib() -> ctypes.CDLL:
-    lib = cuda_lib.load("hamming")
-    if not getattr(lib, "_typed", False):
+    global _lib
+    if _lib is None:
+        lib = cuda_lib.load("hamming")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hamming_distance_matrix.argtypes = [p, p, p, i, i, p]
         lib.hamming_distance_matrix.restype = i
         lib.hamming_masked_best_two.argtypes = [p, p, p, p, p, p, p, i, i, p]
         lib.hamming_masked_best_two.restype = i
-        lib._typed = True
-    return lib
+        _lib = lib
+    return _lib
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -101,6 +106,12 @@ def _check_desc(d: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(d: torch.Tensor) -> torch.Tensor:
+    """The kernels read a descriptor as two 16-byte words: a view that
+    starts off a 16-byte boundary is copied to fresh storage."""
+    return d if d.data_ptr() % 16 == 0 else d.clone()
+
+
 def _raise_on(err: int, fn: str) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
@@ -113,6 +124,7 @@ def distance_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     if _on_cpu(d1, d2):
         return distance_matrix_plain(d1, d2)
     dev = _check_cuda(d1, d2)
+    d1, d2 = _aligned(d1), _aligned(d2)
     out = torch.empty((d1.shape[0], d2.shape[0]), dtype=torch.int32,
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -139,13 +151,17 @@ def masked_best_two(dq: torch.Tensor, dt: torch.Tensor, mask: torch.Tensor):
     if _on_cpu(dq, dt, mask):
         return masked_best_two_plain(dq, dt, mask)
     dev = _check_cuda(dq, dt, mask)
-    mask = mask.contiguous()
-    outs = [torch.empty(q, dtype=torch.int32, device=dev) for _ in range(4)]
+    if n > MAX_TARGETS:
+        raise ValueError(f"the masked_best_two kernel takes at most "
+                         f"{MAX_TARGETS} targets, got {n}")
+    dq, dt, mask = _aligned(dq), _aligned(dt), mask.contiguous()
+    outs = torch.empty((4, q), dtype=torch.int32, device=dev)  # one alloc
+    base = outs.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_lib().hamming_masked_best_two(
         dq.data_ptr(), dt.data_ptr(), mask.data_ptr(),
-        *(o.data_ptr() for o in outs), q, n, stream)
+        *(base + 4 * q * i for i in range(4)), q, n, stream)
     _raise_on(err, "hamming_masked_best_two")
     if q:
         LAUNCHES["masked_best_two"] += 1
-    return tuple(outs)
+    return tuple(outs.unbind(0))

@@ -1,5 +1,5 @@
-"""Autonomous RGB-D tracker: per-frame state machine over device tensors
-(port of pipeline/auto.py, the RGB-D path).
+"""Autonomous RGB-D and stereo tracker: per-frame state machine over device
+tensors (port of pipeline/auto.py, the RGB-D and stereo paths).
 
 The JAX package runs the whole state machine inside one jitted program
 with lax.cond branches, because each host readback was costly over its
@@ -17,8 +17,8 @@ phase; without it, a lost tracker with more than 5 keyframes stays lost.
 Random draws (the Sim3 and EPnP RANSAC) come from one torch.Generator
 held in the loop carry, seeded with auto_loop.SEED.
 
-Not ported yet: the monocular and stereo steps, localization-only mode
-and batched dispatch.
+Not ported yet: the monocular step, localization-only mode and batched
+dispatch.
 """
 from __future__ import annotations
 
@@ -126,7 +126,8 @@ def _f32_lt_scaled(a: int, b: int, factor: float) -> bool:
 
 
 class AutoStep:
-    """The per-frame step: AutoState x (img, raw depth) -> AutoState.
+    """The per-frame step: AutoState x (img, raw depth) -> AutoState, or
+    through ``stereo`` AutoState x (left, right) -> AutoState.
     ``build_auto_step`` makes one. With a vocabulary ``voc`` the step keeps
     BoW rows, relocalizes and closes loops."""
 
@@ -152,6 +153,17 @@ class AutoStep:
             self.extractor, self.cam, img, depth_raw, self.depth_factor,
             cfg.width, cfg.height)
         return self.run_frame(s, feats, d)
+
+    def stereo(self, s: AutoState, img_l: torch.Tensor,
+               img_r: torch.Tensor) -> AutoState:
+        """A rectified stereo pair: joint left/right extraction and the
+        row-band depth association (Frame.cc:61-117, 501-675) feed the
+        same state machine."""
+        feats_l, sd = self.extractor.stereo(img_l, img_r, self.cam.bf,
+                                            self.cam.fx)
+        feats = FeatureSet(feats_l.xy, sd.u_right, feats_l.octave,
+                           feats_l.angle, feats_l.desc, feats_l.valid)
+        return self.run_frame(s, feats, sd.depth)
 
     def write_traj(self, s: AutoState, R, t, Rcr, tcr, ref: int, valid: bool,
                    stats8: torch.Tensor) -> AutoState:
@@ -498,12 +510,15 @@ class AutoTrackerConfig:
 
 
 class AutoTracker:
-    """RGB-D tracker whose map and trajectory live on ``device``.
+    """RGB-D or stereo tracker whose map and trajectory live on ``device``.
 
         tr = AutoTracker(cfg, device="cuda")
         for img, depth in frames:          # uint8 [H, W], uint16 [H, W]
             tr.process_rgbd(img, depth)
         result = tr.finalize()
+
+    With ``TrackerConfig(sensor="stereo", ...)`` the frames are rectified
+    pairs: ``tr.process_stereo(left, right)``.
     """
 
     def __init__(self, cfg: TrackerConfig,
@@ -512,9 +527,10 @@ class AutoTracker:
         auto_cfg = auto_cfg or AutoTrackerConfig()
         if cfg.map_cfg.n_feat != cfg.n_features:
             raise ValueError("map_cfg.n_feat must equal n_features")
-        if cfg.sensor != "rgbd" or cfg.has_distortion:
+        if cfg.sensor not in ("rgbd", "stereo") or cfg.has_distortion:
             raise NotImplementedError(
-                "the port runs undistorted RGB-D input only")
+                "the port runs undistorted RGB-D and rectified stereo input "
+                "only")
         if auto_cfg.loop_closing and cfg.map_cfg.k_max > auto_loop.K_DENSE_MAX:
             raise NotImplementedError(
                 "loop closing with k_max > 64 (top-k essential-graph edges, "
@@ -547,6 +563,17 @@ class AutoTracker:
                                 torch.as_tensor(img).to(self.device),
                                 torch.as_tensor(depth).to(self.device))
 
+    def process_stereo(self, img_left, img_right,
+                       timestamp: float | None = None):
+        """Track one rectified stereo pair (reference: System::TrackStereo
+        System.cc:169): uint8 images as numpy arrays or tensors."""
+        self.state = self._step.stereo(
+            self.state, torch.as_tensor(img_left).to(self.device),
+            torch.as_tensor(img_right).to(self.device))
+        self.timestamps.append(self.frame_count / self.cfg.fps
+                               if timestamp is None else timestamp)
+        self.frame_count += 1
+
     def finalize(self) -> dict:
         """The run's trajectory, flags and per-frame statistics, in frame
         order."""
@@ -570,6 +597,20 @@ class AutoTracker:
             "n_obs_dropped": int(s.map.n_obs_drop),
             "n_compact_kf": s.n_compact_kf, "n_compact_lm": s.n_compact_lm,
         }
+
+    def trajectory_kitti(self) -> list[str]:
+        """KITTI lines (row-major camera->world 3x4 per frame), like
+        SaveTrajectoryKITTI (System.cc:436-486). Invalid frames are left
+        out, as the JAX package leaves them out."""
+        out = self.finalize()
+        lines = []
+        for i in range(len(out["timestamps"])):
+            if not out["valid"][i]:
+                continue
+            R, t = out["R"][i], out["t"][i]
+            P = np.hstack([R.T, (-R.T @ t)[:, None]]).reshape(-1)
+            lines.append(" ".join(f"{v:.9e}" for v in P))
+        return lines
 
     def trajectory_tum(self) -> list[str]:
         """TUM lines (timestamp tx ty tz qx qy qz qw), camera->world

@@ -13,7 +13,7 @@ from ..optim.residuals import CamParams
 
 @dataclass
 class TrackerConfig:
-    sensor: str = "rgbd"  # "mono" | "stereo" | "rgbd" (the port runs rgbd)
+    sensor: str = "rgbd"  # "mono" | "stereo" | "rgbd" (the port runs rgbd, stereo)
     fx: float = 500.0
     fy: float = 500.0
     cx: float = 320.0

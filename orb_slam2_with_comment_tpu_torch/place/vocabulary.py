@@ -9,8 +9,8 @@ children, first minimum wins). A keyframe's tf-idf vector is kept sparse
 as (word id, weight) pairs, and the L1 score of two L1-normalized vectors
 is the histogram intersection over their common words.
 
-The packaged vocabulary is the JAX package's data file, read by path:
-nothing of the JAX package is imported.
+The packaged vocabulary, ``data/vocab_default.npz`` beside this module, is
+a byte-for-byte copy of the JAX package's data file.
 """
 from __future__ import annotations
 
@@ -22,10 +22,8 @@ import torch
 
 from ..ops.hamming import BIG, hamming_pair
 
-DEFAULT_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "orb_slam2_with_comment_tpu", "place", "data",
-    "vocab_default.npz")
+DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "vocab_default.npz")
 _NO_WORD = torch.iinfo(torch.int32).max
 
 

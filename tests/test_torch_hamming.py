@@ -84,6 +84,59 @@ def test_masked_best_two_matches_core(name, dq, dt, mask):
     assert best[0] == hamming.BIG and idx[0] == 0 and second[0] == hamming.BIG
 
 
+def _structured_cases():
+    """The masks the fused kernel's head, tail and skip paths meet on the
+    card: sparse row bands, odd row lengths (unaligned row starts), more
+    than one 1024-column tile, all-false and all-true masks, and rows with
+    exactly one admissible column."""
+    rng = np.random.RandomState(11)
+    cases = []
+    for name, q, n in (("band_200x200", 200, 200), ("band_97x1241", 97, 1241),
+                       ("band_60x999", 60, 999), ("tiles_40x2500", 40, 2500)):
+        dq, dt = _desc(rng, q), _desc(rng, n)
+        dt[1::4] = dt[0::4][:dt[1::4].shape[0]]
+        dq[:min(q, n) // 2] = dt[:min(q, n) // 2]
+        # a row band: columns whose "row" lies within 2 of the query's
+        vq, vt = rng.uniform(0, 480, q), rng.uniform(0, 480, n)
+        mask = np.abs(vq[:, None] - vt[None, :]) <= 2.0
+        cases.append((name, dq, dt, mask))
+    for name, fill in (("all_false_33x77", False), ("all_true_33x77", True)):
+        dq, dt = _desc(rng, 33), _desc(rng, 77)
+        cases.append((name, dq, dt, np.full((33, 77), fill)))
+    dq, dt = _desc(rng, 70), _desc(rng, 70)
+    cases.append(("one_admissible_70x70", dq, dt, np.eye(70, dtype=bool)))
+    return cases
+
+
+def _numpy_best_two(d):
+    """Lexicographic (distance, column) top-2 of each row of d."""
+    order = np.lexsort((np.broadcast_to(np.arange(d.shape[1]), d.shape), d),
+                       axis=1)
+    rows = np.arange(d.shape[0])
+    i1, i2 = order[:, 0], order[:, 1]
+    return d[rows, i1], i1, d[rows, i2], i2
+
+
+@pytest.mark.parametrize("name,dq,dt,mask", _structured_cases(),
+                         ids=[c[0] for c in _structured_cases()])
+def test_masked_best_two_structured_masks(name, dq, dt, mask):
+    got = [a.numpy() for a in hamming.masked_best_two(
+        _t(dq), _t(dt), torch.as_tensor(mask))]
+    dist = jhamming._distance_matrix_xla(jnp.asarray(dq), jnp.asarray(dt))
+    jb, ji, js = (np.asarray(a) for a in jcore.masked_best_two(
+        dist, jnp.asarray(mask)))
+    for g, w in zip(got[:3], (jb, ji, js)):
+        np.testing.assert_array_equal(g, w)
+    # all four outputs against an independent numpy top-2, a masked
+    # candidate counting as (BIG, its column)
+    want = _numpy_best_two(np.where(mask, np.asarray(dist), hamming.BIG))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if not mask.any():
+        assert (got[0] == hamming.BIG).all() and (got[1] == 0).all()
+        assert (got[2] == hamming.BIG).all() and (got[3] == 1).all()
+
+
 def test_wrapper_refuses_mixed_devices():
     d = _t(_desc(np.random.RandomState(4), 4))
     with pytest.raises(ValueError):
