@@ -5,9 +5,8 @@ MapState / AutoState NamedTuple of numpy arrays, or a dict keyed by the
 same field names (nested for ``prev`` and its ``feats``). They return the
 port's state on ``device``. ``*_to_numpy`` give back dicts keyed by the
 JAX field names, with descriptors as uint32 again. Nothing here imports
-JAX. The JAX AutoState's monocular bootstrap id has no counterpart in the
-port and is ignored. Its loop carry's PRNG key has none either: a carry
-made here starts a fresh torch.Generator seeded with auto_loop.SEED (7, as
+JAX. The JAX loop carry's PRNG key has no counterpart: a carry made here
+starts a fresh torch.Generator seeded with auto_loop.SEED (7, as
 the JAX carry's PRNGKey(7)), so random draws after a conversion differ
 from the JAX package's.
 """
@@ -23,8 +22,9 @@ from .pipeline.auto import AutoState
 from .pipeline.steps import FrameObs
 
 _DESC_FIELDS = ("kf_desc", "lm_desc", "desc")
-_AUTO_HOST_INT = ("ref_kf", "last_kf_frame", "frame_idx", "lost", "maint_kf",
-                  "maint_phase", "n_compact_lm", "n_compact_kf")
+_AUTO_HOST_INT = ("ref_kf", "last_kf_frame", "frame_idx", "lost",
+                  "init_frame_id", "maint_kf", "maint_phase", "n_compact_lm",
+                  "n_compact_kf")
 _LOOP_TENSORS = ("bow_idx", "bow_w", "prev_groups", "prev_counts",
                  "loop_edges")
 _LOOP_HOST_INT = ("last_loop_kf", "n_loops")

@@ -1,5 +1,5 @@
-"""Projection and brute-force search modes of the tracking slice (port of
-matching/search.py).
+"""The search modes of the tracker: projection, brute-force, monocular
+initialization, triangulation and Sim3 (port of matching/search.py).
 
 Candidate gating (search windows, predicted scale levels, stereo and chi2
 gates) builds a [queries x features] boolean mask; matching is one fused
@@ -165,6 +165,63 @@ def search_brute(desc_q, desc_t, valid_q, valid_t, ratio: float,
     mask = valid_q[:, None] & valid_t[None, :]
     return core.windowed_match(desc_q, desc_t, mask, max_dist, ratio=ratio,
                                angle_q=angle_q, angle_t=angle_t)
+
+
+def initialization_mask(feats1: FeatureSet, feats2: FeatureSet, prev_xy,
+                        window: float = 100.0) -> torch.Tensor:
+    """[N1, N2] candidates of the monocular initialization search: level-0
+    features only, within ``window`` px of the previously matched
+    position."""
+    radius = prev_xy.new_full((prev_xy.shape[0],), window)
+    in_win, _, _ = _in_window(feats2, prev_xy[:, 0], prev_xy[:, 1], radius)
+    lvl = (feats1.octave[:, None] == 0) & (feats2.octave[None, :] == 0)
+    return in_win & lvl & feats1.valid[:, None] & feats2.valid[None, :]
+
+
+def search_for_initialization(feats1: FeatureSet, feats2: FeatureSet, prev_xy,
+                              window: float = 100.0, ratio: float = 0.9):
+    """Monocular initialization matching (reference: ORBmatcher.cc:493+):
+    initialization_mask, TH_LOW, ratio 0.9, rotation consistency,
+    duplicate resolution."""
+    return core.windowed_match(
+        feats1.desc, feats2.desc,
+        initialization_mask(feats1, feats2, prev_xy, window), core.TH_LOW,
+        ratio=ratio, angle_q=feats1.angle, angle_t=feats2.angle)
+
+
+def triangulation_mask(feats1: FeatureSet, feats2: FeatureSet, free1, free2,
+                       F12, e2_xy) -> torch.Tensor:
+    """[N1, N2] candidates of the triangulation search: features without
+    landmarks, the epipolar gate d^2 < 3.84 sigma2[octave2] of the line
+    l2 = x1^T F12 (CheckDistEpipolarLine, ORBmatcher.cc:173-196), and
+    features near the epipole e2_xy [2] rejected unless both are stereo
+    (:892-897)."""
+    x1h = torch.cat([feats1.xy, torch.ones_like(feats1.xy[:, :1])], -1)
+    l2 = x1h @ F12  # [N1, 3] epipolar lines (a, b, c) in image 2
+    a, b, c = l2[:, 0:1], l2[:, 1:2], l2[:, 2:3]
+    num = a * feats2.xy[None, :, 0] + b * feats2.xy[None, :, 1] + c
+    den = a * a + b * b
+    dsq = (num * num) / den.clamp(min=1e-12)
+    epi_ok = dsq < 3.84 * sigma2_at(feats2.octave)[None, :]
+    dex = feats2.xy[:, 0] - e2_xy[0]
+    dey = feats2.xy[:, 1] - e2_xy[1]
+    far = (dex * dex + dey * dey) >= 100.0 * scale_at(feats2.octave)
+    both_stereo = (feats1.ur[:, None] >= 0) & (feats2.ur[None, :] >= 0)
+    return (epi_ok & (both_stereo | far[None, :])
+            & (free1 & feats1.valid)[:, None]
+            & (free2 & feats2.valid)[None, :])
+
+
+def search_for_triangulation(cam, feats1: FeatureSet, feats2: FeatureSet,
+                             free1, free2, F12, e2_xy, ratio: float = 0.6):
+    """Epipolar-constrained matching for new-point triangulation
+    (reference: ORBmatcher.cc:783-975): triangulation_mask, TH_LOW and the
+    ratio test, no rotation check (the call site builds
+    ORBmatcher(0.6, false))."""
+    return core.windowed_match(
+        feats1.desc, feats2.desc,
+        triangulation_mask(feats1, feats2, free1, free2, F12, e2_xy),
+        core.TH_LOW, ratio=ratio)
 
 
 def fuse_candidates(cam, R, t, lm: LandmarkSet, feats: FeatureSet,

@@ -1,11 +1,13 @@
-"""Levenberg-Marquardt bundle adjustment with a dense Schur complement
-(port of optim/ba.py: ba_solve).
+"""Levenberg-Marquardt bundle adjustment on the Schur complement (port of
+optim/ba.py: ba_solve and ba_solve_cg).
 
 Fixed-shape landmark-major problem: P poses, L landmarks, D observation
 slots per landmark. Each iteration builds residuals and Jacobians over the
-[L, D] table, inverts the [L] 3x3 landmark blocks, assembles the reduced
-camera system [6P, 6P] and solves it densely; fixed poses get identity
-rows. Steps are accepted only when the robust-weighted chi2 decreases.
+[L, D] table and inverts the [L] 3x3 landmark blocks; ``ba_solve`` then
+assembles the reduced camera system [6P, 6P] and solves it densely (fixed
+poses get identity rows), ``ba_solve_cg`` solves it by preconditioned
+conjugate gradients without assembling it. Steps are accepted only when
+the robust-weighted chi2 decreases.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import se3
+from .pcg import block_pcg
 from .residuals import HUBER_MONO, HUBER_STEREO, CamParams, huber_weight
 
 
@@ -99,23 +102,19 @@ def _eval_chi2(cam, prob: BAProblem, w_active, R, t, X):
     return e2 * w_active
 
 
-def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
-             robust: bool = True, init_lambda=1e-4) -> BAResult:
-    """Run ``iters`` LM iterations of the Schur-complement solver."""
-    P = prob.R.shape[0]
-    L, D = prob.obs_w.shape
+def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
+                   init_lambda, reduced_step) -> BAResult:
+    """The LM loop both solvers share: residuals and Jacobians over the
+    [L, D] table, the landmark blocks and their inverses, then
+    ``reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam) -> dxi [P, 6]`` (the
+    reduced camera system, dense or iterative), back-substitution of the
+    landmarks and the accept/reject on the robust-weighted chi2."""
     dev, f32 = prob.X.device, prob.X.dtype
     delta_h = torch.where(prob.obs_uvr[..., 2] >= 0, HUBER_STEREO, HUBER_MONO)
     active = (prob.obs_w > 0) & prob.point_valid[:, None]
     w_active = torch.where(active, prob.obs_w, 0.0)
-    free_pose = ~prob.pose_fixed
-    free_obs = free_pose[prob.obs_pose].to(f32)
-    G = torch.nn.functional.one_hot(prob.obs_pose, P).to(f32)  # [L, D, P]
+    free_obs = (~prob.pose_fixed)[prob.obs_pose].to(f32)
     eye3 = torch.eye(3, dtype=f32, device=dev)
-    ar = torch.arange(P, device=dev)
-    keep = (free_pose[:, None] & free_pose[None, :]).to(f32)
-    fixed_blk = torch.where(prob.pose_fixed[:, None, None],
-                            torch.eye(6, dtype=f32, device=dev), 0.0)
     R, t, X = prob.R, prob.t, prob.X
     lam = torch.as_tensor(init_lambda, dtype=f32, device=dev).reshape(())
     for _ in range(iters):
@@ -129,28 +128,11 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
         Hll = torch.einsum("ldri,ldrj->lij", wJl, Jl)
         bl = torch.einsum("ldri,ldr->li", wJl, e)
         Y = torch.einsum("ldri,ldrj->ldij", wJp, Jl)  # [L, D, 6, 3]
-        Hpp = torch.einsum("ldri,ldrj,ldp->pij", wJp, Jp, G)
-        bp = torch.einsum("ldri,ldr,ldp->pi", wJp, e, G)
         diag_ll = torch.diagonal(Hll, dim1=-2, dim2=-1).clamp(min=1e-6)
         Hll_d = Hll + lam * torch.diag_embed(diag_ll)
         Hll_d = torch.where(prob.point_valid[:, None, None], Hll_d, eye3)
         Hll_inv = _inv3x3(Hll_d)
-        # Schur: S[p,q] -= sum_l (sum_{d->p} Y H^-1)_l (sum_{c->q} Y)_l^T
-        A = torch.einsum("ldp,ldik->lpik", G, Y @ Hll_inv[:, None])
-        Bm = torch.einsum("ldp,ldjk->lpjk", G, Y)
-        S_off = torch.einsum("lpik,lqjk->pqij", A, Bm)
-        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1).clamp(min=1e-6)
-        Hpp_d = Hpp + lam * torch.diag_embed(diag_pp)
-        S = -S_off
-        S[ar, ar] += Hpp_d
-        b_s = bp - torch.einsum("lpik,lk->pi", A, bl)
-        # fixed poses: identity row/column block, zero right-hand side
-        S = S * keep[..., None, None]
-        S[ar, ar] += fixed_blk
-        b_s = torch.where(prob.pose_fixed[:, None], 0.0, b_s)
-        S_mat = S.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
-        sol, _ = torch.linalg.solve_ex(S_mat, b_s.reshape(P * 6, 1))
-        dxi = -sol.reshape(P, 6)
+        dxi = reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam)
         # back-substitution: Hll dX = -(bl + sum_d Y^T dxi_pose)
         rhs_l = bl + torch.einsum("ldij,ldi->lj", Y, dxi[prob.obs_pose])
         dX = -(Hll_inv @ rhs_l[..., None])[..., 0]
@@ -168,3 +150,85 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
     R = se3.orthonormalize(R)
     obs_chi2 = _eval_chi2(cam, prob, w_active, R, t, X)
     return BAResult(R, t, X, obs_chi2.sum(), obs_chi2, lam)
+
+
+def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
+             robust: bool = True, init_lambda=1e-4) -> BAResult:
+    """Run ``iters`` LM iterations with the dense Schur complement: the
+    right trade at local-BA window sizes (P up to a few tens)."""
+    P = prob.R.shape[0]
+    dev, f32 = prob.X.device, prob.X.dtype
+    free_pose = ~prob.pose_fixed
+    G = torch.nn.functional.one_hot(prob.obs_pose, P).to(f32)  # [L, D, P]
+    ar = torch.arange(P, device=dev)
+    keep = (free_pose[:, None] & free_pose[None, :]).to(f32)
+    fixed_blk = torch.where(prob.pose_fixed[:, None, None],
+                            torch.eye(6, dtype=f32, device=dev), 0.0)
+
+    def reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam):
+        Hpp = torch.einsum("ldri,ldrj,ldp->pij", wJp, Jp, G)
+        bp = torch.einsum("ldri,ldr,ldp->pi", wJp, e, G)
+        # Schur: S[p,q] -= sum_l (sum_{d->p} Y H^-1)_l (sum_{c->q} Y)_l^T
+        A = torch.einsum("ldp,ldik->lpik", G, Y @ Hll_inv[:, None])
+        Bm = torch.einsum("ldp,ldjk->lpjk", G, Y)
+        S_off = torch.einsum("lpik,lqjk->pqij", A, Bm)
+        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1).clamp(min=1e-6)
+        Hpp_d = Hpp + lam * torch.diag_embed(diag_pp)
+        S = -S_off
+        S[ar, ar] += Hpp_d
+        b_s = bp - torch.einsum("lpik,lk->pi", A, bl)
+        # fixed poses: identity row/column block, zero right-hand side
+        S = S * keep[..., None, None]
+        S[ar, ar] += fixed_blk
+        b_s = torch.where(prob.pose_fixed[:, None], 0.0, b_s)
+        S_mat = S.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
+        sol, _ = torch.linalg.solve_ex(S_mat, b_s.reshape(P * 6, 1))
+        return -sol.reshape(P, 6)
+
+    return _lm_iterations(cam, prob, iters, robust, init_lambda, reduced_step)
+
+
+def ba_solve_cg(cam: CamParams, prob: BAProblem, iters: int = 10,
+                cg_iters: int = 40, robust: bool = True,
+                init_lambda=1e-4) -> BAResult:
+    """LM bundle adjustment for maps of many keyframes: the reduced camera
+    system is never assembled. Per LM step the Schur product
+    S v = Hpp v - Hpl Hll^-1 Hlp v goes through the landmark-major
+    observation table (only the pose side needs segment sums), inside
+    ``cg_iters`` iterations of conjugate gradients preconditioned by the
+    inverse 6x6 pose blocks. Memory is O(L D) (reference:
+    GlobalBundleAdjustemnt Optimizer.cc:41-255). The segment sums are
+    float32 index_add: on a CUDA device their order, and so the last bits
+    of the result, vary from run to run."""
+    P = prob.R.shape[0]
+    dev, f32 = prob.X.device, prob.X.dtype
+    flat_pose = prob.obs_pose.reshape(-1)
+    free = (~prob.pose_fixed)[:, None]
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+
+    def to_poses(per_obs):  # [L, D, ...] -> [P, ...] summed by pose
+        out = torch.zeros((P, *per_obs.shape[2:]), dtype=f32, device=dev)
+        return out.index_add(0, flat_pose, per_obs.flatten(0, 1))
+
+    def reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam):
+        Hpp = to_poses(torch.einsum("ldri,ldrj->ldij", wJp, Jp))
+        bp = to_poses(torch.einsum("ldri,ldr->ldi", wJp, e))
+        diag_pp = torch.diagonal(Hpp, dim1=-2, dim2=-1).clamp(min=1e-6)
+        Hpp_d = Hpp + lam * torch.diag_embed(diag_pp)
+        Hpp_d = torch.where(free[..., None], Hpp_d, eye6)
+        Minv = torch.linalg.inv(Hpp_d)  # block-Jacobi preconditioner
+
+        def hpl_hll_inv(a):  # Hpl Hll^-1 a for a [L, 3]
+            y = (Hll_inv @ a[..., None])[..., 0]
+            return to_poses(torch.einsum("ldij,lj->ldi", Y, y))
+
+        def S_mv(v):
+            a = torch.einsum("ldij,ldi->lj", Y, v[prob.obs_pose])
+            out = (Hpp_d @ v[..., None])[..., 0] - hpl_hll_inv(a)
+            return torch.where(free, out, v)
+
+        rhs = -torch.where(free, bp - hpl_hll_inv(bl), 0.0)
+        x = block_pcg(S_mv, Minv, rhs, cg_iters)
+        return torch.where(free, x, 0.0)
+
+    return _lm_iterations(cam, prob, iters, robust, init_lambda, reduced_step)

@@ -1,13 +1,16 @@
-"""Sim(3) pose-graph (essential graph) optimization, dense path (port of
-optim/pose_graph.py: optimize_pose_graph; reference:
-Optimizer::OptimizeEssentialGraph, Optimizer.cc:829-1118).
+"""Sim(3) pose-graph (essential graph) optimization (port of
+optim/pose_graph.py; reference: Optimizer::OptimizeEssentialGraph,
+Optimizer.cc:829-1118).
 
 Vertices are world->keyframe Sim3 poses, edges relative Sim3 measurements
 with error log(S_ji^-1 S_jw S_iw^-1) and identity information. Each
 Gauss-Newton/LM iteration takes the edge Jacobians by forward-mode
 derivatives at zero updates (one tangent per coordinate of either
-endpoint, as jax.jacfwd), assembles the dense [7N, 7N] system and solves
-it. ``fix_scale`` freezes the scale coordinate (stereo/RGB-D).
+endpoint, as jax.jacfwd). ``optimize_pose_graph`` assembles the dense
+[7N, 7N] system and solves it; ``optimize_pose_graph_cg`` applies the
+Hessian edge by edge inside preconditioned conjugate gradients, for graphs
+of hundreds of vertices. ``fix_scale`` freezes the scale coordinate
+(stereo/RGB-D).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from torch.func import jvp
 
 from ..geometry import sim3
+from .pcg import block_pcg
 
 
 class PoseGraphProblem(NamedTuple):
@@ -120,6 +124,79 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
         dxi = -torch.linalg.solve_ex(H_mat, b.reshape(N * 7, 1))[0].reshape(
             N, 7)
         dxi = torch.where(keep7 > 0, dxi, 0.0) * free[:, None]
+        R_new, t_new, s_new = sim3.retract(Rv, tv, sv, dxi)
+        chi2_old = (e * e * w_edge[:, None]).sum()
+        e_new = residual(R_new, t_new, s_new)
+        chi2_new = (e_new * e_new * w_edge[:, None]).sum()
+        ok = (chi2_new < chi2_old) & torch.isfinite(dxi).all()
+        Rv = torch.where(ok, R_new, Rv)
+        tv = torch.where(ok, t_new, tv)
+        sv = torch.where(ok, s_new, sv)
+        lam = torch.where(ok, lam * 0.5, lam * 10.0).clamp(1e-16, 1e8)
+    e = residual(Rv, tv, sv)
+    return PoseGraphResult(Rv, tv, sv, (e * e * w_edge[:, None]).sum())
+
+
+def optimize_pose_graph_cg(prob: PoseGraphProblem, iters: int = 20,
+                           fix_scale: bool = False,
+                           cg_iters: int | None = None) -> PoseGraphResult:
+    """The same Gauss-Newton/LM iterations without the dense matrix: each
+    step is solved by conjugate gradients preconditioned with the inverse
+    7x7 vertex blocks, the Hessian applied as sum_e J_e^T (J_e v), memory
+    O(E). ``cg_iters`` defaults to max(60, 2N): block-Jacobi CG carries a
+    correction about one vertex per iteration along the temporal chain,
+    and a loop correction is a global mode. The segment sums are float32
+    index_add: on a CUDA device their order, and so the last bits of the
+    result, vary from run to run."""
+    N = prob.R.shape[0]
+    if cg_iters is None:
+        cg_iters = max(60, 2 * N)
+    dev, dt = prob.R.device, prob.R.dtype
+    ei, ej = prob.e_i.long(), prob.e_j.long()
+    ends = torch.cat([ei, ej])  # vertex of each (edge, endpoint) block
+    E = ei.shape[0]
+    meas = (prob.m_R, prob.m_t, prob.m_s)
+    free = (~prob.v_fixed).to(dt)
+    w_edge = prob.e_valid.to(dt)
+    sw = torch.sqrt(w_edge)
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    keep7 = torch.ones(7, dtype=dt, device=dev)
+    if fix_scale:
+        keep7[6] = 0.0
+
+    def residual(Rv, tv, sv):
+        return _edge_residual(Rv[ei], tv[ei], sv[ei], Rv[ej], tv[ej], sv[ej],
+                              *meas)
+
+    def to_vertices(per_block):  # [2E, ...] -> [N, ...]
+        out = torch.zeros((N, *per_block.shape[1:]), dtype=dt, device=dev)
+        return out.index_add(0, ends, per_block)
+
+    Rv, tv, sv = prob.R, prob.t, prob.s
+    lam = torch.tensor(1e-16, dtype=dt, device=dev)
+    for _ in range(iters):
+        e, Ji, Jj = edge_jacobians(Rv[ei], tv[ei], sv[ei], Rv[ej], tv[ej],
+                                   sv[ej], *meas)
+        # both endpoints' blocks stacked [2E, 7, 7], the edge weights folded
+        # in so that H = J^T J
+        J = torch.cat([Ji, Jj]) * (free[ends] * sw.repeat(2))[:, None, None]
+        J = torch.where(keep7 > 0, J, 0.0)
+        ew = (e * sw[:, None]).repeat(2, 1)
+        b = to_vertices(torch.einsum("eri,er->ei", J, ew)) * free[:, None]
+        reg = (lam + 1e-8) * eye7 + prob.v_fixed.to(dt)[:, None, None] * eye7
+        if fix_scale:
+            reg = reg + torch.diag(1.0 - keep7)
+        Minv = torch.linalg.inv(
+            to_vertices(torch.einsum("eri,erj->eij", J, J)) + reg)
+
+        def Hmv(v):
+            u = torch.einsum("eij,ej->ei", J, v[ends])
+            u = (u[:E] + u[E:]).repeat(2, 1)
+            return (to_vertices(torch.einsum("eri,er->ei", J, u))
+                    + (reg @ v[..., None])[..., 0])
+
+        x = block_pcg(Hmv, Minv, -b, cg_iters)
+        dxi = torch.where(keep7 > 0, x, 0.0) * free[:, None]
         R_new, t_new, s_new = sim3.retract(Rv, tv, sv, dxi)
         chi2_old = (e * e * w_edge[:, None]).sum()
         e_new = residual(R_new, t_new, s_new)

@@ -1,5 +1,5 @@
-"""Autonomous RGB-D and stereo tracker: per-frame state machine over device
-tensors (port of pipeline/auto.py, the RGB-D and stereo paths).
+"""Autonomous RGB-D, stereo and monocular tracker: per-frame state machine
+over device tensors (port of pipeline/auto.py).
 
 The JAX package runs the whole state machine inside one jitted program
 with lax.cond branches, because each host readback was costly over its
@@ -14,11 +14,17 @@ package's, rule for rule (reference: Tracking.cc:287-581, 1140-1244,
 With loop_closing (the default) the tracker keeps a BoW row per keyframe,
 relocalizes while lost and runs loop closing as the seventh maintenance
 phase; without it, a lost tracker with more than 5 keyframes stays lost.
-Random draws (the Sim3 and EPnP RANSAC) come from one torch.Generator
-held in the loop carry, seeded with auto_loop.SEED.
+Random draws (the Sim3 and EPnP RANSAC, the monocular initializer's 8-point
+sets) come from one torch.Generator held in the loop carry, seeded with
+auto_loop.SEED.
 
-Not ported yet: the monocular step, localization-only mode and batched
-dispatch.
+The monocular tracker bootstraps from two views (MonocularInitialization,
+Tracking.cc:638-726), triangulates against the two previous keyframes when
+it inserts one, runs an eighth maintenance phase (triangulation against
+the covisible neighbors), and closes loops first in the cycle and with a
+free scale.
+
+Not ported yet: localization-only mode and batched dispatch.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from ..matching import search as msearch
 from ..matching.search import FeatureSet
 from ..ops.fast import sort_top_k
 from ..place import vocabulary as V
-from ..solvers import pnp
+from ..solvers import initializer, pnp
 from . import auto_loop, steps
 from .tracking import TrackerConfig
 
@@ -62,6 +68,9 @@ class AutoState(NamedTuple):
     initialized: bool
     lost: int  # frame index where tracking was lost, -1 while tracking
     loop: auto_loop.LoopCarry  # BoW rows, loop detection state, generator
+    # monocular bootstrap: frame index of the stored reference frame, whose
+    # bundle is ``prev``; -1 without one
+    init_frame_id: int
     # amortized keyframe maintenance (LocalMapping.cc:47-128 as one bounded
     # phase per frame after an insertion; a new keyframe preempts)
     maint_kf: int  # keyframe under maintenance, -1 idle
@@ -108,8 +117,8 @@ def empty_auto_state(cfg: TrackerConfig, traj_capacity: int,
         last_R=eye, last_t=torch.zeros(3, device=device),
         vel_R=eye, vel_t=torch.zeros(3, device=device),
         have_vel=False, ref_kf=0, last_kf_frame=-1, frame_idx=0,
-        initialized=False, lost=-1, maint_kf=-1, maint_phase=0,
-        maint_neighbors=NO_NEIGHBORS,
+        initialized=False, lost=-1, init_frame_id=-1, maint_kf=-1,
+        maint_phase=0, maint_neighbors=NO_NEIGHBORS,
         maint_lambda=torch.tensor(1e-4, dtype=f32, device=device),
         n_compact_lm=0, n_compact_kf=0,
         traj_R=eye.repeat(T, 1, 1), traj_t=torch.zeros((T, 3), device=device),
@@ -126,10 +135,11 @@ def _f32_lt_scaled(a: int, b: int, factor: float) -> bool:
 
 
 class AutoStep:
-    """The per-frame step: AutoState x (img, raw depth) -> AutoState, or
-    through ``stereo`` AutoState x (left, right) -> AutoState.
-    ``build_auto_step`` makes one. With a vocabulary ``voc`` the step keeps
-    BoW rows, relocalizes and closes loops."""
+    """The per-frame step: AutoState x (img, raw depth) -> AutoState,
+    through ``stereo`` AutoState x (left, right) -> AutoState, or through
+    ``mono`` AutoState x img -> AutoState. ``build_auto_step`` makes one.
+    With a vocabulary ``voc`` the step keeps BoW rows, relocalizes and
+    closes loops."""
 
     def __init__(self, extractor: OrbExtractor, cfg: TrackerConfig,
                  traj_capacity: int, voc: V.Vocabulary | None = None):
@@ -141,10 +151,22 @@ class AutoStep:
         self.th_depth = float(np.float32(cfg.depth_threshold))
         self.depth_factor = float(np.float32(cfg.depth_factor))
         self.voc = voc
-        self.maint_phases = [self.ph_fuse_in, self.ph_fuse_out, self.ph_merge,
-                             self.ph_refresh_cull, self.ph_ba1, self.ph_ba2]
-        if voc is not None:
-            self.maint_phases.append(self.ph_loop)
+        self.is_mono = cfg.sensor == "mono"
+        tail = [self.ph_fuse_out, self.ph_merge, self.ph_refresh_cull,
+                self.ph_ba1, self.ph_ba2]
+        if self.is_mono:
+            # loop detection first: a monocular insert may interrupt the
+            # cycle (the relaxed c1b of do_track), and a loop phase at the
+            # tail would be skipped for most keyframes, breaking the
+            # 3-consecutive-keyframe consistency chains (the reference's
+            # LoopClosing thread takes every keyframe, LoopClosing.cc:57-78)
+            self.maint_phases = [self.ph_fuse_in, self.ph_triangulate] + tail
+            if voc is not None:
+                self.maint_phases.insert(0, self.ph_loop)
+        else:
+            self.maint_phases = [self.ph_fuse_in] + tail
+            if voc is not None:
+                self.maint_phases.append(self.ph_loop)
 
     def __call__(self, s: AutoState, img: torch.Tensor,
                  depth_raw: torch.Tensor) -> AutoState:
@@ -164,6 +186,16 @@ class AutoStep:
         feats = FeatureSet(feats_l.xy, sd.u_right, feats_l.octave,
                            feats_l.angle, feats_l.desc, feats_l.valid)
         return self.run_frame(s, feats, sd.depth)
+
+    def mono(self, s: AutoState, img: torch.Tensor) -> AutoState:
+        """One monocular frame (GrabImageMonocular, Tracking.cc:239): no
+        depth and no right coordinate; the map's landmarks come from the
+        two-view bootstrap and from keyframe triangulation."""
+        raw = self.extractor._extract(img)
+        none = torch.full_like(raw.angle, -1.0)
+        feats = FeatureSet(raw.xy, none, raw.octave, raw.angle, raw.desc,
+                           raw.valid)
+        return self.run_frame(s, feats, none)
 
     def write_traj(self, s: AutoState, R, t, Rcr, tcr, ref: int, valid: bool,
                    stats8: torch.Tensor) -> AutoState:
@@ -211,6 +243,58 @@ class AutoStep:
                        last_kf_frame=s.frame_idx, initialized=True)
         return self.write_traj(s, R, t, R, t, 0, True, self._stats8(s, c6=1))
 
+    def do_initialize_mono(self, s: AutoState, feats: FeatureSet,
+                           d) -> AutoState:
+        """The two-view bootstrap (MonocularInitialization Tracking.cc:
+        638-726, CreateInitialMapMonocular :733-843): a frame with more
+        than 100 keypoints is stored as the reference; the next such frame
+        is matched to it in a window, the H/F initializer runs, the
+        two-keyframe map is bundle-adjusted (20 iterations) and scaled to
+        a median scene depth of 1. A poor frame, or too few matches, drops
+        the reference; a solver failure with enough matches keeps it; a
+        map that fails after its BA is wiped."""
+        cfg, cam = self.cfg, self.cam
+        dev = d.device
+        if int(feats.valid.sum()) <= 100:  # :644
+            return s._replace(init_frame_id=-1)
+        obs = steps.FrameObs(feats, d, torch.full(
+            (d.shape[0],), -1, dtype=torch.int32, device=dev))
+        if s.init_frame_id < 0:
+            return s._replace(prev=obs, init_frame_id=s.frame_idx)
+        ref = s.prev
+        idx, _, matched = msearch.search_for_initialization(
+            ref.feats, feats, ref.feats.xy)
+        if int(matched.sum()) < cfg.min_init_matches:  # :687
+            return s._replace(init_frame_id=-1)
+        res = initializer.initialize(
+            s.loop.gen, (cam.fx, cam.fy, cam.cx, cam.cy), ref.feats.xy,
+            feats.xy[idx.clamp(min=0).long()], matched)
+        if not bool(res.success):
+            return s
+        m = steps.insert_keyframe(s.map, ref, torch.eye(3, device=dev),
+                                  torch.zeros(3, device=dev), s.init_frame_id)
+        m = steps.insert_keyframe(m, obs, res.R, res.t, s.frame_idx)
+        m = steps.insert_landmarks_two_view(m, cam, 0, 1, idx, res.X,
+                                            res.good & matched)
+        m = steps.refresh_landmarks(m)
+        m, _ = steps.local_bundle_adjustment(m, cam, 1, iters_a=20)  # :787
+        med = float(steps.scene_median_depth(m, 0))
+        n_tracked = int((m.kf_lm[1] >= 0).sum())
+        if not (np.isfinite(med) and med > 0
+                and n_tracked >= cfg.min_init_matches):  # :793-799
+            return s._replace(map=empty_map(cfg.map_cfg, dev),
+                              init_frame_id=-1)
+        m = steps.scale_map(m, torch.tensor(1.0, device=dev) / med)
+        loop = self._add_bow(self._add_bow(s.loop, m, 0), m, 1)
+        s = s._replace(map=m, loop=loop, prev=obs._replace(lm=m.kf_lm[1]),
+                       last_R=m.kf_R[1], last_t=m.kf_t[1], have_vel=False,
+                       ref_kf=1, last_kf_frame=s.frame_idx, initialized=True,
+                       init_frame_id=-1)
+        return self.write_traj(s, m.kf_R[1], m.kf_t[1],
+                               torch.eye(3, device=dev),
+                               torch.zeros(3, device=dev), 1, True,
+                               self._stats8(s, c6=1))
+
     # ---- amortized keyframe-maintenance phases (LocalMapping.cc:47-128) ----
 
     def ph_fuse_in(self, m, loop, nbrs, lam, kf):
@@ -223,6 +307,12 @@ class AutoStep:
         m = steps.fuse_neighbors(m, self.cam, kf, nbrs[:5], cfg.width,
                                  cfg.height, into=True)
         return m, loop, tuple(nbrs), lam
+
+    def ph_triangulate(self, m, loop, nbrs, lam, kf):
+        """New points against the covisible neighbors (CreateNewMapPoints,
+        LocalMapping.cc:290-577)."""
+        m = steps.triangulate_with_neighbors(m, self.cam, kf, nbrs[:5])
+        return m, loop, nbrs, lam
 
     def ph_fuse_out(self, m, loop, nbrs, lam, kf):
         cfg = self.cfg
@@ -258,7 +348,7 @@ class AutoStep:
         """Loop closing for the maintained keyframe, whose BoW row was
         stored at insertion (LocalMapping.cc:102 feeds LoopClosing)."""
         m, loop = auto_loop.close_loop_step(
-            loop, m, self.cam, kf, self.voc, fix_scale=True,
+            loop, m, self.cam, kf, self.voc, fix_scale=not self.is_mono,
             width=self.cfg.width, height=self.cfg.height, add_bow=False)
         return m, loop, nbrs, lam
 
@@ -298,9 +388,21 @@ class AutoStep:
         m = steps.insert_keyframe(
             m, steps.FrameObs(res.feats, res.depth, lm), res.R, res.t,
             s.frame_idx)
-        m = steps.create_depth_landmarks(m, self.cam, kf, self.th_depth)
+        if self.is_mono:
+            m = self.triangulate_at_insert(m, kf)
+        else:
+            m = steps.create_depth_landmarks(m, self.cam, kf, self.th_depth)
         return (m, self._add_bow(loop, m, kf), kf, m.kf_lm[kf], int(did_lm),
                 int(did_kf), kf_remap)
+
+    def triangulate_at_insert(self, m: MapState, kf: int) -> MapState:
+        """The monocular landmark supply cannot wait for the maintenance
+        cycle: a fresh keyframe is triangulated at once against the two
+        slots before it (the JAX package does the same; after a keyframe
+        compaction they need not be its temporal predecessors)."""
+        nb = [j if j >= 0 and bool(m.kf_valid[j]) else -1
+              for j in (kf - 1, kf - 2)]
+        return steps.triangulate_with_neighbors(m, self.cam, kf, nb)
 
     def do_track(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         cfg = self.cfg
@@ -320,10 +422,18 @@ class AutoStep:
             return self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t,
                                    s.ref_kf, False, stats8)
         # NeedNewKeyFrame (Tracking.cc:1140-1244)
-        need_close = close_pack // 10000 < 100 and close_pack % 10000 > 70
-        th_ref = 0.4 if n_kf < 2 else 0.75
         c1a = s.frame_idx - s.last_kf_frame >= cfg.fps
         c1b = s.maint_kf < 0  # mapping idle: no keyframe under maintenance
+        if self.is_mono:
+            # no close-point rule, thRefRatio 0.9 (Tracking.cc:1205); and an
+            # insert may interrupt the maintenance cycle once tracking has
+            # decayed below 70% of the reference keyframe, as the
+            # reference's InterruptBA lets it (:1216-1232)
+            need_close, th_ref = False, 0.9
+            c1b = c1b or _f32_lt_scaled(local_in, ref_matches, 0.7)
+        else:
+            need_close = close_pack // 10000 < 100 and close_pack % 10000 > 70
+            th_ref = 0.4 if n_kf < 2 else 0.75
         c1c = _f32_lt_scaled(local_in, ref_matches, 0.25) or need_close
         c2 = ((_f32_lt_scaled(local_in, ref_matches, th_ref) or need_close)
               and local_in > 15)
@@ -475,7 +585,8 @@ class AutoStep:
             prev=_empty_prev(self.cfg.n_features, dev),
             last_R=eye, last_t=torch.zeros(3, device=dev), have_vel=False,
             ref_kf=0, last_kf_frame=-1, initialized=False, lost=-1,
-            maint_kf=-1, maint_phase=0, maint_neighbors=NO_NEIGHBORS,
+            init_frame_id=-1, maint_kf=-1, maint_phase=0,
+            maint_neighbors=NO_NEIGHBORS,
             maint_lambda=torch.full_like(s.maint_lambda, 1e-4))
         return self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t, 0,
                                False, self._stats8(s, c6=3))
@@ -491,6 +602,8 @@ class AutoStep:
                                     s.ref_kf, False, self._stats8(s))
         elif s.initialized:
             s = self.do_track(s, feats, d)
+        elif self.is_mono:
+            s = self.do_initialize_mono(s, feats, d)
         else:
             s = self.do_initialize(s, feats, d)
         return s._replace(frame_idx=s.frame_idx + 1)
@@ -510,7 +623,8 @@ class AutoTrackerConfig:
 
 
 class AutoTracker:
-    """RGB-D or stereo tracker whose map and trajectory live on ``device``.
+    """RGB-D, stereo or monocular tracker whose map and trajectory live on
+    ``device``.
 
         tr = AutoTracker(cfg, device="cuda")
         for img, depth in frames:          # uint8 [H, W], uint16 [H, W]
@@ -518,7 +632,10 @@ class AutoTracker:
         result = tr.finalize()
 
     With ``TrackerConfig(sensor="stereo", ...)`` the frames are rectified
-    pairs: ``tr.process_stereo(left, right)``.
+    pairs, ``tr.process_stereo(left, right)``; with ``sensor="mono"`` single
+    images, ``tr.process_mono(img)``, and the map's scale is the monocular
+    gauge (median scene depth 1 after the bootstrap). Input with lens
+    distortion is refused.
     """
 
     def __init__(self, cfg: TrackerConfig,
@@ -527,15 +644,11 @@ class AutoTracker:
         auto_cfg = auto_cfg or AutoTrackerConfig()
         if cfg.map_cfg.n_feat != cfg.n_features:
             raise ValueError("map_cfg.n_feat must equal n_features")
-        if cfg.sensor not in ("rgbd", "stereo") or cfg.has_distortion:
+        if cfg.sensor not in ("rgbd", "stereo", "mono"):
+            raise ValueError(f"unknown sensor {cfg.sensor!r}")
+        if cfg.has_distortion:
             raise NotImplementedError(
-                "the port runs undistorted RGB-D and rectified stereo input "
-                "only")
-        if auto_cfg.loop_closing and cfg.map_cfg.k_max > auto_loop.K_DENSE_MAX:
-            raise NotImplementedError(
-                "loop closing with k_max > 64 (top-k essential-graph edges, "
-                "optimize_pose_graph_cg, ba_solve_cg) is not ported: "
-                "ROADMAP.md Queue 1 item 2")
+                "the port runs undistorted (or rectified) input only")
         self.cfg = cfg
         self.auto_cfg = auto_cfg
         self.device = torch.device(device)
@@ -570,6 +683,15 @@ class AutoTracker:
         self.state = self._step.stereo(
             self.state, torch.as_tensor(img_left).to(self.device),
             torch.as_tensor(img_right).to(self.device))
+        self.timestamps.append(self.frame_count / self.cfg.fps
+                               if timestamp is None else timestamp)
+        self.frame_count += 1
+
+    def process_mono(self, img, timestamp: float | None = None):
+        """Track one monocular frame (reference: System::TrackMonocular
+        System.cc:224): a uint8 or float image, numpy array or tensor."""
+        self.state = self._step.mono(self.state,
+                                     torch.as_tensor(img).to(self.device))
         self.timestamps.append(self.frame_count / self.cfg.fps
                                if timestamp is None else timestamp)
         self.frame_count += 1

@@ -17,9 +17,10 @@ the branch taken. Reference semantics (LoopClosing.cc):
   342, 408), then >= 40 matches with the loop group's landmarks (:471);
 - correction (CorrectLoop :509-719).
 
-Only maps of at most 64 keyframes run here: the top-k essential-graph
-edges, the CG pose graph and the CG global BA of larger maps are not
-ported (ROADMAP.md, Queue 1 item 2).
+Maps of up to 64 keyframe slots take every keyframe pair as a candidate
+edge of the essential graph and the dense solvers; larger maps take a
+bounded edge list, the CG global BA and, above 256 slots, the CG pose
+graph.
 """
 from __future__ import annotations
 
@@ -42,7 +43,10 @@ from . import steps
 C_MAX = 4  # candidate groups tracked for consistency
 CONSISTENCY_TH = 3  # reference mnCovisibilityConsistencyTh
 MIN_GAP = 10  # keyframes between loops (reference LoopClosing.cc:116)
-K_DENSE_MAX = 64  # the dense essential graph and global BA; beyond: not ported
+K_DENSE_MAX = 64  # all-pairs essential graph and dense global BA up to here
+K_DENSE_GRAPH_MAX = 256  # the dense [7K, 7K] pose-graph solve up to here
+TOP_COVISIBLE = 8  # covisibility edges kept per vertex in the bounded list
+LOOP_EDGE_CAP = 64  # stored loop edges the bounded list takes
 SEED = 7  # the JAX package's loop carry starts from PRNGKey(7)
 I32 = torch.int32
 
@@ -275,22 +279,45 @@ def sim3_solve(loop: LoopCarry, m: MapState, cam, kf: int, cand: int,
 
 
 def _essential_edges(m: MapState, kf: int, cand: int, loop_edges):
-    """All keyframe pairs i < j with their validity and loop flag: loop
-    edges (past and this one), the temporal chain over live slots and
-    covisibility >= 100 (Optimizer.cc:908-1053)."""
+    """The essential graph's edges (e_i, e_j, e_valid, is_loop): loop edges
+    (past and this one), the temporal chain over live slots and
+    covisibility >= 100 (Optimizer.cc:908-1053). Up to K_DENSE_MAX slots,
+    every keyframe pair i < j with its validity; beyond, a bounded list of
+    O(K) edges: each vertex's TOP_COVISIBLE strongest covisibility
+    neighbors, the chain of consecutive live slots, up to LOOP_EDGE_CAP
+    stored loop edges and the current pair."""
     K = m.kf_R.shape[0]
     dev = m.kf_R.device
     W_cov = covisibility_matrix(m)
-    live = m.kf_valid.to(I32)
-    rank = torch.cumsum(live, 0, dtype=I32) - live
-    iu, ju = np.triu_indices(K, k=1)
-    e_i = torch.as_tensor(iu, dtype=torch.long, device=dev)
-    e_j = torch.as_tensor(ju, dtype=torch.long, device=dev)
-    is_loop = (((e_i == min(kf, cand)) & (e_j == max(kf, cand)))
-               | loop_edges[e_i, e_j] | loop_edges[e_j, e_i])
-    both = m.kf_valid[e_i] & m.kf_valid[e_j]
-    is_chain = both & (rank[e_j] == rank[e_i] + 1)
-    e_valid = ((W_cov[e_i, e_j] >= 100) | is_loop | is_chain) & both
+    lo, hi = min(kf, cand), max(kf, cand)
+    if K <= K_DENSE_MAX:
+        live = m.kf_valid.to(I32)
+        rank = torch.cumsum(live, 0, dtype=I32) - live
+        iu, ju = np.triu_indices(K, k=1)
+        e_i = torch.as_tensor(iu, dtype=torch.long, device=dev)
+        e_j = torch.as_tensor(ju, dtype=torch.long, device=dev)
+        is_loop = (((e_i == lo) & (e_j == hi))
+                   | loop_edges[e_i, e_j] | loop_edges[e_j, e_i])
+        both = m.kf_valid[e_i] & m.kf_valid[e_j]
+        is_chain = both & (rank[e_j] == rank[e_i] + 1)
+        e_valid = ((W_cov[e_i, e_j] >= 100) | is_loop | is_chain) & both
+        return e_i, e_j, e_valid, is_loop
+    top_w, top_j = sort_top_k(W_cov, TOP_COVISIBLE)  # [K, TOP_COVISIBLE]
+    ci = torch.arange(K, device=dev).repeat_interleave(TOP_COVISIBLE)
+    cj = top_j.reshape(-1).long()
+    # i < j keeps each undirected pair once
+    cov_ok = (top_w.reshape(-1) >= 100) & (ci < cj)
+    live_sel, live_ok = steps.gather_mask_indices(m.kf_valid, K)
+    flat_sel, flat_ok = steps.gather_mask_indices(loop_edges.reshape(-1),
+                                                  LOOP_EDGE_CAP)
+    cur = torch.tensor([[lo], [hi]], device=dev)
+    e_i = torch.cat([ci, live_sel[:-1], flat_sel // K, cur[0]])
+    e_j = torch.cat([cj, live_sel[1:], flat_sel % K, cur[1]])
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    e_valid = torch.cat([cov_ok, live_ok[:-1] & live_ok[1:], flat_ok, true1])
+    e_valid = e_valid & m.kf_valid[e_i] & m.kf_valid[e_j] & (e_i != e_j)
+    is_loop = torch.cat([torch.zeros(ci.shape[0] + K - 1, dtype=torch.bool,
+                                     device=dev), flat_ok, true1])
     return e_i, e_j, e_valid, is_loop
 
 
@@ -301,11 +328,6 @@ def correct_loop(m: MapState, cam, kf: int, cand: int, R12, t12, s12,
     landmark correction, matched-pair Replace, SearchAndFuse, the
     essential graph and a bounded global BA."""
     K = m.kf_R.shape[0]
-    if K > K_DENSE_MAX:
-        raise NotImplementedError(
-            "loop correction of maps with k_max > 64 (top-k essential-graph "
-            "edges, optimize_pose_graph_cg, ba_solve_cg) is not ported: "
-            "ROADMAP.md Queue 1 item 2")
     dev = m.kf_R.device
     one = torch.ones((), device=dev)
     ids = torch.arange(K, device=dev)
@@ -360,7 +382,11 @@ def correct_loop(m: MapState, cam, kf: int, cand: int, R12, t12, s12,
     s_j = torch.where(is_loop, s_sim[e_j], 1.0)
     mR, mt, ms = sim3.compose(R_j, t_j, s_j, *sim3.inverse(R_i, t_i, s_i))
     fixed = (ids == cand) | ~m.kf_valid
-    res = pose_graph.optimize_pose_graph(
+    # the dense [7K, 7K] solve is a memory wall beyond a few hundred slots
+    solve_graph = (pose_graph.optimize_pose_graph
+                   if K <= K_DENSE_GRAPH_MAX
+                   else pose_graph.optimize_pose_graph_cg)
+    res = solve_graph(
         pose_graph.PoseGraphProblem(m.kf_R, t_sim, s_sim, e_i, e_j, mR, mt,
                                     ms, e_valid, fixed),
         iters=20, fix_scale=fix_scale)
@@ -375,14 +401,16 @@ def correct_loop(m: MapState, cam, kf: int, cand: int, R12, t12, s12,
                    kf_t=res.t / res.s.clamp(min=1e-9)[:, None],
                    lm_pw=torch.where(m.lm_valid[:, None], pw, m.lm_pw))
 
-    # bounded global BA (LoopClosing.cc:795), keyframe 0 fixed
+    # bounded global BA (LoopClosing.cc:795), keyframe 0 fixed; the dense
+    # reduced system is quadratic in K, so larger maps solve it by CG
     kf_idx = m.lm_obs_kf.clamp(min=0).long()
     feat = m.lm_obs_feat.long()
     uvr = torch.cat([m.kf_xy[kf_idx, feat], m.kf_ur[kf_idx, feat][..., None]],
                     -1)
     wgt = torch.where((m.lm_obs_kf >= 0) & m.lm_valid[:, None],
                       msearch.inv_sigma2_at(m.kf_octave[kf_idx, feat]), 0.0)
-    res_ba = ba.ba_solve(cam, ba.BAProblem(
+    solve_ba = ba.ba_solve if K <= K_DENSE_MAX else ba.ba_solve_cg
+    res_ba = solve_ba(cam, ba.BAProblem(
         m.kf_R, m.kf_t, m.lm_pw, kf_idx, uvr, wgt, (ids == 0) | ~m.kf_valid,
         m.lm_valid), iters=10, robust=True)
     return rebuild_observations(m._replace(kf_R=res_ba.R, kf_t=res_ba.t,

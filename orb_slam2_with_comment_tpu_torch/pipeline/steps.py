@@ -1,5 +1,4 @@
-"""Tracking and keyframe-maintenance steps of the RGB-D slice (port of
-pipeline/steps.py).
+"""Tracking and keyframe-maintenance steps (port of pipeline/steps.py).
 
 Each function maps a MapState (and frame data) to a new MapState or a
 measurement. Keyframe and landmark slots that the JAX package passes as
@@ -12,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..geometry import se3
+from ..geometry import se3, triangulate
 from ..mapstate.map import (MapState, add_observation, covisibility_weights,
                             landmark_obs_count, merge_landmarks, set_last)
 from ..matching import search as msearch
@@ -111,13 +110,25 @@ def _write_landmark_rows(m: MapState, slots, sel, pw, desc, normal, dmin,
         n_lm=m.n_lm + n_new)
 
 
+def _insert_landmark_rows(m: MapState, pw, desc, normal, dmin, dmax,
+                          ref_kf: int, create):
+    """Append the rows selected by ``create`` into the first free landmark
+    slots: (map, slot of each row, rows that found a slot)."""
+    L = m.lm_pw.shape[0]
+    slots = m.n_lm + torch.cumsum(create.to(I32), 0, dtype=I32) - 1
+    create = create & (slots < L)
+    safe = torch.where(create, slots, L - 1)
+    m = _write_landmark_rows(m, safe, create, pw, desc, normal, dmin, dmax,
+                             ref_kf, create.sum(dtype=I32))
+    return m, safe, create
+
+
 def create_depth_landmarks(m: MapState, cam: CamParams, kf: int,
                            th_depth: float) -> MapState:
     """Landmarks for keyframe ``kf``'s still-unmatched features with valid
     depth: all closer than th_depth, else the 100 closest (reference:
     Tracking.cc:1271-1324)."""
     N = m.kf_xy.shape[1]
-    L = m.lm_pw.shape[0]
     dev = m.kf_xy.device
     R, t = m.kf_R[kf], m.kf_t[kf]
     depth = m.kf_depth[kf]
@@ -127,9 +138,6 @@ def create_depth_landmarks(m: MapState, cam: CamParams, kf: int,
                                        stable=True), stable=True)
     create = torch.where(is_close.sum() >= 100, is_close,
                          depth_ok & (rank < 100))
-    slots = m.n_lm + torch.cumsum(create.to(I32), 0, dtype=I32) - 1
-    create &= slots < L
-    safe_slots = torch.where(create, slots, L - 1)
     xy = m.kf_xy[kf]
     z = depth
     x = (xy[:, 0] - cam.cx) / cam.fx * z
@@ -139,10 +147,147 @@ def create_depth_landmarks(m: MapState, cam: CamParams, kf: int,
     dist = torch.linalg.norm(pw - Ow, dim=-1)
     normal = (pw - Ow) / dist.clamp(min=1e-9)[:, None]
     dmax = dist * scale_at(m.kf_octave[kf])
-    m = _write_landmark_rows(m, safe_slots, create, pw, m.kf_desc[kf], normal,
-                             dmax / MAX_SCALE, dmax, kf, create.sum(dtype=I32))
-    return add_observation(m, safe_slots, _full(N, kf, dev), _ids(N, dev),
-                           create)
+    m, slots, create = _insert_landmark_rows(
+        m, pw, m.kf_desc[kf], normal, dmax / MAX_SCALE, dmax, kf, create)
+    return add_observation(m, slots, _full(N, kf, dev), _ids(N, dev), create)
+
+
+# ---------------------------------------------------------------------------
+# two-view landmarks (the monocular map's only landmark source)
+# ---------------------------------------------------------------------------
+
+def insert_landmarks_two_view(m: MapState, cam, kf1: int, kf2: int, idx2, pw,
+                              mask) -> MapState:
+    """Insert triangulated landmarks anchored at kf1's features: row i is
+    feature i of kf1 matched to feature idx2[i] of kf2, at world point
+    pw[i] (reference: CreateInitialMapMonocular Tracking.cc:752-782 and the
+    tail of LocalMapping::CreateNewMapPoints)."""
+    N = idx2.shape[0]
+    dev = idx2.device
+    safe2 = idx2.clamp(min=0)
+    mask = mask & (m.kf_lm[kf1] < 0) & (m.kf_lm[kf2, safe2.long()] < 0)
+    R2, t2 = m.kf_R[kf2], m.kf_t[kf2]
+    Ow2 = -(R2.T @ t2)
+    dist = torch.linalg.norm(pw - Ow2, dim=-1)
+    dmax = dist * scale_at(m.kf_octave[kf2, safe2.long()])
+    normal = (pw - Ow2) / dist.clamp(min=1e-9)[:, None]
+    m, slots, ok = _insert_landmark_rows(
+        m, pw, m.kf_desc[kf1], normal, dmax / MAX_SCALE, dmax, kf2, mask)
+    m = add_observation(m, slots, _full(N, kf1, dev), _ids(N, dev), ok)
+    return add_observation(m, slots, _full(N, kf2, dev), safe2.to(I32), ok)
+
+
+def _k_matrix(cam, like: torch.Tensor) -> torch.Tensor:
+    return like.new_tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
+                            [0, 0, 1.0]])
+
+
+def epipolar_geometry(m: MapState, cam, kf1: int, kf2: int):
+    """(F12, the epipole of camera 1 in image 2) of a keyframe pair
+    (LocalMapping::ComputeF12, LocalMapping.cc:676-714)."""
+    R1, t1 = m.kf_R[kf1], m.kf_t[kf1]
+    R2, t2 = m.kf_R[kf2], m.kf_t[kf2]
+    R12 = R1 @ R2.T
+    t12 = -(R12 @ t2) + t1
+    Ki = torch.linalg.inv(_k_matrix(cam, R1))
+    F12 = Ki.T @ se3.hat(t12) @ R12 @ Ki
+    c2 = R2 @ -(R1.T @ t1) + t2
+    z = torch.where(c2[2] == 0, 1e-9, c2[2])
+    e2 = torch.stack([cam.fx * c2[0] / z + cam.cx,
+                      cam.fy * c2[1] / z + cam.cy])
+    return F12, e2
+
+
+def triangulate_landmarks(m: MapState, cam, kf1: int, kf2: int) -> MapState:
+    """CreateNewMapPoints for one keyframe pair (reference:
+    LocalMapping.cc:290-577): epipolar-gated matching of landmark-free
+    features, batched DLT triangulation, the parallax, cheirality,
+    reprojection chi2 and scale-consistency gates, insertion with
+    observations in both keyframes. A match that fails the
+    scale-consistency gate is rejected, as upstream rejects it (the
+    reference fork lost that ``continue``)."""
+    R1, t1 = m.kf_R[kf1], m.kf_t[kf1]
+    R2, t2 = m.kf_R[kf2], m.kf_t[kf2]
+    F12, e2 = epipolar_geometry(m, cam, kf1, kf2)
+    f1 = _kf_featureset(m, kf1)
+    f2 = _kf_featureset(m, kf2)
+    idx2, _, matched = msearch.search_for_triangulation(
+        cam, f1, f2, m.kf_lm[kf1] < 0, m.kf_lm[kf2] < 0, F12, e2)
+    safe2 = idx2.clamp(min=0).long()
+    p1, p2 = f1.xy, f2.xy[safe2]
+    Km = _k_matrix(cam, R1)
+    P1 = Km @ torch.cat([R1, t1[:, None]], 1)
+    P2 = Km @ torch.cat([R2, t2[:, None]], 1)
+    N = p1.shape[0]
+    X = triangulate.triangulate_dlt(P1.expand(N, 3, 4), P2.expand(N, 3, 4),
+                                    p1, p2)
+    Ow1, Ow2 = -(R1.T @ t1), -(R2.T @ t2)
+    cos_par = triangulate.rays_parallax_cos(Ow1, Ow2, X)
+    finite = torch.isfinite(X).all(-1)
+    par_ok = (cos_par > 0) & (cos_par < 0.9998)
+    Xc1 = X @ R1.T + t1
+    Xc2 = X @ R2.T + t2
+    chei = (Xc1[:, 2] > 0) & (Xc2[:, 2] > 0)
+
+    def reproj_ok(Xc, xy, ur, inv):
+        zc = Xc[:, 2].clamp(min=1e-9)
+        u = cam.fx * Xc[:, 0] / zc + cam.cx
+        v = cam.fy * Xc[:, 1] / zc + cam.cy
+        e_mono = ((u - xy[:, 0]) ** 2 + (v - xy[:, 1]) ** 2) * inv
+        e_st = e_mono + ((u - cam.bf / zc - ur) ** 2) * inv
+        return torch.where(ur >= 0, e_st < 7.8, e_mono < 5.991)
+
+    reproj = (reproj_ok(Xc1, p1, f1.ur, inv_sigma2_at(f1.octave))
+              & reproj_ok(Xc2, p2, f2.ur[safe2],
+                          inv_sigma2_at(f2.octave[safe2])))
+    d1 = torch.linalg.norm(X - Ow1, dim=-1)
+    d2 = torch.linalg.norm(X - Ow2, dim=-1)
+    ratio_dist = d2 / d1.clamp(min=1e-9)
+    ratio_oct = scale_at(f1.octave) / scale_at(f2.octave[safe2])
+    ratio_factor = 1.5 * msearch.SCALE
+    scale_ok = ((ratio_dist * ratio_factor >= ratio_oct)
+                & (ratio_dist <= ratio_oct * ratio_factor))
+    ok = (matched & finite & par_ok & chei & reproj & scale_ok & (d1 > 0)
+          & (d2 > 0))
+    return insert_landmarks_two_view(m, cam, kf1, kf2, idx2, X, ok)
+
+
+def scene_median_depth(m: MapState, kf: int) -> torch.Tensor:
+    """KeyFrame::ComputeSceneMedianDepth(2) (reference KeyFrame.cc:647-677):
+    the lower median of the keyframe's landmark depths; +inf without
+    landmarks."""
+    lm = m.kf_lm[kf]
+    safe = lm.clamp(min=0).long()
+    has = (lm >= 0) & m.kf_feat_valid[kf] & m.lm_valid[safe]
+    z = m.lm_pw[safe] @ m.kf_R[kf][2] + m.kf_t[kf][2]
+    zs = torch.sort(torch.where(has, z, float("inf")), stable=True).values
+    return zs[max((int(has.sum()) - 1) // 2, 0)]
+
+
+def triangulate_with_neighbors(m: MapState, cam, kf: int,
+                               neighbors) -> MapState:
+    """CreateNewMapPoints over the covisible neighbors (-1 padded), skipping
+    a neighbor whose baseline is below 1% of its median scene depth (the
+    monocular rule, LocalMapping.cc:336-358)."""
+    Ow = -(m.kf_R[kf].T @ m.kf_t[kf])
+    for j in neighbors:
+        if j < 0:
+            continue
+        baseline = torch.linalg.norm(-(m.kf_R[j].T @ m.kf_t[j]) - Ow)
+        med = scene_median_depth(m, j)
+        if bool(baseline / med.clamp(min=1e-9) > 0.01):
+            m = triangulate_landmarks(m, cam, kf, j)
+    return m
+
+
+def scale_map(m: MapState, s) -> MapState:
+    """Rescale the whole map (the monocular gauge, CreateInitialMapMonocular
+    Tracking.cc:791-817): landmark positions, their scale bands, keyframe
+    translations and positive depths multiply by s."""
+    return m._replace(
+        kf_t=m.kf_t * s, lm_pw=m.lm_pw * s, lm_dmin=m.lm_dmin * s,
+        lm_dmax=m.lm_dmax * s,
+        kf_depth=torch.where(m.kf_depth > 0, m.kf_depth * s, m.kf_depth))
 
 
 # ---------------------------------------------------------------------------
@@ -426,13 +571,29 @@ def merge_duplicate_landmarks(m: MapState, cur_kf: int,
 
 
 def refresh_landmarks_for_kf(m: MapState, kf: int) -> MapState:
-    """Representative descriptor (min median Hamming), mean viewing
-    direction and scale band of the landmarks keyframe ``kf`` observes
-    (MapPoint::ComputeDistinctiveDescriptors, UpdateNormalAndDepth)."""
-    D = m.lm_obs_kf.shape[1]
+    """refresh_landmarks restricted to the landmarks keyframe ``kf``
+    observes, the set a maintenance step touches."""
     ids = m.kf_lm[kf]
     sel = ids.clamp(min=0).long()
-    g_ok = (ids >= 0) & m.kf_feat_valid[kf] & m.lm_valid[sel]
+    return _refresh_rows(
+        m, sel, (ids >= 0) & m.kf_feat_valid[kf] & m.lm_valid[sel])
+
+
+def refresh_landmarks(m: MapState) -> MapState:
+    """Representative descriptors, normals and scale bands of every
+    landmark that has an observation, from the observation table."""
+    L = m.lm_pw.shape[0]
+    dev = m.lm_pw.device
+    return _refresh_rows(m, torch.arange(L, device=dev),
+                         torch.ones(L, dtype=torch.bool, device=dev))
+
+
+def _refresh_rows(m: MapState, sel, g_ok) -> MapState:
+    """Representative descriptor (min median Hamming), mean viewing
+    direction and scale band of the landmarks ``sel`` [B] long where
+    ``g_ok`` [B] (MapPoint::ComputeDistinctiveDescriptors MapPoint.cc:
+    247-316, UpdateNormalAndDepth 339-390)."""
+    D = m.lm_obs_kf.shape[1]
     obs_kf = m.lm_obs_kf[sel]
     obs_feat = m.lm_obs_feat[sel].long()
     valid_obs = (obs_kf >= 0) & g_ok[:, None]
@@ -454,6 +615,7 @@ def refresh_landmarks_for_kf(m: MapState, kf: int) -> MapState:
     nsum = dirs.sum(1)
     normal = nsum / torch.linalg.norm(nsum, dim=-1, keepdim=True).clamp(
         min=1e-9)
+    # the scale band comes from the reference observation (slot 0)
     dist_ref = torch.linalg.norm(pw - Ow[kf_idx[:, 0]], dim=-1)
     dmax = dist_ref * scale_at(m.kf_octave[kf_idx[:, 0], obs_feat[:, 0]])
     upd = g_ok & (cnt > 0)
@@ -629,19 +791,20 @@ def loop_search_and_fuse(m: MapState, cam, loop_lm_mask, group_kfs: list[int],
     return m
 
 
-def keyframe_step(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
-                  th_depth: float, width: int, height: int) -> MapState:
+def _keyframe_chunk(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
+                    width: int, height: int, new_landmarks) -> MapState:
     """A whole keyframe maintenance chunk at once: insertion, the top-5
-    covisible neighbors, inward fusion, depth landmarks, outward fusion,
-    duplicate merge, landmark refresh and culling, local BA (when the
-    keyframe has a neighbor) and keyframe culling over the top-10."""
+    covisible neighbors, inward fusion, ``new_landmarks(map, slot,
+    neighbors)``, outward fusion, duplicate merge, landmark refresh and
+    culling, local BA (when the keyframe has a neighbor) and keyframe
+    culling over the top-10."""
     k = int(m.n_kf)
     m = insert_keyframe(m, obs, R, t, frame_id)
     top_w, top_i = sort_top_k(covisibility_weights(m, k), 10)
     window = torch.where(top_w > 0, top_i, -1).tolist()
     neighbors = window[:5]
     m = fuse_neighbors(m, cam, k, neighbors, width, height, into=True)
-    m = create_depth_landmarks(m, cam, k, th_depth)
+    m = new_landmarks(m, k, neighbors)
     m = fuse_neighbors(m, cam, k, neighbors, width, height, into=False)
     m = merge_duplicate_landmarks(m, k)
     m = refresh_landmarks_for_kf(m, k)
@@ -649,3 +812,21 @@ def keyframe_step(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
     if max(neighbors) >= 0:
         m, _ = local_bundle_adjustment(m, cam, k)
     return cull_keyframes(m, k, window)
+
+
+def keyframe_step(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
+                  th_depth: float, width: int, height: int) -> MapState:
+    """The maintenance chunk of an RGB-D or stereo keyframe: its new
+    landmarks come from depth."""
+    return _keyframe_chunk(
+        m, cam, obs, R, t, frame_id, width, height,
+        lambda mm, k, _: create_depth_landmarks(mm, cam, k, th_depth))
+
+
+def keyframe_step_mono(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
+                       width: int, height: int) -> MapState:
+    """The maintenance chunk of a monocular keyframe: its new landmarks
+    are triangulated against the top-5 covisible neighbors."""
+    return _keyframe_chunk(
+        m, cam, obs, R, t, frame_id, width, height,
+        lambda mm, k, nb: triangulate_with_neighbors(mm, cam, k, nb))

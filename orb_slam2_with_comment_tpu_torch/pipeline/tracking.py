@@ -1,7 +1,7 @@
 """Tracker configuration (port of pipeline/tracking.py: TrackerConfig).
 
 The fields are the JAX package's, less the ones only its host-driven
-Tracker and its monocular bootstrap read.
+Tracker reads.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from ..optim.residuals import CamParams
 
 @dataclass
 class TrackerConfig:
-    sensor: str = "rgbd"  # "mono" | "stereo" | "rgbd" (the port runs rgbd, stereo)
+    sensor: str = "rgbd"  # "mono" | "stereo" | "rgbd"
     fx: float = 500.0
     fy: float = 500.0
     cx: float = 320.0
@@ -25,6 +25,9 @@ class TrackerConfig:
     th_depth: float = 40.0  # in baseline units; meters = th_depth * bf / fx
     fps: float = 30.0
     min_init_features: int = 500
+    # monocular bootstrap: matches the two-view initializer needs, and
+    # tracked points the two-keyframe map must keep (Tracking.cc:687, 793)
+    min_init_matches: int = 100
     map_cfg: MapConfig = field(default_factory=MapConfig)
     # Hamming acceptance of the projection searches (reference TH_HIGH)
     desc_th: int = 100

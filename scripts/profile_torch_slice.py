@@ -2,15 +2,18 @@
 
     python3 scripts/profile_torch_slice.py [--frames 60] [--trace-frames 14]
                                            [--out DIR]
-                                           [--sensor rgbd|stereo|stereo-kitti]
+                                           [--sensor rgbd|stereo|stereo-kitti|mono]
 
 Runs the bench configuration (640x480, 1000 features, MapConfig(24, 1000,
 8000, 8), loop_closing=False) over the synthetic orbit: one pass to build
 the map, then one timed pass that re-tracks the same frames. With
 ``--sensor stereo`` the frames are the rectified pairs of chip_smoke.py's
 stereo phase at the same configuration, with ``stereo-kitti`` its 30 pairs
-at the KITTI 00-02 camera with 2000 features. The timed pass is measured
-two ways:
+at the KITTI 00-02 camera with 2000 features, with ``mono`` the orbit's
+images alone at chip_smoke.py's monocular configuration (2000 features,
+MapConfig(24, 2000, 8000, 8)); the monocular bootstrap runs in the build
+pass only, so that pass's layer totals are reported too. The timed pass
+is measured two ways:
 
 - per layer: the pipeline's stages are wrapped with a timer that
   synchronizes the device around each call and keeps exclusive time (a
@@ -63,6 +66,11 @@ STAGES = {
     "local_map_search": (steps, "track_local_map"),
     "insert_keyframe": (steps, "insert_keyframe"),
     "create_depth_landmarks": (steps, "create_depth_landmarks"),
+    # the monocular path: the two-view bootstrap, the triangulation against
+    # the two previous slots at an insert, and the maintenance phase's
+    "bootstrap": (auto.AutoStep, "do_initialize_mono"),
+    "triangulate_insert": (auto.AutoStep, "triangulate_at_insert"),
+    "ph_triangulate": (auto.AutoStep, "ph_triangulate"),
     "ph_fuse_in": (auto.AutoStep, "ph_fuse_in"),
     "ph_fuse_out": (auto.AutoStep, "ph_fuse_out"),
     "ph_merge": (auto.AutoStep, "ph_merge"),
@@ -105,7 +113,7 @@ def main():
     ap.add_argument("--trace-frames", type=int, default=14)
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--sensor", default="rgbd",
-                    choices=("rgbd", "stereo", "stereo-kitti"))
+                    choices=("rgbd", "stereo", "stereo-kitti", "mono"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -127,6 +135,12 @@ def main():
             n_features=1000, min_init_features=200,
             map_cfg=MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=8),
             fps=30, depth_factor=1.0 / 5000.0)
+    elif args.sensor == "mono":
+        chip_smoke.render_all(max(1, min(7, (os.cpu_count() or 2) - 1)),
+                              names=(chip_smoke.MONO_SEQ,))
+        cfg = chip_smoke.mono_bench_cfg()
+        frames = [f[0] for f in chip_smoke.frames_of(chip_smoke.MONO_SEQ)]
+        n = len(frames)
     else:
         kitti = args.sensor == "stereo-kitti"
         chip_smoke.render_all(
@@ -143,6 +157,8 @@ def main():
     def process(tr, frame):
         if args.sensor == "rgbd":
             tr.process_rgbd(*frame)
+        elif args.sensor == "mono":
+            tr.process_mono(frame)
         else:
             tr.process_stereo(*frame)
 
@@ -162,9 +178,13 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    # per-layer exclusive times on one tracker's second pass
-    tracker = built_tracker()
+    # per-layer exclusive times on one tracker's second pass (and the
+    # totals of its build pass, where the monocular bootstrap runs)
     timer.on = True
+    tracker = built_tracker()
+    build_layers = {k: 1e3 * v for k, v in timer.total.items()}
+    timer.total.clear()
+    timer.calls.clear()
     wall_layers = timed_pass(tracker, frames)
     timer.on = False
     # kernel-level trace of the same pass on a second tracker
@@ -198,6 +218,8 @@ def main():
                                 sorted(timer.total.items(),
                                        key=lambda kv: -kv[1])},
         "layer_calls": dict(timer.calls),
+        "build_pass_layers_ms_total": dict(sorted(
+            build_layers.items(), key=lambda kv: -kv[1])),
         "top_device_ops_ms_per_frame": [
             [k, us / 1e3 / nt, c] for k, us, c in kernels[:15]],
         "valid_frames": int(out["valid"].sum()), "frames_run": frames_run,

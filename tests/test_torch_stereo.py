@@ -249,9 +249,12 @@ def test_stereo_state_converts_both_ways_and_prints_kitti(runs):
 
 
 def test_tracker_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    mono = AutoTracker(TrackerConfig(map_cfg=MapConfig(**MAP),
+                                     **dict(KW, sensor="mono")), device="cpu")
+    assert mono._step.is_mono  # ported: tests/test_torch_mono.py drives it
+    with pytest.raises(ValueError):
         AutoTracker(TrackerConfig(map_cfg=MapConfig(**MAP),
-                                  **dict(KW, sensor="mono")), device="cpu")
+                                  **dict(KW, sensor="lidar")), device="cpu")
     with pytest.raises(NotImplementedError):
         AutoTracker(TrackerConfig(map_cfg=MapConfig(**MAP),
                                   dist=(0.1, 0, 0, 0, 0), **KW), device="cpu")
