@@ -122,6 +122,48 @@ Phases (any failure raises and the script exits nonzero without the final
    step, its edge count, its launches, and how far the same step run
    twice differs (index_add_ sums in no fixed order on the card).
 
+13. The System façade and the host-driven Tracker:
+   a. System(cfg, Sensor.RGBD) at the bench configuration with the
+      default pipelining (pipeline_depth 8, fetch_batch 4): the 60-frame
+      orbit, phase 6's 3 black frames, frames 2-4 again, then frames 5-7
+      in localization mode. Initialized; every orbit frame returns a pose;
+      the chained trajectory's median error < 0.02 m and 1 degree; no
+      black frame is logged and the tracker is LOST by the second frame
+      after them; the first revisit frame processed while LOST
+      relocalizes within 0.05 m; localization mode leaves the keyframe
+      count unchanged; the TUM, keyframe TUM and KITTI files have one line
+      per logged frame, per keyframe, and 12 numbers a line; a session
+      saved and loaded into a fresh System tracks the next frame. Prints
+      ms per frame (insert and other calls), the relocalization frame's
+      ms, device syncs per frame (torch.cuda's sync debug mode plus the
+      readback waits) and K1 launches per frame.
+   b. tests/test_loop_host.py's controlled loop at full width (640x480,
+      1000 features, MapConfig(20, 1000, 10000, 8), min_gap=1, the
+      14-frame lap plus 4, drift on keyframes 8-13) through keyframe_step,
+      KeyFrameDatabase.add and LoopCloser.process: a loop fires at a
+      keyframe >= 10, the aligned keyframe ATE falls below 0.35 of the
+      drifted one, >= 30 landmarks welded across the loop, the mean chi2
+      drops, the map stays finite. Prints the firing process()'s stage
+      times; then one chunked GBA completes in ceil(10/2) polls and a
+      second start mid-run bumps the generation.
+   c. tests/test_lifecycle.py's tiny-capacity run at 640x480 (800
+      features, MapConfig(12, 800, 2500, 8), the 60-frame orbit): the map
+      grew or compacted, every frame tracked, ATE < 0.05 m, every rel_log
+      row resolves through the uid archive.
+   d. Sensor.STEREO on phase 9's first 30 pairs and Sensor.MONOCULAR on
+      phase 11's 60 images through System, gated on the JAX host
+      Tracker's outcome on the same frames on the CPU
+      (scripts/jax_reference_runs.py host): at least its share of frames
+      tracked less 0.1, at most twice its ATE, the mono bootstrap at most
+      2 frames after its.
+   e. undistort_points on the card against the CPU (TUM1's distortion)
+      within 1e-3 px.
+   Every (calling function, shape) phases 13a and 13c gave the kernels
+   (the local-map window at [min(4096, l_max), n_feat] before and after
+   growth among them) is then held bit-exact against the plain version
+   and the baseline kernel and timed. The kernels line's launches are
+   phase 13a's.
+
     python3 chip_smoke.py --kernels-only
 
 stops after phase 3 (a short run for work on the kernels; it prints no
@@ -138,11 +180,14 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from orb_slam2_with_comment_tpu_torch import Sensor, System, checkpoint
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     SyntheticWorld, orbit_trajectory)
 from orb_slam2_with_comment_tpu_torch.evaluation.ate import (
@@ -152,11 +197,16 @@ from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming
-from orb_slam2_with_comment_tpu_torch.pipeline import auto_loop, steps
+from orb_slam2_with_comment_tpu_torch.models.camera import PinholeCamera
+from orb_slam2_with_comment_tpu_torch.pipeline import (
+    auto_loop, loop_closing, steps)
 from orb_slam2_with_comment_tpu_torch.pipeline.auto import (
     AutoTracker, AutoTrackerConfig)
-from orb_slam2_with_comment_tpu_torch.pipeline.tracking import TrackerConfig
+from orb_slam2_with_comment_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam2_with_comment_tpu_torch.pipeline.tracking import (
+    Tracker, TrackerConfig, TrackState)
 from orb_slam2_with_comment_tpu_torch.place import vocabulary as V
+from orb_slam2_with_comment_tpu_torch.place.database import KeyFrameDatabase
 from orb_slam2_with_comment_tpu_torch.solvers import initializer, pnp
 
 BENCH_MAP = MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=8)
@@ -1267,8 +1317,6 @@ def check_mono_problems(dev, tracker, problems, rows):
     [2000, 2000], and the newest problem of every (calling function,
     shape) that phase 11 gave either kernel, the local-map search at
     [4096, 2000] among them. Appended to the kernels' rows."""
-    base = BaselineKernels()
-    popc_rate = popc_per_s()
     m = tracker.state.map
     k1, k2 = steps._kf_featureset(m, 1), steps._kf_featureset(m, 0)
     F12, e2 = steps.epipolar_geometry(m, tracker.cfg.cam, 1, 0)
@@ -1276,12 +1324,25 @@ def check_mono_problems(dev, tracker, problems, rows):
              (k1.desc, k2.desc, msearch.triangulation_mask(
                  k1, k2, m.kf_lm[1] < 0, m.kf_lm[0] < 0, F12, e2)))]
     assert todo[0][2][2].shape == (2000, 2000)
-    todo += [(f"mono path, {caller} [{q},{n}]", kernel, tensors)
-             for (kernel, caller, (q, n)), tensors in sorted(
-                 problems.items(), key=lambda kv: kv[0])]
     shapes = {(kernel, shape) for kernel, _, shape in problems}
     assert ("masked_best_two", (4096, 2000)) in shapes, sorted(shapes)
     assert ("masked_best_two", (2000, 2000)) in shapes, sorted(shapes)
+    hold_problems(todo + captured_todo("mono path", problems), rows)
+
+
+def captured_todo(label, problems):
+    """captured_problems' dict as (where, kernel, tensors) rows."""
+    return [(f"{label}, {caller} [{q},{n}]", kernel, tensors)
+            for (kernel, caller, (q, n)), tensors in sorted(
+                problems.items(), key=lambda kv: kv[0])]
+
+
+def hold_problems(todo, rows):
+    """Each (where, kernel, tensors) of ``todo`` held bit-exact against the
+    plain version and the baseline kernel, then timed with its bound; the
+    rows join the kernels' ``other_problems``."""
+    base = BaselineKernels()
+    popc_rate = popc_per_s()
     for where, kernel, tensors in todo:
         tensors = tuple(t.contiguous() for t in tensors)
         if kernel == "distance_matrix":
@@ -1316,6 +1377,397 @@ def check_mono_problems(dev, tracker, problems, rows):
         row["problem"], row["admissible"] = where, share
         rows[0]["other_problems"].append(row)
         log(f"masked_best_two {where}: " + fmt_times(row))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the System facade and the host-driven Tracker
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Within the block, box["n"] counts the host's waits on the card: the
+    synchronizing CUDA calls that torch.cuda's sync debug mode flags
+    (item(), .cpu(), a boolean mask index, ...) and the waits on a
+    non-blocking readback's event; box["readback"] counts the latter
+    alone."""
+    box = {"n": 0, "readback": 0}
+    wait = loop_closing.Readback.result
+
+    def counted(self):  # one wait per readback: its first result()
+        first = self._event is not None and not hasattr(self, "_waited")
+        box["readback"] += first
+        self._waited = True
+        return wait(self)
+
+    loop_closing.Readback.result = counted
+    on_card = torch.cuda.is_available()
+    if on_card:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield box
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(mode)
+        loop_closing.Readback.result = wait
+    box["n"] = box["readback"] + sum("synchroniz" in str(w.message)
+                                    for w in caught)
+
+
+def kf_launches():
+    return sum(hamming.LAUNCHES.values())
+
+
+def run_system_rgbd(dev):
+    """Phase 13a: System(cfg, Sensor.RGBD) at the bench configuration with
+    the default pipelining: the 60-frame orbit, 3 black frames, frames 2-4
+    again, then frames 5-7 in localization mode; the three trajectory
+    files; a session saved and loaded into a fresh System that tracks the
+    next frame. Returns (launches, the newest problem of each shape the
+    run gave the kernels)."""
+    n = 60
+    poses = orbit_trajectory(n_frames=n)
+    frames = frames_of("orbit60")
+    black = (np.zeros((480, 640), np.uint8), np.zeros((480, 640), np.uint16))
+    seq = frames + [black] * 3 + frames[2:5]
+    r0 = n + 3  # the first revisit frame
+    slam = System(bench_cfg(), Sensor.RGBD, device=dev)
+    tr = slam.tracker
+    reset_launches()
+    rows = []  # (ms, syncs, K1 launches, inserted, state before, pose)
+    with captured_problems() as problems:
+        for i, (img, depth) in enumerate(seq):
+            n_kf, state, k1 = tr.n_kf_host, tr.state, kf_launches()
+            box = {}
+
+            def call():
+                with counted_syncs() as c:
+                    box["pose"] = slam.track_rgbd(img, depth, i / 30.0)
+                box["syncs"] = c
+
+            ms = synced_ms(call)
+            rows.append((ms, box["syncs"]["n"], kf_launches() - k1,
+                         tr.n_kf_host > n_kf, state, box["pose"],
+                         tr.last_reloc_frame, box["syncs"]["readback"]))
+        launches = dict(hamming.LAUNCHES)
+        n_kf_loc = tr.n_kf_host
+        slam.activate_localization_mode()
+        for i, (img, depth) in enumerate(frames[5:8]):
+            slam.track_rgbd(img, depth, (len(seq) + i) / 30.0)
+        loc_kf = [tr.n_kf_host]
+        chain = slam._chain_poses()  # flushes the frames in flight
+        loc_kf.append(tr.n_kf_host)
+        slam.deactivate_localization_mode()
+    ms = np.array([r[0] for r in rows])
+    ins = np.array([r[3] for r in rows])
+    lost = [i for i, r in enumerate(rows) if r[4] == TrackState.LOST]
+    reloc = [i for i, r in enumerate(rows) if r[6] == i]
+    logged = {rec[0] for rec in tr.rel_log}
+    frame_of = [rec[0] for rec in tr.rel_log]
+    assert len(chain) == len(frame_of)
+    t_err = [np.linalg.norm(tcw - poses[f][1])
+             for (_, _, tcw), f in zip(chain, frame_of) if f < n]
+    r_err = [np.degrees(np.arccos(np.clip((np.trace(Rcw @ poses[f][0].T) - 1)
+                                          / 2, -1, 1)))
+             for (_, Rcw, _), f in zip(chain, frame_of) if f < n]
+    log(f"system rgbd: inserts at calls {np.nonzero(ins)[0].tolist()}, "
+        f"{tr.n_kf_host} keyframes, maps K={tr.map.kf_R.shape[0]} "
+        f"L={tr.map.lm_pw.shape[0]}; calls made while LOST {lost}, "
+        f"relocalized at {reloc}; median t err {np.median(t_err):.5f} m, "
+        f"rot err {np.median(r_err):.4f} deg over {len(t_err)} orbit frames")
+    log(f"system rgbd: ms per frame (host clock, synced per frame): orbit "
+        f"{ms[:n].mean():.2f} (median {np.median(ms[:n]):.2f}), insert "
+        f"calls {ms[:n][ins[:n]].mean():.2f} (n={int(ins[:n].sum())}), "
+        f"other calls {ms[:n][~ins[:n]].mean():.2f}; relocalization frame "
+        f"{ms[reloc[0]]:.2f}" if reloc else "system rgbd: no relocalization")
+    log(f"system rgbd: syncs per frame {np.mean([r[1] for r in rows]):.2f} "
+        f"(orbit insert calls {np.mean([r[1] for r in rows[:n] if r[3]]):.2f}"
+        f", other orbit calls "
+        f"{np.mean([r[1] for r in rows[:n] if not r[3]]):.2f}, "
+        f"relocalization frame {rows[reloc[0]][1] if reloc else None}; of "
+        f"them waits on the tracker's own non-blocking readbacks "
+        f"{np.mean([r[7] for r in rows]):.2f}); K1 "
+        f"launches per frame {np.mean([r[2] for r in rows]):.2f} "
+        f"({launches} in {len(rows)} frames)")
+    assert tr.state == TrackState.OK and rows[0][5] is not None, \
+        "not initialized"
+    assert all(r[5] is not None for r in rows[:n]), "an orbit frame failed"
+    assert np.median(t_err) < 0.02 and np.median(r_err) < 1.0, \
+        "pose error gate"
+    assert not logged & set(range(n, r0)), "a black frame was tracked"
+    assert lost and lost[0] < r0 + 2, "the black frames did not go LOST"
+    first_lost_revisit = min(i for i in lost if i >= r0)
+    assert reloc and reloc[0] == first_lost_revisit, \
+        "did not relocalize at the first revisit frame processed while lost"
+    T = np.asarray(rows[reloc[0]][5])
+    reloc_err = float(np.linalg.norm(T[:3, 3] - poses[2 + reloc[0] - r0][1]))
+    log(f"system rgbd: relocalized pose error {reloc_err:.5f} m; "
+        f"localization mode: keyframes {n_kf_loc} -> {loc_kf}")
+    assert reloc_err < 0.05, "relocalized pose error"
+    assert loc_kf == [n_kf_loc] * 2, "localization mode inserted a keyframe"
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for fn in ("save_trajectory_tum", "save_keyframe_trajectory_tum",
+                   "save_trajectory_kitti"):
+            path = os.path.join(tmp, fn + ".txt")
+            getattr(slam, fn)(path)
+            with open(path) as f:
+                files[fn] = f.read().splitlines()
+        log(f"system rgbd: trajectory files {[len(v) for v in files.values()]}"
+            f" lines; rel_log {len(tr.rel_log)}, keyframes {tr.n_kf_host}")
+        assert len(files["save_trajectory_tum"]) == len(tr.rel_log)
+        assert len(files["save_keyframe_trajectory_tum"]) == tr.n_kf_host
+        assert all(len(ln.split()) == 12
+                   for ln in files["save_trajectory_kitti"])
+        path = os.path.join(tmp, "session.npz")
+        checkpoint.save_session(path, tr)
+        fresh = System(bench_cfg(), Sensor.RGBD, device=dev)
+        checkpoint.load_session(path, fresh.tracker)
+    f_next = fresh.tracker.frame_count
+    pose = fresh.track_rgbd(*frames[8], f_next / 30.0)
+    fresh.tracker.flush()
+    err = float(np.linalg.norm(np.asarray(pose)[:3, 3] - poses[8][1]))
+    log(f"system rgbd: session reloaded, frame {f_next} tracked: "
+        f"{fresh.tracker.rel_log[-1][0] == f_next}, error {err:.5f} m")
+    assert pose is not None and fresh.get_tracking_state() == TrackState.OK
+    assert fresh.tracker.rel_log[-1][0] == f_next and err < 0.05
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} never launched on the System path"
+    return launches, problems
+
+
+def mean_chi2(m, cam) -> float:
+    """Mean weighted reprojection chi2 (u, v) over all live observations."""
+    ok = (m.lm_obs_kf >= 0) & m.lm_valid[:, None]
+    kf = m.lm_obs_kf.clamp(min=0).long()
+    ft = m.lm_obs_feat.long()
+    Xc = torch.einsum("ldij,lj->ldi", m.kf_R[kf], m.lm_pw) + m.kf_t[kf]
+    z = torch.where(Xc[..., 2].abs() < 1e-9, 1e-9, Xc[..., 2])
+    e2 = ((m.kf_xy[kf, ft][..., 0] - (cam.fx * Xc[..., 0] / z + cam.cx)) ** 2
+          + (m.kf_xy[kf, ft][..., 1] - (cam.fy * Xc[..., 1] / z + cam.cy))
+          ** 2)
+    w = msearch.inv_sigma2_at(m.kf_octave[kf, ft])
+    return float(torch.where(ok, e2 * w, 0.0).sum() / ok.sum().clamp(min=1))
+
+
+def welded_count(m, early=4, late=13) -> int:
+    """Landmarks observed on both sides of the loop."""
+    obs = m.lm_obs_kf.cpu().numpy()
+    valid = m.lm_valid.cpu().numpy()
+    return int((((obs >= 0) & (obs <= early)).any(1)
+                & (obs >= late).any(1) & valid).sum())
+
+
+HOST_LOOP_STAGES = ((LoopCloser, "detect"), (LoopCloser, "compute_sim3"),
+                    (LoopCloser, "correct"), (LoopCloser, "_essential_graph"),
+                    (LoopCloser, "_global_ba"))
+
+
+def run_host_loop(dev):
+    """Phase 13b: tests/test_loop_host.py's controlled loop at full width
+    through keyframe_step, KeyFrameDatabase.add and LoopCloser.process
+    (min_gap=1), then one chunked global BA."""
+    cfg = TrackerConfig(n_features=1000, min_init_features=200,
+                        map_cfg=LOOP_MAP, fps=30, depth_factor=1.0)
+    poses = sequences()["loop18"][1]
+    rendered = frames_of("loop18")
+    ext = OrbExtractor(n_features=1000)
+    cam = cfg.cam
+    th_depth = float(np.float32(cfg.depth_threshold))
+    W, H = cfg.width, cfg.height
+    auto_loop.warm_up_autodiff()
+    db = KeyFrameDatabase(V.load_default_vocabulary(dev), LOOP_MAP.k_max)
+    closer = LoopCloser(cam, db, fix_scale=True, min_gap=1, width=W,
+                        height=H)
+    m = empty_map(cfg.map_cfg, dev)
+    drift = np.zeros(3, np.float32)
+    drift_step = np.float32([0.015, 0.0, 0.008])
+    events, before, fire = [], None, None
+    reset_launches()
+    for k, (R, t) in enumerate(poses):
+        img, depth = rendered[k]
+        feats, d = steps.extract_rgbd_features(
+            ext, cam, torch.as_tensor(np.clip(img, 0, 255).astype(
+                np.float32), device=dev),
+            torch.as_tensor(depth, device=dev), 1.0, W, H)
+        if 8 <= k < 14:
+            drift = drift + drift_step
+        obs = steps.FrameObs(feats, d, torch.full(
+            (d.shape[0],), -1, dtype=torch.int32, device=dev))
+        m = steps.keyframe_step(m, cam, obs, torch.as_tensor(R, device=dev),
+                                torch.as_tensor(t + drift, device=dev), k,
+                                th_depth, W, H)
+        db.add(k, feats.desc, feats.valid)
+        n_before = closer.n_loops_closed
+        if before is None:
+            now = (welded_count(m), mean_chi2(m, cam))
+        box = {}
+        with stage_ms(*HOST_LOOP_STAGES) as staged:
+            ms = synced_ms(lambda: box.setdefault("m", closer.process(m, k)))
+        m = box["m"]
+        if closer.n_loops_closed > n_before:
+            events.append(k)
+            if before is None:
+                before, fire = now, (k, ms, dict(staged))
+    launches = dict(hamming.LAUNCHES)
+    assert events, "no loop closed over the revisit"
+    gt = np.stack([-(R.T @ t) for R, t in poses])
+    kf_R, kf_t = m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy()
+    est = np.stack([-(kf_R[k].T @ kf_t[k]) for k in range(len(poses))])
+    drifted, dr = [], np.zeros(3, np.float32)
+    for k, (R, t) in enumerate(poses):
+        if 8 <= k < 14:
+            dr = dr + drift_step
+        drifted.append(-(R.T @ (t + dr)))
+    ate_drifted = ate_rmse(np.stack(drifted), gt)
+    ate_final = ate_rmse(est, gt)
+    welded, chi2 = welded_count(m), mean_chi2(m, cam)
+    log(f"host loop: fired at keyframes {events}; aligned keyframe ATE "
+        f"{ate_drifted:.5f} -> {ate_final:.5f} m; welded landmarks "
+        f"{before[0]} -> {welded}; mean chi2 {before[1]:.4f} -> {chi2:.4f}; "
+        f"launches {launches}")
+    log(f"host loop: the firing process() at keyframe {fire[0]} took "
+        f"{fire[1]:.2f} ms (host clock, synced), by stage (ms, synced, "
+        f"nested stages count in their callers): {fire[2]}")
+    assert events[0] >= 10
+    assert ate_drifted > 0.02 and ate_final < 0.35 * ate_drifted, \
+        "loop correction did not reduce drift"
+    assert welded > before[0] and welded >= 30, "too few welded landmarks"
+    assert chi2 < before[1], "the mean chi2 did not drop"
+    assert torch.isfinite(m.kf_t).all() and torch.isfinite(m.lm_pw).all()
+    # the chunked global BA, once, then a newer start mid-run
+    closer._start_gba(m)
+    polls, out, chunk_ms = 0, None, []
+    while out is None and polls < 20:
+        box = {}
+        chunk_ms.append(synced_ms(lambda: box.setdefault(
+            "o", closer.poll_gba(m))))
+        out = box["o"]
+        polls += 1
+    gen = closer.gba_generation
+    closer._start_gba(m)
+    closer.poll_gba(m)
+    closer._start_gba(m)
+    log(f"host loop: chunked GBA done in {polls} polls, ms per poll "
+        f"{[round(v, 2) for v in chunk_ms]}; restarts bump the generation "
+        f"{gen} -> {closer.gba_generation}")
+    assert polls == -(-closer.gba_total_iters // closer.gba_chunk_iters)
+    assert closer.gba_generation == gen + 2
+    assert closer._gba["left"] == closer.gba_total_iters
+    assert torch.isfinite(out.kf_t).all()
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} never launched on the host loop"
+    return launches
+
+
+def run_lifecycle(dev):
+    """Phase 13c: tests/test_lifecycle.py's tiny-capacity run at 640x480:
+    800 features, MapConfig(12, 800, 2500, 8), fps 10, the 60-frame orbit
+    through the host Tracker. Returns (launches, the newest problem of
+    each shape it gave the kernels)."""
+    poses = orbit_trajectory(n_frames=60)
+    cfg = TrackerConfig(n_features=800, min_init_features=150,
+                        map_cfg=MapConfig(12, 800, 2500, 8), fps=10,
+                        depth_factor=1.0 / 5000.0)
+    tracker = Tracker(cfg, device=dev)
+    reset_launches()
+    with captured_problems() as problems:
+        t0 = time.perf_counter()
+        got = [tracker.process_rgbd(img, depth, frame_id=k) is not None
+               for k, (img, depth) in enumerate(frames_of("orbit60"))]
+        tracker.flush()
+        wall = time.perf_counter() - t0
+    launches = dict(hamming.LAUNCHES)
+    K, L = tracker.map.kf_R.shape[0], tracker.map.lm_pw.shape[0]
+    ids, Rs, ts = tracker.trajectory_arrays()
+    rmse = ate_rmse(camera_centers(Rs, ts), camera_centers(
+        np.stack([poses[i][0] for i in ids]),
+        np.stack([poses[i][1] for i in ids])))
+    slam = System.__new__(System)
+    slam.tracker = tracker
+    chain = slam._chain_poses()
+    log(f"lifecycle: K 12 -> {K}, L 2500 -> {L}, archived keyframes "
+        f"{len(tracker.kf_archive)}, {tracker.n_kf_host} live keyframes, "
+        f"tracked {sum(got)}/{len(got)}, ATE {rmse:.5f} m, chain "
+        f"{len(chain)} of {len(tracker.rel_log)} rows, "
+        f"{1000 * wall / len(got):.2f} ms/frame (host clock); launches "
+        f"{launches}; K1 shapes "
+        f"{sorted({(k, s) for k, _, s in problems})}")
+    assert K > 12 or L > 2500 or tracker.kf_archive, "no growth, no compaction"
+    assert all(got), "a frame did not track"
+    assert rmse < 0.05, "ATE gate (tests/test_lifecycle.py)"
+    assert len(chain) == len(tracker.rel_log), "a rel_log row did not resolve"
+    return launches, problems
+
+
+# the JAX host Tracker on the same frames on the CPU
+# (scripts/jax_reference_runs.py host): share of frames tracked, ATE in m
+# (SE3-aligned for stereo, similarity-aligned for mono), bootstrap frame
+HOST_REF = {
+    "stereo": {"share": 1.0, "ate": 0.003745},
+    "mono": {"share": 59 / 60, "ate": 0.014292, "boot": 1},
+}
+
+
+def run_system_stereo_mono(dev):
+    """Phase 13d: Sensor.STEREO on phase 9's first 30 pairs and
+    Sensor.MONOCULAR on phase 11's 60 images, through System. Gates from
+    the JAX host Tracker's outcome on the same frames on the CPU (HOST_REF):
+    at least its share of frames tracked less 0.1, at most twice its ATE,
+    and for mono a bootstrap at most 2 frames after its."""
+    out = {}
+    cfg, pairs, poses = stereo_bench_setup()
+    runs = (("stereo", Sensor.STEREO, cfg, pairs[:30], poses[:30]),
+            ("mono", Sensor.MONOCULAR, mono_bench_cfg(),
+             [f[0] if isinstance(f, tuple) else f
+              for f in frames_of(MONO_SEQ)], sequences()[MONO_SEQ][1]))
+    for name, sensor, cfg, frames, gt in runs:
+        slam = System(cfg, sensor, device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        if name == "stereo":
+            got = [slam.track_stereo(*f, i / 30.0) is not None
+                   for i, f in enumerate(frames)]
+        else:
+            got = [slam.track_monocular(f, i / 30.0) is not None
+                   for i, f in enumerate(frames)]
+        slam.shutdown()
+        wall = 1000 * (time.perf_counter() - t0) / len(frames)
+        tr = slam.tracker
+        ids, Rs, ts = tr.trajectory_arrays()
+        ate = ate_rmse(camera_centers(Rs, ts), camera_centers(
+            np.stack([gt[i][0] for i in ids]),
+            np.stack([gt[i][1] for i in ids])), with_scale=name == "mono")
+        share = sum(got) / len(got)
+        ref = HOST_REF[name]
+        log(f"system {name}: tracked {sum(got)}/{len(got)}, first tracked "
+            f"frame {got.index(True)}, {tr.n_kf_host} keyframes, ATE "
+            f"{ate:.5f} m ({'similarity' if name == 'mono' else 'SE3'}-"
+            f"aligned), {wall:.2f} ms/frame (host clock); JAX host Tracker "
+            f"on the CPU: {ref}; launches {dict(hamming.LAUNCHES)}")
+        assert share >= ref["share"] - 0.1, "share of frames tracked"
+        assert ate <= 2 * ref["ate"], "ATE gate"
+        if name == "mono":
+            assert got.index(True) <= ref["boot"] + 2, "bootstrap frame"
+        out[name] = dict(hamming.LAUNCHES)
+    return out
+
+
+def check_undistortion(dev):
+    """Phase 13e: undistort_points on the card against the CPU, TUM1's
+    distortion (tests/test_geometry.py), 640x480."""
+    cam = PinholeCamera.create(517.3, 516.5, 318.6, 255.3,
+                               dist=(0.2624, -0.9531, -0.0054, 0.0026, 1.1633))
+    uv = torch.rand((2000, 2), generator=torch.Generator().manual_seed(0)) \
+        * torch.tensor([630.0, 470.0]) + 5.0
+    card = cam.undistort_points(uv.to(dev)).cpu()
+    host = cam.undistort_points(uv)
+    err = float((card - host).abs().max())
+    log(f"undistort_points card vs cpu: max |diff| {err:.2e} px over 2000 "
+        f"points (largest shift {float((host - uv).abs().max()):.2f} px)")
+    assert err < 1e-3
 
 
 def main():
@@ -1372,14 +1824,22 @@ def main():
             label="loop above 64 slots",
             seq="loop18" if fix_scale else "loop18_shifted",
             drift_gate=0.35 if fix_scale else 0.5)
+    by_phase["13a system rgbd"], system_problems = run_system_rgbd(dev)
+    by_phase["13b host loop"] = run_host_loop(dev)
+    by_phase["13c lifecycle"], life_problems = run_lifecycle(dev)
+    for name, launches in run_system_stereo_mono(dev).items():
+        by_phase[f"13d system {name}"] = launches
+    check_undistortion(dev)
+    hold_problems(captured_todo("system rgbd", system_problems)
+                  + captured_todo("lifecycle", life_problems), rows)
     for row in rows:
-        # the newest slice's main path is the monocular tracker of phase 11
-        # (its build pass); every other path's count is listed beside it.
-        # Each phase has failed already if a kernel of its path was not
-        # launched (phase 10 keeps one keyframe over its 30 frames, so no
-        # duplicate-landmark merge and no distance_matrix there).
+        # the newest slice's main path is System's RGB-D run of phase 13a;
+        # every other path's count is listed beside it. Each phase has
+        # failed already if a kernel of its path was not launched (phase 10
+        # keeps one keyframe over its 30 frames, so no duplicate-landmark
+        # merge and no distance_matrix there).
         key = row["name"].removeprefix("hamming_")
-        row["launches"] = by_phase["11 mono bench"][key]
+        row["launches"] = by_phase["13a system rgbd"][key]
         row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -317,3 +317,29 @@ def compact_keyframes(m: MapState) -> MapState:
         lm_obs_feat=m.lm_obs_feat.gather(1, holes),
         lm_first_kf=remap_anchor(m.lm_first_kf),
         lm_ref_kf=remap_anchor(m.lm_ref_kf), n_kf=n_live)
+
+
+def grow_map(m: MapState, k_max: int | None = None,
+             l_max: int | None = None) -> MapState:
+    """Re-pad the map to a larger keyframe / landmark capacity (between
+    frames; the reference's map is unbounded, Map.cc:32-44). New keyframe
+    rows are invalid, new landmark rows invalid with empty observation
+    slots; the counters are kept. Refuses to shrink."""
+    K0, N = m.kf_lm.shape
+    L0, D = m.lm_obs_kf.shape
+    K, L = int(k_max or K0), int(l_max or L0)
+    if K < K0 or L < L0:
+        raise ValueError("grow_map cannot shrink capacities")
+    if K == K0 and L == L0:
+        return m
+    fresh = empty_map(MapConfig(K, N, L, D), m.kf_R.device)
+    out = {}
+    for name in MapState._fields:
+        a = getattr(m, name)
+        if name in ("n_kf", "n_lm", "n_obs_drop"):
+            out[name] = a
+            continue
+        f = getattr(fresh, name)
+        f[tuple(slice(0, s) for s in a.shape)] = a
+        out[name] = f
+    return MapState(**out)

@@ -547,9 +547,7 @@ class AutoStep:
             max_iters=300)
         if int(res.n_inliers) < 10:
             return stay()
-        tr = steps._pose_optimize_from_matches(cam, m, feats, frame_lm[None],
-                                               res.R[None], res.t[None])
-        tr = steps.TrackResult(*(a[0] for a in tr))
+        tr = steps.pose_optimize_one(cam, m, feats, frame_lm, res.R, res.t)
         if int(tr.n_inliers) < 10:
             return stay()
         local_mask = steps.local_landmark_mask(m, cand)

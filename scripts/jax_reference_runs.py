@@ -4,6 +4,7 @@ from.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py mono [X_AMP]
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py loop K_MAX FIX_SCALE SEQ
+    JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py host
 
 ``mono`` runs the JAX AutoTracker at chip_smoke's monocular configuration
 (640x480, 2000 features, MapConfig(24, 2000, 8000, 8)) twice over the
@@ -14,6 +15,12 @@ drift and, with FIX_SCALE=0, scale injection) through the JAX
 keyframe_step and close_loop_step in a map of K_MAX slots, on the sequence
 SEQ ("loop18" or "loop18_shifted"), and prints the position error and the
 landmark scale of the firing keyframe before and after (about 2 minutes).
+``host`` runs the JAX host-driven Tracker on chip_smoke's phase 13d
+frames: the stereo bench configuration on the first 30 pairs of the orbit,
+and the monocular bench configuration on its 60 images; it prints the
+frames tracked, the keyframes, the bootstrap frame and the ATE (SE3-aligned
+for stereo, similarity-aligned for mono) that phase 13d's gates are set
+from (about 3 minutes).
 
 This is the one script of the port's tooling that imports the JAX
 package; it takes only the pose lists from chip_smoke.py.
@@ -144,10 +151,52 @@ def run_loop(k_max, fix_scale, seq):
     print(f"took {time.time() - t0:.1f} s")
 
 
+def _u8(img):
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def run_host():
+    from orb_slam2_with_comment_tpu.pipeline import Tracker
+    world = SyntheticWorld(seed=1)
+    poses = chip_smoke.sequences()["orbit60"][1]
+    right = chip_smoke.right_view(poses[:30], chip_smoke.BENCH_BASELINE)
+    runs = (
+        ("stereo", TrackerConfig(sensor="stereo", n_features=1000,
+                                 min_init_features=200, fps=30,
+                                 map_cfg=MapConfig(24, 1000, 8000, 8)),
+         [(_u8(world.render(R, t)[0]), _u8(world.render(Rr, tr)[0]))
+          for (R, t), (Rr, tr) in zip(poses[:30], right)], poses[:30]),
+        ("mono", TrackerConfig(sensor="mono", n_features=2000,
+                               min_init_features=200, min_init_matches=60,
+                               fps=30, map_cfg=MapConfig(24, 2000, 8000, 8)),
+         [_u8(world.render(R, t)[0]) for R, t in poses], poses))
+    for name, cfg, frames, gt in runs:
+        tracker = Tracker(cfg)
+        t0 = time.time()
+        if name == "stereo":
+            got = [tracker.process_stereo(*f) is not None for f in frames]
+        else:
+            got = [tracker.process_mono(f) is not None for f in frames]
+        ids, Rs, ts = tracker.trajectory_arrays()
+        est = camera_centers(Rs, ts)
+        ref = camera_centers(np.stack([gt[i][0] for i in ids]),
+                             np.stack([gt[i][1] for i in ids]))
+        ate = ate_rmse(est, ref, with_scale=name == "mono")
+        print(f"host {name}: {time.time() - t0:.1f} s, tracked "
+              f"{sum(got)}/{len(got)} (share {sum(got) / len(got):.4f}), "
+              f"first tracked frame {got.index(True)}, keyframes "
+              f"{tracker.n_kf_host} at frames "
+              f"{np.asarray(tracker.map.kf_frame_id)[:tracker.n_kf_host].tolist()}"
+              f", ATE {ate:.6f} m ({'similarity' if name == 'mono' else 'SE3'}"
+              f"-aligned)", flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mono"]:
         run_mono(float(sys.argv[2]) if len(sys.argv) > 2 else None)
     elif sys.argv[1:2] == ["loop"] and len(sys.argv) == 5:
         run_loop(int(sys.argv[2]), sys.argv[3] == "1", sys.argv[4])
+    elif sys.argv[1:2] == ["host"]:
+        run_host()
     else:
         sys.exit(__doc__)

@@ -3,6 +3,7 @@
     python3 scripts/profile_torch_slice.py [--frames 60] [--trace-frames 14]
                                            [--out DIR]
                                            [--sensor rgbd|stereo|stereo-kitti|mono]
+                                           [--tracker auto|host]
 
 Runs the bench configuration (640x480, 1000 features, MapConfig(24, 1000,
 8000, 8), loop_closing=False) over the synthetic orbit: one pass to build
@@ -12,8 +13,16 @@ stereo phase at the same configuration, with ``stereo-kitti`` its 30 pairs
 at the KITTI 00-02 camera with 2000 features, with ``mono`` the orbit's
 images alone at chip_smoke.py's monocular configuration (2000 features,
 MapConfig(24, 2000, 8000, 8)); the monocular bootstrap runs in the build
-pass only, so that pass's layer totals are reported too. The timed pass
-is measured two ways:
+pass only, so that pass's layer totals are reported too. With ``--tracker
+host`` the host-driven Tracker (loop closing and relocalization on, its
+default pipelining) runs instead of the AutoTracker, and on RGB-D the timed
+pass ends with 3 black frames and frames 2-4 again, so it also
+relocalizes; its layers add the fused step's glue, the statistics
+readback, the keyframe step, the map maintenance, the database, the loop
+closer's begin / finish and poll_gba, and the relocalization. The layer
+timer synchronizes around every stage, so the host tracker's pipelining
+does not overlap frames in the layer pass; the traced pass runs unsynced.
+The timed pass is measured two ways:
 
 - per layer: the pipeline's stages are wrapped with a timer that
   synchronizes the device around each call and keeps exclusive time (a
@@ -47,9 +56,12 @@ from orb_slam2_with_comment_tpu_torch.frontend import stereo  # noqa: E402
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import (  # noqa: E402
     OrbExtractor)
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig  # noqa: E402
-from orb_slam2_with_comment_tpu_torch.pipeline import auto, steps  # noqa: E402
+from orb_slam2_with_comment_tpu_torch.pipeline import (  # noqa: E402
+    auto, loop_closing, steps, tracking)
 from orb_slam2_with_comment_tpu_torch.pipeline.tracking import (  # noqa: E402
     TrackerConfig)
+from orb_slam2_with_comment_tpu_torch.place.database import (  # noqa: E402
+    KeyFrameDatabase)
 
 # stage name -> (object, attribute) wrapped with the exclusive timer
 STAGES = {
@@ -77,6 +89,18 @@ STAGES = {
     "ph_refresh_cull": (auto.AutoStep, "ph_refresh_cull"),
     "ph_ba1": (auto.AutoStep, "ph_ba1"),
     "ph_ba2": (auto.AutoStep, "ph_ba2"),
+    # the host tracker (--tracker host)
+    "track_frame_core": (steps, "track_frame_core"),
+    "stats_readback": (loop_closing.Readback, "result"),
+    "finalize": (tracking.Tracker, "_finalize"),
+    "keyframe_step": (steps, "keyframe_step"),
+    "keyframe_step_mono": (steps, "keyframe_step_mono"),
+    "maintenance": (tracking.Tracker, "_run_maintenance"),
+    "db_add": (KeyFrameDatabase, "add"),
+    "loop_begin": (loop_closing.LoopCloser, "begin"),
+    "loop_finish": (loop_closing.LoopCloser, "finish"),
+    "poll_gba": (loop_closing.LoopCloser, "poll_gba"),
+    "relocalize": (tracking.Tracker, "_relocalize"),
 }
 
 
@@ -114,6 +138,7 @@ def main():
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--sensor", default="rgbd",
                     choices=("rgbd", "stereo", "stereo-kitti", "mono"))
+    ap.add_argument("--tracker", default="auto", choices=("auto", "host"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -150,6 +175,11 @@ def main():
         cfg, frames, _ = (chip_smoke.stereo_kitti_setup() if kitti
                           else chip_smoke.stereo_bench_setup())
         n = len(frames)
+    timed_frames = frames
+    if args.tracker == "host" and args.sensor == "rgbd":
+        h, w = frames[0][0].shape
+        black = (np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint16))
+        timed_frames = frames + [black] * 3 + frames[2:5]
     timer = ExclusiveTimer()
     for name, (obj, attr) in STAGES.items():
         setattr(obj, attr, timer.wrap(name, getattr(obj, attr)))
@@ -164,8 +194,11 @@ def main():
 
     def built_tracker():
         """A tracker after pass 1 (map built); the timed pass re-tracks."""
-        tr = auto.AutoTracker(cfg, auto.AutoTrackerConfig(
-            traj_capacity=8 * n, loop_closing=False), device="cuda")
+        if args.tracker == "host":
+            tr = tracking.Tracker(cfg, device="cuda")
+        else:
+            tr = auto.AutoTracker(cfg, auto.AutoTrackerConfig(
+                traj_capacity=8 * n, loop_closing=False), device="cuda")
         for frame in frames:
             process(tr, frame)
         torch.cuda.synchronize()
@@ -175,6 +208,8 @@ def main():
         t0 = time.perf_counter()
         for frame in frames:
             process(tr, frame)
+        if args.tracker == "host":
+            tr.flush()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -185,7 +220,8 @@ def main():
     build_layers = {k: 1e3 * v for k, v in timer.total.items()}
     timer.total.clear()
     timer.calls.clear()
-    wall_layers = timed_pass(tracker, frames)
+    wall_layers = timed_pass(tracker, timed_frames)
+    layer_tracker = tracker
     timer.on = False
     # kernel-level trace of the same pass on a second tracker
     tracker = built_tracker()
@@ -193,9 +229,13 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     nt = min(args.trace_frames, n)
     with torch.profiler.profile(activities=acts) as prof:
-        wall = timed_pass(tracker, frames[:nt])
-    timed_pass(tracker, frames[nt:])
-    out = tracker.finalize()
+        wall = timed_pass(tracker, timed_frames[:nt])
+    if args.tracker == "auto":
+        timed_pass(tracker, timed_frames[nt:])
+        out = tracker.finalize()
+        valid, n_kf = int(out["valid"].sum()), out["n_keyframes"]
+    else:  # the layer pass's tracker, which ran every frame
+        valid, n_kf = len(layer_tracker.rel_log), layer_tracker.n_kf_host
     events = prof.key_averages()
     kernels = sorted(
         ((e.key, e.self_device_time_total, e.count) for e in events
@@ -205,16 +245,17 @@ def main():
     n_launch = sum(c for _, _, c in kernels)
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    frames_run = 2 * n
+    frames_run = n + len(timed_frames)
     result = {
-        "card": card, "sensor": args.sensor, "frames": n,
+        "card": card, "sensor": args.sensor, "tracker": args.tracker,
+        "frames": len(timed_frames),
         "traced_frames": nt,
-        "ms_per_frame_layer_pass": 1e3 * wall_layers / n,
+        "ms_per_frame_layer_pass": 1e3 * wall_layers / len(timed_frames),
         "ms_per_frame_traced": 1e3 * wall / nt,
         "device_busy_ms_per_frame": dev_us / 1e3 / nt,
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
         "device_ops_per_frame": n_launch / nt,
-        "layers_ms_per_frame": {k: 1e3 * v / n for k, v in
+        "layers_ms_per_frame": {k: 1e3 * v / len(timed_frames) for k, v in
                                 sorted(timer.total.items(),
                                        key=lambda kv: -kv[1])},
         "layer_calls": dict(timer.calls),
@@ -222,8 +263,8 @@ def main():
             build_layers.items(), key=lambda kv: -kv[1])),
         "top_device_ops_ms_per_frame": [
             [k, us / 1e3 / nt, c] for k, us, c in kernels[:15]],
-        "valid_frames": int(out["valid"].sum()), "frames_run": frames_run,
-        "n_keyframes": out["n_keyframes"],
+        "valid_frames": valid, "frames_run": frames_run,
+        "n_keyframes": n_kf,
     }
     print(json.dumps(result))
 

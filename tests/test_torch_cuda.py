@@ -1,5 +1,6 @@
 """The Hamming kernels' wrappers on a card: launch counting and argument
-checks, and the stereo association's one launch.
+checks, and the stereo association's one launch; the host tracker's
+non-blocking readback, and System on the card by default.
 
 The kernels' bit-exact comparison with their plain versions, and the slice
 on the card against the CPU, are phases of ``chip_smoke.py`` and are not
@@ -15,10 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from orb_slam2_with_comment_tpu_torch import Sensor, System
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     SyntheticWorld, orbit_trajectory)
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
+from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
 from orb_slam2_with_comment_tpu_torch.ops import hamming
+from orb_slam2_with_comment_tpu_torch.pipeline import TrackerConfig, TrackState
+from orb_slam2_with_comment_tpu_torch.pipeline.loop_closing import Readback
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -73,3 +78,36 @@ def test_stereo_association_is_one_launch(dev):
     # the card sums the SAD windows and the IC moments in another order
     assert torch.equal(sd.depth.cpu() > 0, has)
     assert torch.allclose(sd.depth.cpu()[has], sd_c.depth[has], rtol=1e-3)
+
+
+def test_readback_goes_through_pinned_memory(dev):
+    t = torch.arange(12, dtype=torch.int32, device=dev).reshape(2, 6)
+    rb = Readback(t, t * 2)
+    a, b = rb.result()
+    assert rb.done() and all(h.is_pinned() for h in rb._host)
+    np.testing.assert_array_equal(a, np.arange(12).reshape(2, 6))
+    np.testing.assert_array_equal(b, 2 * a)
+
+
+def test_system_runs_on_the_card_by_default(dev):
+    """System(cfg) puts its map on the card; a few pipelined RGB-D frames
+    give LazyPoses of device tensors, and the flushed log holds them all."""
+    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    cfg = TrackerConfig(**cam, bf=20.0, n_features=500, min_init_features=100,
+                        fps=30, depth_factor=1.0 / 5000.0,
+                        map_cfg=MapConfig(16, 500, 4000, 8))
+    slam = System(cfg, Sensor.RGBD)
+    assert slam.tracker.map.kf_R.is_cuda
+    world = SyntheticWorld(seed=1)
+    poses = orbit_trajectory(16)[:6]
+    for i, (R, t) in enumerate(poses):
+        img, depth = world.render(R, t, **cam)
+        pose = slam.track_rgbd(np.clip(img, 0, 255).astype(np.uint8),
+                               np.clip(depth * 5000, 0, 65535).astype(
+                                   np.uint16), i / 30.0)
+        assert pose is not None and pose._R.is_cuda
+    slam.shutdown()
+    assert slam.get_tracking_state() == TrackState.OK
+    assert len(slam.tracker.rel_log) == len(poses)
+    np.testing.assert_allclose(np.asarray(pose)[:3, 3], poses[-1][1],
+                               atol=0.02)

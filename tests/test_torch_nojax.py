@@ -20,6 +20,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+slice5 = {"checkpoint", "nodes", "system", "dataio.settings", "models.camera",
+          "place.database", "pipeline.loop_closing", "pipeline.tracking"}
+missing = slice5 - {n.split(".", 1)[1] for n in names}
+assert not missing, missing
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib", "orb_slam2_with_comment_tpu."))
        or m == "orb_slam2_with_comment_tpu"]
