@@ -150,19 +150,37 @@ Phases (any failure raises and the script exits nonzero without the final
       features, MapConfig(12, 800, 2500, 8), the 60-frame orbit): the map
       grew or compacted, every frame tracked, ATE < 0.05 m, every rel_log
       row resolves through the uid archive.
-   d. Sensor.STEREO on phase 9's first 30 pairs and Sensor.MONOCULAR on
-      phase 11's 60 images through System, gated on the JAX host
-      Tracker's outcome on the same frames on the CPU
-      (scripts/jax_reference_runs.py host): at least its share of frames
-      tracked less 0.1, at most twice its ATE, the mono bootstrap at most
-      2 frames after its.
-   e. undistort_points on the card against the CPU (TUM1's distortion)
+   d. undistort_points on the card against the CPU (TUM1's distortion)
       within 1e-3 px.
-   Every (calling function, shape) phases 13a and 13c gave the kernels
+   (System stereo and mono run through the drivers, phases 14d and 14f.)
+14. The real-sequence path, at the fixtures' full width (640x480, 1000
+   features; mono doubles them):
+   a. the port's fixture writer (dataio/fixtures.py) writes tum_fixture
+      (60 frames), kitti_fixture (30) and euroc_fixture (30, radtan
+      distorted) into a temporary directory, rendering in worker
+      processes; every PNG decodes through png.read_png to the array
+      written. The native frame loader is built where g++ and libpng's
+      header exist (then its frames must equal the plain reader's), and
+      the line says so where they do not. Prints the write, decode and
+      reader ms per frame, and the plain decode of a Paeth-filtered
+      640x480 RGB frame.
+   b-f. the drivers' main(argv), each in a working directory of its own:
+      rgbd_tum --auto (the AutoTracker through prefetch() and sync()),
+      rgbd_tum, stereo_kitti, stereo_euroc (rectified online on the card)
+      and mono_tum in System mode. Each trajectory file is read back: one
+      line per tracked frame (per keyframe for mono's
+      KeyFrameTrajectory.txt) with its timestamp; ATE and RPE (delta 1)
+      against the fixture's ground truth. Gated on the JAX drivers'
+      outcome on the same fixtures on the CPU (DRIVER_REF,
+      scripts/jax_reference_runs.py drivers): at least its share of frames
+      tracked less 0.1, at most twice its ATE, the mono bootstrap at most
+      2 frames after its. Prints frames tracked, keyframes, ATE, RPE, ms
+      per frame, K1 launches per frame and the reader's ms per frame.
+   Every (calling function, shape) phases 13a, 13c and 14 gave the kernels
    (the local-map window at [min(4096, l_max), n_feat] before and after
    growth among them) is then held bit-exact against the plain version
    and the baseline kernel and timed. The kernels line's launches are
-   phase 13a's.
+   phase 14's, summed over its five driver runs.
 
     python3 chip_smoke.py --kernels-only
 
@@ -175,6 +193,7 @@ line is the JSON ``ok`` record.
 import concurrent.futures
 import contextlib
 import ctypes
+import importlib
 import json
 import multiprocessing
 import os
@@ -183,16 +202,21 @@ import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
 
 from orb_slam2_with_comment_tpu_torch import Sensor, System, checkpoint
+from orb_slam2_with_comment_tpu_torch.dataio import (
+    datasets, fixtures, native_loader, png)
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     SyntheticWorld, orbit_trajectory)
+from orb_slam2_with_comment_tpu_torch.evaluation import rpe
 from orb_slam2_with_comment_tpu_torch.evaluation.ate import (
     ate_rmse, camera_centers)
 from orb_slam2_with_comment_tpu_torch.frontend import stereo
+from orb_slam2_with_comment_tpu_torch.geometry import se3
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
@@ -1702,57 +1726,291 @@ def run_lifecycle(dev):
     return launches, problems
 
 
-# the JAX host Tracker on the same frames on the CPU
-# (scripts/jax_reference_runs.py host): share of frames tracked, ATE in m
-# (SE3-aligned for stereo, similarity-aligned for mono), bootstrap frame
-HOST_REF = {
-    "stereo": {"share": 1.0, "ate": 0.003745},
-    "mono": {"share": 59 / 60, "ate": 0.014292, "boot": 1},
+# ---------------------------------------------------------------------------
+# phase 14: the real-sequence path: fixtures, PNG decode and the drivers
+# ---------------------------------------------------------------------------
+
+FIXTURE_FRAMES = {"tum_fixture": 60, "kitti_fixture": 30, "euroc_fixture": 30}
+# phase: (driver, fixture, --auto, trajectory file, KITTI lines,
+#         similarity-aligned ATE)
+DRIVER_RUNS = {
+    "14b rgbd_tum --auto": ("rgbd_tum", "tum_fixture", True,
+                            "CameraTrajectory.txt", False, False),
+    "14c rgbd_tum": ("rgbd_tum", "tum_fixture", False,
+                     "CameraTrajectory.txt", False, False),
+    "14d stereo_kitti": ("stereo_kitti", "kitti_fixture", False,
+                         "CameraTrajectory.txt", True, False),
+    "14e stereo_euroc": ("stereo_euroc", "euroc_fixture", False,
+                         "CameraTrajectory.txt", False, False),
+    "14f mono_tum": ("mono_tum", "tum_fixture", False,
+                     "KeyFrameTrajectory.txt", False, True),
+}
+# The JAX package's drivers (examples/*.py, default System pipelining) on
+# the same fixtures, written by scripts/make_fixture_dataset.py's
+# functions, on the CPU:
+#   JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py drivers
+# share of frames tracked, ATE in m of the trajectory file (SE3-aligned,
+# mono similarity-aligned over its keyframes), first tracked frame
+DRIVER_REF = {
+    "14b rgbd_tum --auto": {"share": 1.0, "ate": 0.002651},
+    "14c rgbd_tum": {"share": 1.0, "ate": 0.004244},
+    "14d stereo_kitti": {"share": 1.0, "ate": 0.002451},
+    "14e stereo_euroc": {"share": 1.0, "ate": 0.002449},
+    "14f mono_tum": {"share": 59 / 60, "ate": 0.002761, "boot": 1},
 }
 
 
-def run_system_stereo_mono(dev):
-    """Phase 13d: Sensor.STEREO on phase 9's first 30 pairs and
-    Sensor.MONOCULAR on phase 11's 60 images, through System. Gates from
-    the JAX host Tracker's outcome on the same frames on the CPU (HOST_REF):
-    at least its share of frames tracked less 0.1, at most twice its ATE,
-    and for mono a bootstrap at most 2 frames after its."""
-    out = {}
-    cfg, pairs, poses = stereo_bench_setup()
-    runs = (("stereo", Sensor.STEREO, cfg, pairs[:30], poses[:30]),
-            ("mono", Sensor.MONOCULAR, mono_bench_cfg(),
-             [f[0] if isinstance(f, tuple) else f
-              for f in frames_of(MONO_SEQ)], sequences()[MONO_SEQ][1]))
-    for name, sensor, cfg, frames, gt in runs:
-        slam = System(cfg, sensor, device=dev)
-        reset_launches()
+def write_fixtures(root: str, workers: int) -> dict:
+    """Phase 14a: the port's fixture writer, the three fixtures at once,
+    each rendering in ``workers`` processes; every PNG decodes through
+    png.read_png to the array written (the render truncated to uint8,
+    depth at 5000 per metre truncated to uint16). Returns {fixture: its
+    directory}."""
+    makers = {"tum_fixture": fixtures.make_tum_rgbd,
+              "kitti_fixture": fixtures.make_kitti_stereo,
+              "euroc_fixture": fixtures.make_euroc_stereo}
+    parts = {name: {} for name in makers}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(makers)) as pool:
+        futures = {name: pool.submit(
+            make, os.path.join(root, name), n_frames=FIXTURE_FRAMES[name],
+            workers=workers, written=parts[name])
+            for name, make in makers.items()}
+        seqs = {name: f.result() for name, f in futures.items()}
+    write_s = time.perf_counter() - t0
+    written = {path: a for part in parts.values() for path, a in part.items()}
+    t0 = time.perf_counter()
+    for path, want in written.items():
+        got = png.read_png(path)
+        assert got.dtype == want.dtype and np.array_equal(got, want), path
+    decode_s = time.perf_counter() - t0
+    n = sum(FIXTURE_FRAMES.values())
+    log(f"fixtures: {n} frames, {len(written)} PNGs rendered in "
+        f"{len(makers)} x {workers} processes and written in {write_s:.2f} s "
+        f"({1000 * write_s / n:.2f} ms per frame); every PNG decodes to "
+        f"the array written, {1000 * decode_s / len(written):.3f} ms per "
+        "PNG (png.read_png, filter 0)")
+    return seqs
+
+
+def _paeth_png(path: str, rgb: np.ndarray):
+    """An RGB PNG whose every row takes the Paeth filter (as most rows of
+    an adaptively filtered camera frame do)."""
+    h, w, _ = rgb.shape
+    cur = rgb.reshape(h, -1).astype(np.int32)
+    up = np.vstack([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.hstack([np.zeros_like(cur[:, :3]), cur[:, :-3]])
+    ul = np.hstack([np.zeros_like(up[:, :3]), up[:, :-3]])
+    pa, pb, pc = (np.abs(up - ul), np.abs(left - ul),
+                  np.abs(left + up - 2 * ul))
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, ul))
+    rows = np.hstack([np.full((h, 1), 4), (cur - pred) & 0xFF])
+    body = rows.astype(np.uint8).tobytes()
+
+    def chunk(kind, data):
+        return (len(data).to_bytes(4, "big") + kind + data
+                + (zlib.crc32(kind + data) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", w.to_bytes(4, "big")
+                + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0]))
+                + chunk(b"IDAT", zlib.compress(body)) + chunk(b"IEND", b""))
+
+
+def check_readers(seqs: dict, root: str):
+    """Phase 14a, the readers: the native loader (where g++ and libpng's
+    header exist) against the plain reader on the TUM fixture, and the
+    plain reader's and the native loader's ms per frame; the plain
+    decode of a Paeth-filtered 640x480 RGB frame."""
+    ds = datasets.TumRgbdDataset(seqs["tum_fixture"])
+    t0 = time.perf_counter()
+    plain = list(ds)
+    plain_ms = 1000 * (time.perf_counter() - t0) / len(plain)
+    gxx = native_loader.toolchain()
+    if gxx is None:
+        log("native frame loader: not built on this machine (no g++ or no "
+            "libpng header, png.h); prefetch() iterates the plain reader")
+        native_ms = None
+    else:
+        assert native_loader.get_lib() is not None
         t0 = time.perf_counter()
-        if name == "stereo":
-            got = [slam.track_stereo(*f, i / 30.0) is not None
-                   for i, f in enumerate(frames)]
-        else:
-            got = [slam.track_monocular(f, i / 30.0) is not None
-                   for i, f in enumerate(frames)]
-        slam.shutdown()
-        wall = 1000 * (time.perf_counter() - t0) / len(frames)
-        tr = slam.tracker
-        ids, Rs, ts = tr.trajectory_arrays()
-        ate = ate_rmse(camera_centers(Rs, ts), camera_centers(
-            np.stack([gt[i][0] for i in ids]),
-            np.stack([gt[i][1] for i in ids])), with_scale=name == "mono")
-        share = sum(got) / len(got)
-        ref = HOST_REF[name]
-        log(f"system {name}: tracked {sum(got)}/{len(got)}, first tracked "
-            f"frame {got.index(True)}, {tr.n_kf_host} keyframes, ATE "
-            f"{ate:.5f} m ({'similarity' if name == 'mono' else 'SE3'}-"
-            f"aligned), {wall:.2f} ms/frame (host clock); JAX host Tracker "
-            f"on the CPU: {ref}; launches {dict(hamming.LAUNCHES)}")
-        assert share >= ref["share"] - 0.1, "share of frames tracked"
-        assert ate <= 2 * ref["ate"], "ATE gate"
-        if name == "mono":
-            assert got.index(True) <= ref["boot"] + 2, "bootstrap frame"
-        out[name] = dict(hamming.LAUNCHES)
-    return out
+        native = list(ds.prefetch())
+        native_ms = 1000 * (time.perf_counter() - t0) / len(native)
+        assert len(native) == len(plain)
+        for a, b in zip(native, plain):
+            assert a[0] == b[0] and np.array_equal(a[1], b[1]) \
+                and np.array_equal(a[2], b[2]), "native frame differs"
+        log(f"native frame loader: built with {gxx}; its frames equal the "
+            "plain reader's on the TUM fixture")
+    rgb = np.random.default_rng(0).integers(0, 256, (480, 640, 3))
+    rgb[:240] = np.sort(rgb[:240], axis=1)
+    path = os.path.join(root, "paeth.png")
+    _paeth_png(path, rgb)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        gray = datasets._imread_gray(path)
+    paeth_ms = 1000 * (time.perf_counter() - t0) / 3
+    assert np.array_equal(png.read_png(path), rgb.astype(np.uint8))
+    assert gray.shape == (480, 640)
+    log(f"readers (host clock, ms per frame): plain reader {plain_ms:.3f} "
+        f"(rgb + 16-bit depth, filter 0), native loader "
+        f"{'not built' if native_ms is None else f'{native_ms:.3f}'}; plain "
+        f"decode of a Paeth-filtered 640x480 RGB frame to gray "
+        f"{paeth_ms:.2f}")
+
+
+@contextlib.contextmanager
+def constructed(*classes):
+    """Within the block, every instance of ``classes`` made is appended to
+    the yielded list (to read a driver's tracker after its main())."""
+    made, saved = [], [(cls, cls.__init__) for cls in classes]
+
+    def keep(init):
+        def run(self, *a, **kw):
+            init(self, *a, **kw)
+            made.append(self)
+        return run
+
+    for cls, init in saved:
+        cls.__init__ = keep(init)
+    try:
+        yield made
+    finally:
+        for cls, init in saved:
+            cls.__init__ = init
+
+
+def driver_argv(name: str, seq: str, auto: bool) -> list:
+    settings = os.path.join(seq, "settings.yaml")
+    args = ([settings, os.path.join(seq, "mav0"),
+             os.path.join(seq, "timestamps.txt")] if name == "stereo_euroc"
+            else [settings, seq])
+    return [name, *args] + (["--auto"] if auto else [])
+
+
+def read_poses(path: str, kitti: bool):
+    """(timestamps or None, Rcw [N,3,3], tcw [N,3]) of a trajectory file:
+    TUM lines (ts, twc, qwc) or KITTI lines (Twc, 3x4 row-major)."""
+    with open(path) as f:
+        rows = [ln.split() for ln in f if ln.strip()
+                and not ln.startswith("#")]
+    if kitti:
+        P = np.array(rows, float).reshape(-1, 3, 4)
+        stamps, Rwc, twc = None, P[:, :, :3], P[:, :, 3]
+    else:
+        v = np.array([r[1:] for r in rows], float).reshape(-1, 7)
+        Rwc = se3.quat_to_matrix(torch.as_tensor(v[:, [6, 3, 4, 5]])).numpy()
+        stamps, twc = [r[0] for r in rows], v[:, :3]
+    Rcw = Rwc.transpose(0, 2, 1)
+    return stamps, Rcw, -np.einsum("nij,nj->ni", Rcw, twc)
+
+
+def fixture_truth(seq: str):
+    for name, kitti in (("groundtruth.txt", False),
+                        ("groundtruth_tum.txt", False),
+                        ("poses_gt.txt", True)):
+        path = os.path.join(seq, name)
+        if os.path.exists(path):
+            return read_poses(path, kitti)
+    raise FileNotFoundError(f"no ground truth in {seq}")
+
+
+def driver_outcome(tracker, auto: bool, run_dir: str, seq: str,
+                   traj_file: str, kitti: bool, sim3: bool) -> dict:
+    """What a driver's run gave, from the tracker it built (an AutoTracker
+    or a System's Tracker, of either package) and the trajectory file it
+    wrote: the file has one line per tracked frame (per keyframe for
+    KeyFrameTrajectory.txt) with that frame's timestamp; the ATE and the
+    RPE (delta 1) of the file's poses against the fixture's ground
+    truth."""
+    gt_stamps, gt_R, gt_t = fixture_truth(seq)
+    if auto:
+        out = tracker.finalize()
+        ids = np.nonzero(out["valid"])[0].tolist()
+        n_kf = int(out["n_keyframes"])
+    else:
+        ids = [int(rec[0]) for rec in tracker.rel_log]
+        n_kf = int(tracker.n_kf_host)
+    stamps, R, t = read_poses(os.path.join(run_dir, traj_file), kitti)
+    if traj_file == "KeyFrameTrajectory.txt":
+        assert len(stamps) == n_kf, "one line per keyframe"
+        sel = [gt_stamps.index(s) for s in stamps]
+    elif kitti:
+        assert len(R) == len(ids), "one KITTI line per tracked frame"
+        sel = ids
+    else:
+        assert stamps == [gt_stamps[i] for i in ids], \
+            "one line per tracked frame, with its timestamp"
+        sel = ids
+    ate = ate_rmse(camera_centers(R, t), camera_centers(gt_R[sel], gt_t[sel]),
+                   with_scale=sim3) if len(sel) > 2 else float("nan")
+    r = rpe(R, t, gt_R[sel], gt_t[sel]) if len(sel) > 1 else {}
+    n = len(gt_R)
+    return {"frames": n, "tracked": len(ids), "share": len(ids) / n,
+            "first": ids[0] if ids else None, "keyframes": n_kf,
+            "lines": len(R), "ate": ate, "rpe_t": r.get("trans_rmse"),
+            "rpe_r": r.get("rot_rmse")}
+
+
+def run_drivers(dev, seqs: dict, root: str) -> dict:
+    """Phases 14b-f: each driver's main(argv) in a working directory of its
+    own, on the card (the drivers' default device), its tracker read back,
+    its trajectory file checked and scored, gated on the JAX drivers'
+    outcome on the same fixture (DRIVER_REF). Returns (launches by phase,
+    the newest problem of each shape the runs gave the kernels)."""
+    by_phase = {}
+    with captured_problems() as problems:
+        for phase, (name, fix, auto, traj, kitti, sim3) in \
+                DRIVER_RUNS.items():
+            seq = seqs[fix]
+            run_dir = os.path.join(root, phase.split()[0])
+            os.makedirs(run_dir)
+            mod = importlib.import_module(
+                "orb_slam2_with_comment_tpu_torch.examples." + name)
+            cwd = os.getcwd()
+            reset_launches()
+            t0 = time.perf_counter()
+            with constructed(AutoTracker, System) as made:
+                os.chdir(run_dir)
+                try:
+                    rc = mod.main(driver_argv(name, seq, auto)
+                                  + ["--device", str(dev)])
+                finally:
+                    os.chdir(cwd)
+            wall = time.perf_counter() - t0
+            assert rc == 0, f"{phase}: main() returned {rc}"
+            launches = dict(hamming.LAUNCHES)
+            assert len(made) == 1, made
+            tracker = made[0] if auto else made[0].tracker
+            got = driver_outcome(tracker, auto, run_dir, seq, traj, kitti,
+                                 sim3)
+            with open(os.path.join(run_dir, "run_summary.json")) as f:
+                summary = json.load(f)
+            n = got["frames"]
+            loop_ms = (1000 / summary["fps"] if auto
+                       else summary["mean_ms"])
+            ref = DRIVER_REF[phase]
+            log(f"{phase}: tracked {got['tracked']}/{n}, first tracked frame "
+                f"{got['first']}, {got['keyframes']} keyframes, {traj} "
+                f"{got['lines']} lines, ATE {got['ate']:.5f} m "
+                f"({'similarity' if sim3 else 'SE3'}-aligned), RPE (delta 1)"
+                f" {got['rpe_t']:.5f} m {got['rpe_r']:.5f} rad; ms per frame "
+                f"(host clock): {'loop and sync' if auto else 'tracking call'}"
+                f" {loop_ms:.2f}, main() {1000 * wall / n:.2f}; reader "
+                f"{summary['decode_ms']:.3f} ms per frame; K1 launches per "
+                f"frame {sum(launches.values()) / n:.2f} ({launches}); JAX "
+                f"drivers on the CPU: {ref}")
+            assert got["share"] >= ref["share"] - 0.1, "share tracked"
+            assert got["ate"] <= 2 * ref["ate"], "ATE gate"
+            if "boot" in ref:
+                assert got["first"] <= ref["boot"] + 2, "bootstrap frame"
+            assert launches["masked_best_two"] > 0, f"{phase}: K1 not launched"
+            by_phase[phase] = launches
+    for key in hamming.LAUNCHES:
+        assert sum(c[key] for c in by_phase.values()) > 0, \
+            f"kernel {key} never launched by the drivers"
+    return by_phase, problems
 
 
 def check_undistortion(dev):
@@ -1793,9 +2051,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     for name in ("hamming", "hamming_v1"):
         log(cuda_lib.build_logs.get(name, "").strip())
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
     if not kernels_only:
         t0 = time.perf_counter()
-        workers = max(1, min(7, (os.cpu_count() or 2) - 1))
         render_all(workers)
         log(f"rendered {sum(len(f) for f in _FRAMES.values())} frames of "
             f"{len(_FRAMES)} sequences in {workers} processes in "
@@ -1827,19 +2085,23 @@ def main():
     by_phase["13a system rgbd"], system_problems = run_system_rgbd(dev)
     by_phase["13b host loop"] = run_host_loop(dev)
     by_phase["13c lifecycle"], life_problems = run_lifecycle(dev)
-    for name, launches in run_system_stereo_mono(dev).items():
-        by_phase[f"13d system {name}"] = launches
     check_undistortion(dev)
+    with tempfile.TemporaryDirectory() as root:
+        seqs = write_fixtures(root, max(1, workers // 2))
+        check_readers(seqs, root)
+        drivers, driver_problems = run_drivers(dev, seqs, root)
+    by_phase.update(drivers)
     hold_problems(captured_todo("system rgbd", system_problems)
-                  + captured_todo("lifecycle", life_problems), rows)
+                  + captured_todo("lifecycle", life_problems)
+                  + captured_todo("drivers", driver_problems), rows)
     for row in rows:
-        # the newest slice's main path is System's RGB-D run of phase 13a;
-        # every other path's count is listed beside it. Each phase has
-        # failed already if a kernel of its path was not launched (phase 10
-        # keeps one keyframe over its 30 frames, so no duplicate-landmark
-        # merge and no distance_matrix there).
+        # the newest slice's main path is the drivers of phase 14, their
+        # launches summed; every other path's count is listed beside it.
+        # Each phase has failed already if a kernel of its path was not
+        # launched (phase 10 keeps one keyframe over its 30 frames, so no
+        # duplicate-landmark merge and no distance_matrix there).
         key = row["name"].removeprefix("hamming_")
-        row["launches"] = by_phase["13a system rgbd"][key]
+        row["launches"] = sum(c[key] for c in drivers.values())
         row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

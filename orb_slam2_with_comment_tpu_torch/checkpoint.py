@@ -46,7 +46,14 @@ def save_map(path: str, m: MapState) -> None:
     np.savez_compressed(path, **convert.map_to_numpy(m))
 
 
-def load_map(path: str, device="cpu") -> MapState:
+def load_map(path: str, device="cuda") -> MapState:
+    """A MapState from a .npz file, on ``device`` (the card unless the
+    caller names the CPU; without a card that raises, as the Tracker
+    does)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_map: no CUDA device; pass device='cpu' "
+                           "to load the map on the CPU")
     data = np.load(_path(path))
     return convert.map_from_numpy(
         {f: (data[f] if f in data.files else np.int32(0))  # newer counters

@@ -1,0 +1,1 @@
+from .extractor import OrbExtractor, FrameFeatures  # noqa: F401

@@ -1,0 +1,1 @@
+from . import se3, sim3, triangulate  # noqa: F401

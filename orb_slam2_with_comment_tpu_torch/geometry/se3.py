@@ -80,6 +80,13 @@ def exp_se3(xi: torch.Tensor):
     return exp_so3(phi), (_left_jacobian(phi) @ rho[..., None])[..., 0]
 
 
+def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of exp_se3: -> [..., 6] = [rho, phi]."""
+    phi = log_so3(R)
+    rho = torch.linalg.solve(_left_jacobian(phi), t[..., None])[..., 0]
+    return torch.cat([rho, phi], -1)
+
+
 def compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb): applies b first, then a."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
@@ -106,6 +113,19 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     rtr = R.transpose(-1, -2) @ R
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     return R @ (1.5 * eye - 0.5 * rtr)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [..., 4] (w, x, y, z) -> rotation [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1)], -2)
 
 
 def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,1 @@
+from .map import MapState, MapConfig  # noqa: F401

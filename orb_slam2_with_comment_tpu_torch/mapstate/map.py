@@ -129,6 +129,20 @@ def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
     return w * m.kf_valid.to(I32)
 
 
+def observation_matrix(m: MapState) -> torch.Tensor:
+    """[L, K] float32 incidence: landmark l observed by keyframe k, built
+    by scatter. For small-map utilities only (covisibility_weights and
+    covisibility_matrix serve the tracker)."""
+    L, D = m.lm_obs_kf.shape
+    K = m.kf_R.shape[0]
+    rows = torch.arange(L, device=m.lm_obs_kf.device)[:, None].expand(L, D)
+    vals = ((m.lm_obs_kf >= 0) & m.lm_valid[:, None]).to(torch.float32)
+    flat = rows * K + m.lm_obs_kf.clamp(min=0).long()
+    return torch.zeros(L * K, dtype=torch.float32,
+                       device=m.lm_obs_kf.device).scatter_reduce(
+        0, flat.reshape(-1), vals.reshape(-1), "amax").reshape(L, K)
+
+
 def covisibility_matrix(m: MapState) -> torch.Tensor:
     """[K, K] int32 covisibility weights of every keyframe pair, by the
     same registered-observation rule as covisibility_weights; zero on the

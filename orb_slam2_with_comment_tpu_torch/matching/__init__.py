@@ -1,0 +1,1 @@
+from . import core, search  # noqa: F401

@@ -1,0 +1,1 @@
+from .camera import PinholeCamera, StereoCamera  # noqa: F401

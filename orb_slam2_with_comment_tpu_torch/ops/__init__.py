@@ -1,0 +1,1 @@
+from . import image, fast, orientation, brief, hamming  # noqa: F401

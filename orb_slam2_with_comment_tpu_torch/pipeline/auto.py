@@ -46,7 +46,7 @@ from ..ops.fast import sort_top_k
 from ..place import vocabulary as V
 from ..solvers import initializer, pnp
 from . import auto_loop, steps
-from .tracking import TrackerConfig
+from .tracking import TrackerConfig, upload_frame
 
 N_NEIGHBORS = 10  # covisibility window kept across maintenance phases
 NO_NEIGHBORS = (-1,) * N_NEIGHBORS
@@ -663,24 +663,22 @@ class AutoTracker:
         self.timestamps: list[float] = []
 
     def process_rgbd(self, img, depth, timestamp: float | None = None):
-        """Track one frame: uint8 image and raw (e.g. uint16) depth, as
-        numpy arrays or tensors."""
+        """Track one frame: uint8 image and raw (e.g. uint16) depth or
+        float depth in metres (then ``cfg.depth_factor`` 1.0), as numpy
+        arrays or tensors."""
         self.timestamps.append(self.frame_count / self.cfg.fps
                                if timestamp is None else timestamp)
         self.frame_count += 1
-        if not isinstance(depth, torch.Tensor):
-            depth = np.asarray(depth).astype(np.int32)
-        self.state = self._step(self.state,
-                                torch.as_tensor(img).to(self.device),
-                                torch.as_tensor(depth).to(self.device))
+        self.state = self._step(self.state, upload_frame(img, self.device),
+                                upload_frame(depth, self.device, depth=True))
 
     def process_stereo(self, img_left, img_right,
                        timestamp: float | None = None):
         """Track one rectified stereo pair (reference: System::TrackStereo
         System.cc:169): uint8 images as numpy arrays or tensors."""
         self.state = self._step.stereo(
-            self.state, torch.as_tensor(img_left).to(self.device),
-            torch.as_tensor(img_right).to(self.device))
+            self.state, upload_frame(img_left, self.device),
+            upload_frame(img_right, self.device))
         self.timestamps.append(self.frame_count / self.cfg.fps
                                if timestamp is None else timestamp)
         self.frame_count += 1
@@ -689,10 +687,17 @@ class AutoTracker:
         """Track one monocular frame (reference: System::TrackMonocular
         System.cc:224): a uint8 or float image, numpy array or tensor."""
         self.state = self._step.mono(self.state,
-                                     torch.as_tensor(img).to(self.device))
+                                     upload_frame(img, self.device))
         self.timestamps.append(self.frame_count / self.cfg.fps
                                if timestamp is None else timestamp)
         self.frame_count += 1
+
+    def sync(self):
+        """Wait for the device to drain (no data readback); a no-op on the
+        CPU. The JAX tracker's ``drain`` of buffered batches has no
+        counterpart: the port dispatches every frame at once."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def finalize(self) -> dict:
         """The run's trajectory, flags and per-frame statistics, in frame

@@ -101,6 +101,20 @@ class TrackerConfig:
         return self.th_depth * self.bf / self.fx
 
 
+def upload_frame(a, device, depth: bool = False) -> torch.Tensor:
+    """A frame on ``device``: raw unsigned depth goes up as int32 (many ops
+    lack uint16), float64 arrays as float32, anything else (float32 depth
+    in metres, uint8 images, tensors) as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if depth and a.dtype.kind == "u":
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.as_tensor(a).to(device)
+
+
 _VOC_CACHE: dict = {}
 
 
@@ -201,27 +215,16 @@ class Tracker:
         self._pending_loop = None
 
     # -- helpers ------------------------------------------------------------
-    def _upload(self, a, depth: bool = False) -> torch.Tensor:
-        """A frame on the device: raw unsigned depth goes up as int32 (many
-        ops lack uint16), float64 arrays as float32."""
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        a = np.asarray(a)
-        if depth and a.dtype.kind == "u":
-            a = a.astype(np.int32)
-        elif a.dtype == np.float64:
-            a = a.astype(np.float32)
-        return torch.as_tensor(a).to(self.device)
-
     def _new_lm(self, n: int) -> torch.Tensor:
         return torch.full((n,), -1, dtype=I32, device=self.device)
 
     def _frame_obs(self, img, depth_map) -> steps.FrameObs:
-        feats = self.extractor(self._upload(img))
+        feats = self.extractor(upload_frame(img, self.device))
         xy = feats.xy
         if depth_map is not None:
             H, W = self.cfg.height, self.cfg.width
-            dm = self._upload(depth_map, depth=True).to(torch.float32)
+            dm = upload_frame(depth_map, self.device, depth=True).to(
+                torch.float32)
             if self.cfg.depth_factor != 1.0:
                 dm = dm * float(np.float32(self.cfg.depth_factor))
             yi = torch.round(xy[:, 1]).long().clamp(0, H - 1)
@@ -251,9 +254,9 @@ class Tracker:
     def _frame_obs_stereo(self, img_left, img_right) -> steps.FrameObs:
         """A rectified pair: joint extraction and the row-band depth
         association (Frame.cc:61-117, 501-675)."""
-        feats, sd = self.extractor.stereo(self._upload(img_left),
-                                          self._upload(img_right),
-                                          self.cam.bf, self.cam.fx)
+        feats, sd = self.extractor.stereo(
+            upload_frame(img_left, self.device),
+            upload_frame(img_right, self.device), self.cam.bf, self.cam.fx)
         fs = FeatureSet(feats.xy, sd.u_right, feats.octave, feats.angle,
                         feats.desc, feats.valid)
         return steps.FrameObs(fs, sd.depth, self._new_lm(feats.xy.shape[0]))
@@ -310,8 +313,8 @@ class Tracker:
         th_local = 5.0 if frame_id < self.last_reloc_frame + 2 else 3.0
         res = self._step(
             self.cam, self.map, prev_obs, prev_R, prev_t, vel_R, vel_t,
-            have_vel, self.ref_kf, self._upload(img),
-            self._upload(depth_map, depth=True),
+            have_vel, self.ref_kf, upload_frame(img, self.device),
+            upload_frame(depth_map, self.device, depth=True),
             float(np.float32(cfg.depth_factor)),
             float(np.float32(cfg.depth_threshold)), cfg.desc_th,
             cfg.desc_th_local, min_obs, th_local)

@@ -1,0 +1,1 @@
+from . import horn, initializer, pnp, sim3solver  # noqa: F401

@@ -1,10 +1,10 @@
-"""What the JAX package does on two scenarios of chip_smoke.py, on the CPU:
-the outcomes that the script's monocular and free-scale loop gates are set
-from.
+"""What the JAX package does on scenarios of chip_smoke.py, on the CPU: the
+outcomes that the script's monocular, free-scale loop and driver gates are
+set from.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py mono [X_AMP]
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py loop K_MAX FIX_SCALE SEQ
-    JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py host
+    JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py drivers
 
 ``mono`` runs the JAX AutoTracker at chip_smoke's monocular configuration
 (640x480, 2000 features, MapConfig(24, 2000, 8000, 8)) twice over the
@@ -15,25 +15,31 @@ drift and, with FIX_SCALE=0, scale injection) through the JAX
 keyframe_step and close_loop_step in a map of K_MAX slots, on the sequence
 SEQ ("loop18" or "loop18_shifted"), and prints the position error and the
 landmark scale of the firing keyframe before and after (about 2 minutes).
-``host`` runs the JAX host-driven Tracker on chip_smoke's phase 13d
-frames: the stereo bench configuration on the first 30 pairs of the orbit,
-and the monocular bench configuration on its 60 images; it prints the
-frames tracked, the keyframes, the bootstrap frame and the ATE (SE3-aligned
-for stereo, similarity-aligned for mono) that phase 13d's gates are set
-from (about 3 minutes).
+``drivers`` writes chip_smoke's phase-14 fixtures (tum_fixture 60 frames,
+kitti_fixture and euroc_fixture 30) with scripts/make_fixture_dataset.py's
+functions, runs the JAX drivers' main (examples/*.py) on them as
+chip_smoke's phases 14b-f run the port's, and prints each run's outcome as
+chip_smoke.driver_outcome scores it: frames tracked, first tracked frame,
+keyframes, ATE and RPE (about 8 minutes).
 
 This is the one script of the port's tooling that imports the JAX
-package; it takes only the pose lists from chip_smoke.py.
+package; it takes the pose lists and the scoring from chip_smoke.py.
 """
+import concurrent.futures
+import importlib
+import importlib.util
+import multiprocessing
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from orb_slam2_with_comment_tpu.dataio.synthetic import (  # noqa: E402
@@ -151,44 +157,52 @@ def run_loop(k_max, fix_scale, seq):
     print(f"took {time.time() - t0:.1f} s")
 
 
-def _u8(img):
-    return np.clip(img, 0, 255).astype(np.uint8)
+def _write_fixture(job):
+    """One phase-14 fixture, by scripts/make_fixture_dataset.py."""
+    name, path, n = job
+    spec = importlib.util.spec_from_file_location(
+        "make_fixture_dataset", os.path.join(ROOT, "scripts",
+                                             "make_fixture_dataset.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    fn = {"tum_fixture": make.make_tum_rgbd,
+          "kitti_fixture": make.make_kitti_stereo,
+          "euroc_fixture": make.make_euroc_stereo}[name]
+    return fn(path, n_frames=n)
 
 
-def run_host():
-    from orb_slam2_with_comment_tpu.pipeline import Tracker
-    world = SyntheticWorld(seed=1)
-    poses = chip_smoke.sequences()["orbit60"][1]
-    right = chip_smoke.right_view(poses[:30], chip_smoke.BENCH_BASELINE)
-    runs = (
-        ("stereo", TrackerConfig(sensor="stereo", n_features=1000,
-                                 min_init_features=200, fps=30,
-                                 map_cfg=MapConfig(24, 1000, 8000, 8)),
-         [(_u8(world.render(R, t)[0]), _u8(world.render(Rr, tr)[0]))
-          for (R, t), (Rr, tr) in zip(poses[:30], right)], poses[:30]),
-        ("mono", TrackerConfig(sensor="mono", n_features=2000,
-                               min_init_features=200, min_init_matches=60,
-                               fps=30, map_cfg=MapConfig(24, 2000, 8000, 8)),
-         [_u8(world.render(R, t)[0]) for R, t in poses], poses))
-    for name, cfg, frames, gt in runs:
-        tracker = Tracker(cfg)
+def run_drivers():
+    from orb_slam2_with_comment_tpu import System
+    from orb_slam2_with_comment_tpu.pipeline import AutoTracker
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    root = tempfile.mkdtemp()
+    t0 = time.time()
+    jobs = [(name, os.path.join(root, name), n)
+            for name, n in chip_smoke.FIXTURE_FRAMES.items()]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(jobs),
+                                                mp_context=ctx) as pool:
+        seqs = dict(zip(chip_smoke.FIXTURE_FRAMES,
+                        pool.map(_write_fixture, jobs)))
+    print(f"fixtures written in {time.time() - t0:.1f} s to {root}",
+          flush=True)
+    for phase, (name, fix, auto, traj, kitti, sim3) in \
+            chip_smoke.DRIVER_RUNS.items():
+        run_dir = os.path.join(root, phase.split()[0])
+        os.makedirs(run_dir)
+        mod = importlib.import_module(name)
         t0 = time.time()
-        if name == "stereo":
-            got = [tracker.process_stereo(*f) is not None for f in frames]
-        else:
-            got = [tracker.process_mono(f) is not None for f in frames]
-        ids, Rs, ts = tracker.trajectory_arrays()
-        est = camera_centers(Rs, ts)
-        ref = camera_centers(np.stack([gt[i][0] for i in ids]),
-                             np.stack([gt[i][1] for i in ids]))
-        ate = ate_rmse(est, ref, with_scale=name == "mono")
-        print(f"host {name}: {time.time() - t0:.1f} s, tracked "
-              f"{sum(got)}/{len(got)} (share {sum(got) / len(got):.4f}), "
-              f"first tracked frame {got.index(True)}, keyframes "
-              f"{tracker.n_kf_host} at frames "
-              f"{np.asarray(tracker.map.kf_frame_id)[:tracker.n_kf_host].tolist()}"
-              f", ATE {ate:.6f} m ({'similarity' if name == 'mono' else 'SE3'}"
-              f"-aligned)", flush=True)
+        with chip_smoke.constructed(AutoTracker, System) as made:
+            os.chdir(run_dir)
+            try:
+                rc = mod.main(chip_smoke.driver_argv(name, seqs[fix], auto))
+            finally:
+                os.chdir(ROOT)
+        assert rc == 0 and len(made) == 1
+        tracker = made[0] if auto else made[0].tracker
+        got = chip_smoke.driver_outcome(tracker, auto, run_dir, seqs[fix],
+                                        traj, kitti, sim3)
+        print(f"{phase}: {time.time() - t0:.1f} s, {got}", flush=True)
 
 
 if __name__ == "__main__":
@@ -196,7 +210,7 @@ if __name__ == "__main__":
         run_mono(float(sys.argv[2]) if len(sys.argv) > 2 else None)
     elif sys.argv[1:2] == ["loop"] and len(sys.argv) == 5:
         run_loop(int(sys.argv[2]), sys.argv[3] == "1", sys.argv[4])
-    elif sys.argv[1:2] == ["host"]:
-        run_host()
+    elif sys.argv[1:2] == ["drivers"]:
+        run_drivers()
     else:
         sys.exit(__doc__)

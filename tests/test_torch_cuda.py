@@ -1,6 +1,7 @@
 """The Hamming kernels' wrappers on a card: launch counting and argument
 checks, and the stereo association's one launch; the host tracker's
-non-blocking readback, and System on the card by default.
+non-blocking readback, System on the card by default, and the map loader
+and AutoTracker.sync() on the card.
 
 The kernels' bit-exact comparison with their plain versions, and the slice
 on the card against the CPU, are phases of ``chip_smoke.py`` and are not
@@ -111,3 +112,25 @@ def test_system_runs_on_the_card_by_default(dev):
     assert len(slam.tracker.rel_log) == len(poses)
     np.testing.assert_allclose(np.asarray(pose)[:3, 3], poses[-1][1],
                                atol=0.02)
+
+
+def test_load_map_and_sync_on_the_card(dev, tmp_path):
+    """checkpoint.load_map puts a map on the card by default, and
+    AutoTracker.sync() waits for the card."""
+    from orb_slam2_with_comment_tpu_torch import checkpoint
+    from orb_slam2_with_comment_tpu_torch.mapstate.map import empty_map
+    from orb_slam2_with_comment_tpu_torch.pipeline import AutoTracker
+    path = str(tmp_path / "m.npz")
+    checkpoint.save_map(path, empty_map(MapConfig(4, 8, 16, 2), "cpu"))
+    assert checkpoint.load_map(path).kf_R.is_cuda
+    cfg = TrackerConfig(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320,
+                        height=240, n_features=500, min_init_features=100,
+                        fps=30, depth_factor=1.0,
+                        map_cfg=MapConfig(16, 500, 4000, 8))
+    tracker = AutoTracker(cfg)
+    img, depth = SyntheticWorld(seed=1).render(
+        *orbit_trajectory(16)[0], fx=250.0, fy=250.0, cx=160.0, cy=120.0,
+        width=320, height=240)
+    tracker.process_rgbd(np.clip(img, 0, 255).astype(np.uint8), depth)
+    tracker.sync()
+    assert tracker.state.map.lm_pw.is_cuda and tracker.finalize()["valid"][0]

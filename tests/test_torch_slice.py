@@ -123,3 +123,34 @@ def test_step_from_shared_state(runs, phase):
         np.testing.assert_allclose(got["map"][f],
                                    np.asarray(getattr(want.map, f)),
                                    rtol=0, atol=tol, err_msg=f)
+
+
+def test_float_metre_depth_matches_jax():
+    """Depth in float32 metres with depth_factor 1.0 (what the RGB-D
+    drivers feed) initializes the same map as the raw uint16 depth at
+    1/5000: the same landmark count as the JAX package given the same
+    metres, and a median landmark depth within 1e-4 m of the uint16 run."""
+    R, t = orbit_trajectory(N_FRAMES)[0]
+    img, depth = SyntheticWorld(seed=1).render(R, t, **CAM)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    d16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
+    metres = d16.astype(np.float32) / np.float32(5000.0)
+    kw = dict(KW, depth_factor=1.0)
+
+    def port(depth, **cfg):
+        tr = AutoTracker(TrackerConfig(map_cfg=MapConfig(**MAP), **cfg),
+                         AutoTrackerConfig(loop_closing=False), device="cpu")
+        tr.process_rgbd(img, depth)
+        m = tr.state.map
+        return int(m.n_lm), m.lm_pw[m.lm_valid].numpy()
+
+    jt = JaxAutoTracker(JaxTrackerConfig(map_cfg=JaxMapConfig(**MAP), **kw),
+                        JaxAutoTrackerConfig(loop_closing=False))
+    jt.process_rgbd(img, metres)
+    jm = jax.device_get(jt.state.map)
+    n_raw, pw_raw = port(d16, **KW)
+    n_f, pw_f = port(metres, **kw)
+    assert n_f == int(jm.n_lm) == n_raw and n_f > 100
+    want = np.median(pw_raw[:, 2])
+    assert abs(np.median(pw_f[:, 2]) - want) <= 1e-4
+    assert abs(np.median(jm.lm_pw[jm.lm_valid][:, 2]) - want) <= 1e-4

@@ -236,7 +236,7 @@ def test_map_and_auto_state_cross_load(tmp_path):
     rng = np.random.RandomState(5)
     jm = _random_map(rng)
     jckpt.save_map(str(tmp_path / "jax_map.npz"), jm)
-    tm = checkpoint.load_map(str(tmp_path / "jax_map.npz"))
+    tm = checkpoint.load_map(str(tmp_path / "jax_map.npz"), device="cpu")
     got = convert.map_to_numpy(tm)
     for f in got:
         np.testing.assert_array_equal(got[f], np.asarray(getattr(jm, f)), f)
@@ -318,3 +318,18 @@ def test_rgbd_node_divides_depth_and_initializes():
     assert node.stats.frames_tracked == 1 and slam.map_changed()
     with pytest.raises(NotImplementedError):
         System(config=cfg, use_viewer=True, device="cpu")
+
+
+def test_load_map_defaults_to_the_card(tmp_path, monkeypatch):
+    """load_map loads onto the card unless the CPU is asked for, and
+    without a card it raises rather than falling back."""
+    import inspect
+    from orb_slam2_with_comment_tpu_torch.mapstate.map import empty_map
+    default = inspect.signature(checkpoint.load_map).parameters["device"]
+    assert torch.device(default.default).type == "cuda"
+    path = str(tmp_path / "m.npz")
+    checkpoint.save_map(path, empty_map(MapConfig(4, 8, 16, 2), "cpu"))
+    assert checkpoint.load_map(path, device="cpu").kf_R.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_map(path)
