@@ -176,11 +176,34 @@ Phases (any failure raises and the script exits nonzero without the final
       tracked less 0.1, at most twice its ATE, the mono bootstrap at most
       2 frames after its. Prints frames tracked, keyframes, ATE, RPE, ms
       per frame, K1 launches per frame and the reader's ms per frame.
-   Every (calling function, shape) phases 13a, 13c and 14 gave the kernels
-   (the local-map window at [min(4096, l_max), n_feat] before and after
-   growth among them) is then held bit-exact against the plain version
-   and the baseline kernel and timed. The kernels line's launches are
-   phase 14's, summed over its five driver runs.
+15. The multi-device paths, the viewer and the AR driver, dense BoW:
+   a. MultiSeqTracker at the bench configuration (loop closing off) on
+      cuda:0, B = 2 worlds (SyntheticWorld seeds 0 and 1) over the orbit's
+      first 20 frames, in a world of one: per sequence initialized, never
+      lost, every frame valid, median translation error < 0.02 m; sequence
+      0 against a solo AutoTracker on its frames (the same valid flags and
+      keyframes, poses within 1e-4: index_add_ sums in no fixed order on
+      the card). Prints ms per B-frame step and per sequence-frame and K1
+      launches per sequence-frame.
+   b. a torch.distributed group of one rank through NCCL:
+      dist_ba.ba_solve_sharded (8 poses x 4096 landmarks, 8 steps) and
+      dist_pose_graph.optimize_pose_graph_sharded (a 64-vertex ring, 20
+      steps) against the single-device solvers on the same fixed schedule
+      (accept_all) within 1e-4; LoopCloser.poll_gba through the group on
+      15a's map to its end, against the same schedule on one device within
+      1e-4; the group destroyed; then the launcher
+      (parallel/launch.py --nprocs 1 --device cuda) prints DISTRIBUTED OK.
+   c. System(use_viewer=True) over 10 bench frames: /, /state.json and
+      /frame.png over HTTP, the PNG decoded by the port's codec equal to
+      draw_frame of the frame, the localization control; then the mono_ar
+      driver's synthetic mode over its 80 frames: a plane found, an
+      overlay PNG per tracked frame with the cube drawn.
+   d. dense bow_vectors and score_l1 on the card against the CPU, exact.
+   Every (calling function, shape) phases 13a, 13c, 14 and 15a gave the
+   kernels (the local-map window at [min(4096, l_max), n_feat] before and
+   after growth among them) is then held bit-exact against the plain
+   version and the baseline kernel and timed. The kernels line's launches
+   are phase 15a's; launches_by_phase lists every path's.
 
     python3 chip_smoke.py --kernels-only
 
@@ -194,6 +217,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import importlib
+import io
 import json
 import multiprocessing
 import os
@@ -201,11 +225,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 import warnings
 import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from orb_slam2_with_comment_tpu_torch import Sensor, System, checkpoint
 from orb_slam2_with_comment_tpu_torch.dataio import (
@@ -215,12 +241,19 @@ from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
 from orb_slam2_with_comment_tpu_torch.evaluation import rpe
 from orb_slam2_with_comment_tpu_torch.evaluation.ate import (
     ate_rmse, camera_centers)
+from orb_slam2_with_comment_tpu_torch.examples import mono_ar
 from orb_slam2_with_comment_tpu_torch.frontend import stereo
 from orb_slam2_with_comment_tpu_torch.geometry import se3
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming
+from orb_slam2_with_comment_tpu_torch.optim import ba, pose_graph
+from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
+from orb_slam2_with_comment_tpu_torch.parallel import (
+    dist_ba, dist_pose_graph, launch)
+from orb_slam2_with_comment_tpu_torch.parallel.multi_seq import (
+    MultiSeqTracker)
 from orb_slam2_with_comment_tpu_torch.models.camera import PinholeCamera
 from orb_slam2_with_comment_tpu_torch.pipeline import (
     auto_loop, loop_closing, steps)
@@ -232,6 +265,7 @@ from orb_slam2_with_comment_tpu_torch.pipeline.tracking import (
 from orb_slam2_with_comment_tpu_torch.place import vocabulary as V
 from orb_slam2_with_comment_tpu_torch.place.database import KeyFrameDatabase
 from orb_slam2_with_comment_tpu_torch.solvers import initializer, pnp
+from orb_slam2_with_comment_tpu_torch.visualization import draw_frame
 
 BENCH_MAP = MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=8)
 
@@ -520,6 +554,7 @@ KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
 KITTI_BF = 386.1448
 BENCH_BASELINE = 40.0 / 500.0  # bf / fx of the bench configuration
 MONO_SEQ = "orbit60"  # the sequence phase 11 tracks (its images only)
+MULTI_FRAMES = 20  # the frames phase 15a tracks in each of its two worlds
 
 
 def right_view(poses, baseline: float):
@@ -532,7 +567,7 @@ def sequences() -> dict:
     """Every synthetic sequence the phases track, by name: (depth noise,
     poses, camera, what a frame holds: "rgbd" = (uint8 image, uint16 depth
     at 5000 per metre), "image" = uint8 image, "raw" = the renderer's
-    float image and depth)."""
+    float image and depth[, the world's seed when it is not 1])."""
     orbit60 = orbit_trajectory(n_frames=60)
     lap = orbit_trajectory(n_frames=14)
     kitti30 = orbit60[:30]
@@ -551,13 +586,16 @@ def sequences() -> dict:
         "kitti30_left": (0.0, kitti30, KITTI_CAM, "image"),
         "kitti30_right": (0.0, right_view(
             kitti30, KITTI_BF / KITTI_CAM["fx"]), KITTI_CAM, "image"),
+        # phase 15a's second world: the orbit's first frames, seed 0
+        "orbit_seed0": (0.0, orbit60[:MULTI_FRAMES], {}, "rgbd", 0),
     }
 
 
 def render_job(job):
-    """Render one sequence, in order, from one SyntheticWorld(seed=1)."""
-    noise, poses, cam, kind = job
-    world = SyntheticWorld(seed=1, depth_noise=noise)
+    """Render one sequence, in order, from one SyntheticWorld (seed 1
+    unless the job names another)."""
+    noise, poses, cam, kind, *seed = job
+    world = SyntheticWorld(seed=seed[0] if seed else 1, depth_noise=noise)
     out = []
     for R, t in poses:
         img, depth = world.render(R, t, **cam)
@@ -587,9 +625,9 @@ def first_frames(name: str, n: int):
     nothing else)."""
     if name in _FRAMES:
         return _FRAMES[name][:n]
-    noise, poses, cam, kind = sequences()[name]
+    noise, poses, cam, kind, *seed = sequences()[name]
     assert noise == 0.0, "a noisy sequence draws from one stream, in order"
-    return render_job((noise, poses[:n], cam, kind))
+    return render_job((noise, poses[:n], cam, kind, *seed))
 
 
 def render_all(workers: int, chunk: int = 5, names=None):
@@ -600,9 +638,9 @@ def render_all(workers: int, chunk: int = 5, names=None):
     jobs = []
     todo = {k: v for k, v in sequences().items()
             if names is None or k in names}
-    for name, (noise, poses, cam, kind) in todo.items():
+    for name, (noise, poses, cam, kind, *seed) in todo.items():
         step = len(poses) if noise > 0 else chunk
-        jobs += [(name, i, (noise, poses[i:i + step], cam, kind))
+        jobs += [(name, i, (noise, poses[i:i + step], cam, kind, *seed))
                  for i in range(0, len(poses), step)]
     # the longest jobs first: the noisy sequence is one job of 40 frames
     jobs.sort(key=lambda j: -len(j[2][1]) * j[2][2].get("width", 640))
@@ -2028,6 +2066,249 @@ def check_undistortion(dev):
     assert err < 1e-3
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device paths, the viewer and the AR driver, dense BoW
+# ---------------------------------------------------------------------------
+
+def run_multi_seq(dev):
+    """Phase 15a: MultiSeqTracker at the bench configuration (loop closing
+    off), B = 2 worlds (seeds 0 and 1) over the orbit's first
+    MULTI_FRAMES frames, in a world of one. Returns (launches, the newest
+    problem of each shape the run gave the kernels, sequence 0's final
+    map)."""
+    n = MULTI_FRAMES
+    poses = orbit_trajectory(n_frames=60)[:n]
+    worlds = [frames_of("orbit_seed0"), frames_of("orbit60")[:n]]
+    auto_cfg = AutoTrackerConfig(traj_capacity=8 * n, loop_closing=False)
+    mt = MultiSeqTracker(bench_cfg(), n_seq=2, auto_cfg=auto_cfg, device=dev)
+    batches = [(np.stack([w[i][0] for w in worlds]),
+                np.stack([w[i][1] for w in worlds])) for i in range(n)]
+    reset_launches()
+    with captured_problems() as problems:
+        step_ms = [synced_ms(lambda: mt.process_rgbd(*b)) for b in batches]
+    launches = dict(hamming.LAUNCHES)
+    outs = mt.finalize()
+    step_ms = np.array(step_ms)
+    k1 = sum(launches.values())
+    log(f"multi seq: {n} B-frame steps of 2 sequences: ms per step "
+        f"{step_ms.mean():.2f} (median {np.median(step_ms):.2f}, after the "
+        f"first {step_ms[1:].mean():.2f}), ms per sequence-frame "
+        f"{step_ms.mean() / 2:.2f}; K1 launches {launches}, "
+        f"{k1 / (2 * n):.2f} per sequence-frame")
+    for i, out in enumerate(outs):
+        t_err = [np.linalg.norm(out["t"][k] - poses[k][1]) for k in range(n)]
+        log(f"multi seq {i}: initialized {out['initialized']}, lost at "
+            f"{out['lost_at']}, {int(out['valid'].sum())}/{n} valid, "
+            f"{out['n_keyframes']} keyframes, median t err "
+            f"{np.median(t_err):.5f} m")
+        assert out["initialized"] and out["lost_at"] == -1, f"seq {i} lost"
+        assert out["valid"].all() and np.median(t_err) < 0.02, \
+            f"seq {i} accuracy gate"
+    solo = AutoTracker(bench_cfg(), auto_cfg, device=dev)
+    for img, depth in worlds[0]:
+        solo.process_rgbd(img, depth)
+    ref = solo.finalize()
+    dt = float(np.abs(outs[0]["t"] - ref["t"]).max())
+    dR = float(np.abs(outs[0]["R"] - ref["R"]).max())
+    log(f"multi seq 0 against a solo AutoTracker: valid equal "
+        f"{np.array_equal(outs[0]['valid'], ref['valid'])}, keyframes "
+        f"{outs[0]['n_keyframes']} / {ref['n_keyframes']}, max |t| diff "
+        f"{dt:.2e} m, max |R| diff {dR:.2e} (index_add_ sums in no fixed "
+        f"order on the card)")
+    assert np.array_equal(outs[0]["valid"], ref["valid"])
+    assert outs[0]["n_keyframes"] == ref["n_keyframes"]
+    assert dt < 1e-4 and dR < 1e-4, "sequence 0 left its solo run"
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} never launched by MultiSeqTracker"
+    return launches, problems, mt.states[0].map
+
+
+def run_world_of_one(dev, m):
+    """Phase 15b: a torch.distributed group of one rank through NCCL on the
+    card: dist_ba and dist_pose_graph against the single-device solvers on
+    the same fixed schedule, then a global BA of phase 15a's map through
+    LoopCloser.poll_gba's process-group branch; then the launcher with
+    one rank on the card."""
+    auto_loop.warm_up_autodiff()  # the pose graph's forward-mode Jacobians
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}", rank=0,
+        world_size=1, device_id=dev)
+    try:
+        cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+        prob, t_gt = launch.ba_demo_problem(dev, n_poses=8, n_pts=4096)
+        box = {}
+        ms = synced_ms(lambda: box.update(out=dist_ba.ba_solve_sharded(
+            cam, dist_ba.shard_problem(prob), iters=8)))
+        R, t, X, chi2 = box["out"]
+        X = dist_ba.gather_points(X)
+        ref_ms = synced_ms(lambda: box.update(ref=ba.ba_solve(
+            cam, prob, iters=8, robust=True, accept_all=True)))
+        ref = box["ref"]
+        gap = max(float((a - b).abs().max())
+                  for a, b in ((R, ref.R), (t, ref.t), (X, ref.X)))
+        err = float((t.cpu() - torch.as_tensor(t_gt)).abs().max())
+        log(f"nccl world of one: dist_ba 8 poses x 4096 landmarks, 8 steps "
+            f"{ms:.2f} ms (single device, same schedule {ref_ms:.2f} ms), "
+            f"max |diff| {gap:.2e}, max pose error {err:.5f} m, chi2 "
+            f"{float(chi2):.3f}")
+        assert gap < 1e-4 and err < 0.02 and np.isfinite(float(chi2))
+        pg, _ = launch.ring_problem(dev, n=64, pad_to=1)
+        ms = synced_ms(lambda: box.update(pg=(
+            dist_pose_graph.optimize_pose_graph_sharded(
+                dist_pose_graph.shard_edges(pg), iters=20))))
+        ref_ms = synced_ms(lambda: box.update(pg_ref=(
+            pose_graph.optimize_pose_graph(pg, iters=20, accept_all=True))))
+        res, pref = box["pg"], box["pg_ref"]
+        gap = max(float((getattr(res, f) - getattr(pref, f)).abs().max())
+                  for f in ("R", "t", "s"))
+        log(f"nccl world of one: dist_pose_graph 64 vertices, 20 steps "
+            f"{ms:.2f} ms (single device {ref_ms:.2f} ms), max |diff| "
+            f"{gap:.2e}, chi2 {float(res.chi2):.3e}")
+        assert gap < 1e-4 and float(res.chi2) < 1e-4
+        db = KeyFrameDatabase(V.load_default_vocabulary(dev),
+                              m.kf_R.shape[0])
+        cfg = bench_cfg()
+        lc = LoopCloser(cfg.cam, db, width=cfg.width, height=cfg.height)
+        lc.mesh = dist.group.WORLD
+        lc._start_gba(m)
+        g = dict(lc._gba)
+        polls, out = 0, None
+        t0 = time.perf_counter()
+        while out is None and polls < 10:
+            out = lc.poll_gba(m)
+            polls += 1
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        sol = ba.ba_solve(cfg.cam, g["prob"], iters=lc.gba_total_iters,
+                          robust=True, init_lambda=1e-4, accept_all=True)
+        want = lc._apply_gba(m, {**g, "prob": g["prob"]._replace(
+            R=sol.R, t=sol.t, X=sol.X)})
+        gap = max(float((getattr(out, f) - getattr(want, f)).abs().max())
+                  for f in ("kf_R", "kf_t", "lm_pw"))
+        moved = float((out.kf_t - m.kf_t).abs().max())
+        log(f"nccl world of one: poll_gba through the group, Pp {g['Pp']} "
+            f"Lp {g['Lp']}, {polls} polls in {ms:.2f} ms, max |diff| against "
+            f"the single-device schedule {gap:.2e}, keyframes moved up to "
+            f"{moved:.5f} m")
+        assert out is not None and polls == 5 and gap < 1e-4
+        assert torch.isfinite(out.lm_pw).all() and moved < 0.05
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "orb_slam2_with_comment_tpu_torch.parallel.launch",
+         "--nprocs", "1", "--device", "cuda", "--timeout", "150"],
+        capture_output=True, text=True, timeout=180)
+    out = proc.stdout + proc.stderr
+    log(f"launcher, one rank on the card: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + " | ".join(ln for ln in proc.stdout.splitlines() if "rank" in ln))
+    assert proc.returncode == 0 and out.count("DISTRIBUTED OK") == 1, \
+        out[-3000:]
+
+
+def _http(port, path, doc=None):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if doc is None else json.dumps(doc).encode(),
+        method="GET" if doc is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def run_viewer_and_ar(dev, workers):
+    """Phase 15c: System(use_viewer=True) at the bench configuration over
+    10 orbit frames, every endpoint over HTTP; then the mono_ar driver's
+    synthetic mode over its default 80 frames."""
+    frames = frames_of("orbit60")[:10]
+    slam = System(bench_cfg(), Sensor.RGBD, use_viewer=True, viewer_port=0,
+                  device=dev)
+    port = slam.viewer.port
+    try:
+        for i, (img, depth) in enumerate(frames):
+            slam.track_rgbd(img, depth, i / 30.0)
+        tr = slam.tracker
+        tr.flush()
+        page = _http(port, "/")
+        doc = json.loads(_http(port, "/state.json"))
+        t0 = time.perf_counter()
+        data = _http(port, "/frame.png")
+        png_ms = 1000 * (time.perf_counter() - t0)
+        obs = tr.last_obs
+        want = draw_frame(np.asarray(frames[-1][0], np.float32),
+                          obs.feats.xy.cpu().numpy(), obs.lm.cpu().numpy(),
+                          obs.feats.valid.cpu().numpy(), state=tr.state.name,
+                          n_kf=tr.n_kf_host, n_lm=int(tr.map.lm_valid.sum()))
+        got = png.decode_png(data)
+        log(f"viewer: page {len(page)} bytes; state {doc['state']}, "
+            f"{len(doc['points'])} points, {len(doc['keyframes'])} "
+            f"keyframes, {len(doc['edges'])} edges; frame.png {len(data)} "
+            f"bytes {got.shape} in {png_ms:.1f} ms, equal to draw_frame of "
+            f"the frame: {np.array_equal(got, want)}")
+        assert b"live viewer" in page and doc["state"] == "OK"
+        assert len(doc["points"]) > 100 and doc["camera"] is not None
+        assert np.array_equal(got, want)
+        _http(port, "/control", {"localization": True})
+        assert tr.localization_only
+        _http(port, "/control", {"localization": False})
+        assert not tr.localization_only
+    finally:
+        slam.shutdown()
+    assert slam.viewer is None
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "ar")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mono_ar.main(["mono_ar", "--synthetic", f"--out={out_dir}",
+                               f"--device={dev}", f"--workers={workers}"])
+        secs = time.perf_counter() - t0
+        text = buf.getvalue().strip()
+        files = sorted(os.listdir(out_dir))
+        last = png.read_png(os.path.join(out_dir, files[-1])) if files \
+            else None
+        cube = (int((last == np.array([235, 60, 200])).all(axis=2).sum())
+                if last is not None else 0)
+        log(f"mono_ar --synthetic (80 frames, {workers} render workers): "
+            f"exit {rc} in {secs:.1f} s; {text.replace(chr(10), ' | ')}; "
+            f"{len(files)} overlays, the last {None if last is None else last.shape} "
+            f"with {cube} cube pixels")
+        assert rc == 0 and "new virtual cube inserted" in text, "no plane"
+        assert len(files) >= 60 and last.shape == (500, 640, 3) and cube > 0
+
+
+def check_dense_bow(dev):
+    """Phase 15d: dense bow_vectors and score_l1 on the card against the
+    CPU, with the packaged vocabulary, over the words of 20 orbit frames."""
+    voc, voc_cpu = V.load_default_vocabulary(dev), V.load_default_vocabulary(
+        "cpu")
+    ext = OrbExtractor(n_features=1000)
+    words, valid, host_words = [], [], []
+    for img, _ in frames_of("orbit60")[::3]:
+        f = ext(torch.as_tensor(img, device=dev))
+        words.append(V.transform(voc, f.desc, f.valid))
+        valid.append(f.valid)
+        host_words.append(V.transform(voc_cpu, f.desc.cpu(), f.valid.cpu()))
+    words, valid = torch.stack(words), torch.stack(valid)
+    host_words = torch.stack(host_words)
+    box = {}
+    ms = synced_ms(lambda: box.update(v=V.bow_vectors(voc, words, valid)))
+    vv = box["v"]
+    s_ms = synced_ms(lambda: box.update(s=V.score_l1(vv[0], vv)))
+    t0 = time.perf_counter()
+    host = V.bow_vectors(voc_cpu, words.cpu(), valid.cpu())
+    host_s = V.score_l1(host[0], host)
+    cpu_ms = 1000 * (time.perf_counter() - t0)
+    log(f"dense BoW: {tuple(vv.shape)} rows in {ms:.2f} ms, score_l1 "
+        f"{s_ms:.2f} ms on the card ({cpu_ms:.1f} ms both on the CPU); "
+        f"words equal {torch.equal(words.cpu(), host_words)}, rows equal "
+        f"{torch.equal(vv.cpu(), host)}, scores equal "
+        f"{torch.equal(box['s'].cpu(), host_s)}; scores "
+        f"{[round(float(x), 4) for x in host_s[:5]]}")
+    assert torch.equal(words.cpu(), host_words)
+    assert torch.equal(vv.cpu(), host) and torch.equal(box["s"].cpu(), host_s)
+
+
 def main():
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -2091,17 +2372,24 @@ def main():
         check_readers(seqs, root)
         drivers, driver_problems = run_drivers(dev, seqs, root)
     by_phase.update(drivers)
+    t15 = time.perf_counter()
+    by_phase["15a multi seq"], multi_problems, multi_map = run_multi_seq(dev)
+    run_world_of_one(dev, multi_map)
+    run_viewer_and_ar(dev, workers)
+    check_dense_bow(dev)
+    log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
     hold_problems(captured_todo("system rgbd", system_problems)
                   + captured_todo("lifecycle", life_problems)
-                  + captured_todo("drivers", driver_problems), rows)
+                  + captured_todo("drivers", driver_problems)
+                  + captured_todo("multi seq", multi_problems), rows)
     for row in rows:
-        # the newest slice's main path is the drivers of phase 14, their
-        # launches summed; every other path's count is listed beside it.
-        # Each phase has failed already if a kernel of its path was not
-        # launched (phase 10 keeps one keyframe over its 30 frames, so no
-        # duplicate-landmark merge and no distance_matrix there).
+        # the newest slice's main path is phase 15a's MultiSeqTracker;
+        # every other path's count is listed beside it. Each phase has
+        # failed already if a kernel of its path was not launched (phase 10
+        # keeps one keyframe over its 30 frames, so no duplicate-landmark
+        # merge and no distance_matrix there).
         key = row["name"].removeprefix("hamming_")
-        row["launches"] = sum(c[key] for c in drivers.values())
+        row["launches"] = by_phase["15a multi seq"][key]
         row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

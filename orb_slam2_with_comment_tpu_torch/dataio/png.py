@@ -5,7 +5,9 @@ the machine that runs the port need not have one. ``read_png`` reads what
 TUM RGB-D, KITTI odometry and EuRoC MAV ship (8-bit gray, gray + alpha,
 RGB, RGBA and palette images, 16-bit big-endian gray), with all five row
 filters; an interlaced image, a bit depth below 8 or 16-bit color raise
-``ValueError``. ``write_png`` writes 8-bit and 16-bit gray, filter 0.
+``ValueError``; ``decode_png`` reads the same from bytes. ``write_png``
+writes 8-bit and 16-bit gray and 8-bit RGB, filter 0, to a path or to a
+binary file object.
 
 Unfiltering: None, Sub and Up are vectorized (Sub is a running sum along
 the row, a run of Up rows a running sum down the columns). Average and
@@ -111,12 +113,16 @@ def _unfilter_diagonals(ftype: np.ndarray, data: np.ndarray,
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode a PNG: uint8 [H, W] (8-bit gray), uint16 [H, W] (16-bit
+    """Decode a PNG file: uint8 [H, W] (8-bit gray), uint16 [H, W] (16-bit
     gray), uint8 [H, W, 2] (gray + alpha), [H, W, 3] (RGB, and palette
     images without transparency) or [H, W, 4] (RGBA, and palette images
     with a tRNS chunk)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """read_png of a PNG held in memory; ``path`` names it in errors."""
     header = palette = trns = None
     idat = []
     for kind, body in _chunks(data):
@@ -190,20 +196,27 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """Write a uint8 or uint16 [H, W] array as 8- or 16-bit gray, every row
-    with filter 0."""
+def write_png(path, arr: np.ndarray) -> None:
+    """Write a uint8 or uint16 [H, W] array as 8- or 16-bit gray, or a
+    uint8 [H, W, 3] array as 8-bit RGB, every row with filter 0. ``path``
+    is a file name or a binary file object (io.BytesIO for the bytes)."""
     arr = np.asarray(arr)
-    if arr.ndim != 2 or arr.dtype not in (np.uint8, np.uint16):
-        raise ValueError("write_png takes a uint8 or uint16 [H, W] array")
-    h, w = arr.shape
+    rgb = arr.ndim == 3 and arr.shape[2] == 3 and arr.dtype == np.uint8
+    if not rgb and (arr.ndim != 2 or arr.dtype not in (np.uint8, np.uint16)):
+        raise ValueError("write_png takes a uint8 or uint16 [H, W] array or "
+                         "a uint8 [H, W, 3] one")
+    h, w = arr.shape[:2]
     depth = 8 * arr.itemsize
-    rows = np.zeros((h, 1 + w * arr.itemsize), np.uint8)
+    rows = np.zeros((h, 1 + w * arr.itemsize * (3 if rgb else 1)), np.uint8)
     rows[:, 1:] = arr.astype(">u2" if depth == 16 else np.uint8).view(
         np.uint8).reshape(h, -1)
+    data = (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                          2 if rgb else 0, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+    if hasattr(path, "write"):
+        path.write(data)
+        return
     with open(path, "wb") as f:
-        f.write(_SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0,
-                                              0, 0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+        f.write(data)

@@ -86,7 +86,9 @@ def set_last(dst: torch.Tensor, index, values) -> torch.Tensor:
     """``dst`` with ``dst[index] = values`` where, among writes to the same
     element, the last one in batch order wins. ``index`` is one index
     tensor [B] or a tuple of them (multi-dimensional indexing); ``values``
-    is [B, ...] or broadcastable to it. Deterministic on every device."""
+    is [B, ...] or broadcastable to it. Deterministic on every device, and
+    the host never waits: the losing writes all land on a spare row that
+    is dropped afterwards."""
     if not isinstance(index, tuple):
         index = (index,)
     index = tuple(i.long() for i in index)
@@ -100,12 +102,13 @@ def set_last(dst: torch.Tensor, index, values) -> torch.Tensor:
         n *= s
     winner = torch.full((n,), -1, dtype=torch.long, device=flat.device)
     winner = winner.scatter_reduce(0, flat, order, "amax")
-    last = winner[flat] == order
+    target = torch.where(winner[flat] == order, flat, n)
+    rest = dst.shape[len(index):]
     values = torch.as_tensor(values, dtype=dst.dtype, device=dst.device)
-    values = values.expand(B, *dst.shape[len(index):])
-    out = dst.clone()
-    out[tuple(i[last] for i in index)] = values[last]
-    return out
+    values = values.expand(B, *rest)
+    out = torch.cat([dst.reshape(n, *rest), dst.new_zeros((1, *rest))])
+    out[target] = values
+    return out[:n].reshape(dst.shape)
 
 
 def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
@@ -221,7 +224,7 @@ def rebuild_observations(m: MapState) -> MapState:
     first = torch.cummax(torch.where(changed, ids, 0), 0).values
     rank = ids - first
     same_kf_as_prev = (slm == torch.roll(slm, 1)) & (skf == torch.roll(skf, 1))
-    same_kf_as_prev[0] = False
+    same_kf_as_prev[0].fill_(False)  # a fill, not a copy from the host
     ok = (slm < L) & (rank < D) & ~same_kf_as_prev
     tgt_lm = torch.where(ok, slm, L - 1)
     tgt_slot = rank.clamp(0, D - 1)

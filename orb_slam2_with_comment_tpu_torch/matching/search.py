@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
-from ..ops import hamming
+from ..ops import consts, hamming
 from . import core
 
 N_LEVELS = 8
@@ -25,20 +25,21 @@ INV_SIGMA2 = (1.0 / SIGMA2).astype(np.float32)
 LOG_SCALE = math.log(SCALE)
 
 
-def _table_at(table: np.ndarray, octave: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(table, device=octave.device)[octave.long()]
+def _table_at(name: str, table: np.ndarray,
+              octave: torch.Tensor) -> torch.Tensor:
+    return consts.on_device(name, table, octave.device)[octave.long()]
 
 
 def scale_at(octave):
-    return _table_at(SCALE_FACTORS, octave)
+    return _table_at("search.SCALE_FACTORS", SCALE_FACTORS, octave)
 
 
 def sigma2_at(octave):
-    return _table_at(SIGMA2, octave)
+    return _table_at("search.SIGMA2", SIGMA2, octave)
 
 
 def inv_sigma2_at(octave):
-    return _table_at(INV_SIGMA2, octave)
+    return _table_at("search.INV_SIGMA2", INV_SIGMA2, octave)
 
 
 class FeatureSet(NamedTuple):

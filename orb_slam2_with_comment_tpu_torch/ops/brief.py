@@ -18,6 +18,8 @@ import os
 import numpy as np
 import torch
 
+from . import consts
+
 PATTERN_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "frontend", "data", "brief_pattern.npy")
@@ -37,7 +39,7 @@ def descriptors_exact(blurred: torch.Tensor, yx: torch.Tensor,
                       angle: torch.Tensor) -> torch.Tensor:
     """blurred [H, W], yx [N, 2] int (row, col), angle [N] -> [N, 8] int32."""
     h, w = blurred.shape
-    pat = torch.as_tensor(PATTERN, device=blurred.device)
+    pat = consts.on_device("brief.PATTERN", PATTERN, blurred.device)
     ca = torch.cos(angle)[:, None]
     sa = torch.sin(angle)[:, None]
     y0 = yx[:, 0:1].long()

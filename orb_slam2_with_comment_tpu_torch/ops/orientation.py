@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import consts
+
 HALF_PATCH = 15
 
 
@@ -61,6 +63,6 @@ def gather_patches(img: torch.Tensor, yx: torch.Tensor,
 def ic_angles(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
     """Orientation (radians) of keypoints yx [N, 2] on a level image."""
     n = yx.shape[0]
-    kmat = torch.as_tensor(_KMAT, device=img.device)
+    kmat = consts.on_device("orientation.KMAT", _KMAT, img.device)
     mom = gather_patches(img, yx, HALF_PATCH).reshape(n, -1) @ kmat
     return torch.atan2(mom[:, 1], mom[:, 0])

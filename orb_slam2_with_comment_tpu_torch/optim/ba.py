@@ -103,12 +103,15 @@ def _eval_chi2(cam, prob: BAProblem, w_active, R, t, X):
 
 
 def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
-                   init_lambda, reduced_step) -> BAResult:
+                   init_lambda, reduced_step,
+                   accept_all: bool = False) -> BAResult:
     """The LM loop both solvers share: residuals and Jacobians over the
     [L, D] table, the landmark blocks and their inverses, then
     ``reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam) -> dxi [P, 6]`` (the
     reduced camera system, dense or iterative), back-substitution of the
-    landmarks and the accept/reject on the robust-weighted chi2."""
+    landmarks and the accept/reject on the robust-weighted chi2. With
+    ``accept_all`` every step is taken at a fixed damping (the schedule of
+    parallel.dist_ba)."""
     dev, f32 = prob.X.device, prob.X.dtype
     delta_h = torch.where(prob.obs_uvr[..., 2] >= 0, HUBER_STEREO, HUBER_MONO)
     active = (prob.obs_w > 0) & prob.point_valid[:, None]
@@ -116,7 +119,9 @@ def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
     free_obs = (~prob.pose_fixed)[prob.obs_pose].to(f32)
     eye3 = torch.eye(3, dtype=f32, device=dev)
     R, t, X = prob.R, prob.t, prob.X
-    lam = torch.as_tensor(init_lambda, dtype=f32, device=dev).reshape(())
+    lam = (init_lambda.to(dtype=f32, device=dev).reshape(())
+           if isinstance(init_lambda, torch.Tensor)
+           else torch.full((), init_lambda, dtype=f32, device=dev))
     for _ in range(iters):
         e, Jp, Jl = _components(cam, prob, R, t, X)
         chi2_i = (e * e).sum(-1) * prob.obs_w
@@ -141,6 +146,9 @@ def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
         X_new = X + dX
         chi2_old = torch.where(active, chi2_i, 0.0).sum()
         chi2_new = _eval_chi2(cam, prob, w_active, R_new, t_new, X_new).sum()
+        if accept_all:
+            R, t, X = R_new, t_new, X_new
+            continue
         ok = ((chi2_new < chi2_old) & torch.isfinite(dxi).all()
               & torch.isfinite(dX).all())
         R = torch.where(ok, R_new, R)
@@ -153,9 +161,11 @@ def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
 
 
 def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
-             robust: bool = True, init_lambda=1e-4) -> BAResult:
+             robust: bool = True, init_lambda=1e-4,
+             accept_all: bool = False) -> BAResult:
     """Run ``iters`` LM iterations with the dense Schur complement: the
-    right trade at local-BA window sizes (P up to a few tens)."""
+    right trade at local-BA window sizes (P up to a few tens).
+    ``accept_all``: take every step at the fixed damping ``init_lambda``."""
     P = prob.R.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
     free_pose = ~prob.pose_fixed
@@ -185,7 +195,8 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
         sol, _ = torch.linalg.solve_ex(S_mat, b_s.reshape(P * 6, 1))
         return -sol.reshape(P, 6)
 
-    return _lm_iterations(cam, prob, iters, robust, init_lambda, reduced_step)
+    return _lm_iterations(cam, prob, iters, robust, init_lambda, reduced_step,
+                          accept_all)
 
 
 def ba_solve_cg(cam: CamParams, prob: BAProblem, iters: int = 10,

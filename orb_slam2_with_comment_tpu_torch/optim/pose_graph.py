@@ -74,7 +74,11 @@ def edge_jacobians(Ri, ti, si, Rj, tj, sj, mR, mt, ms):
 
 
 def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
-                        fix_scale: bool = False) -> PoseGraphResult:
+                        fix_scale: bool = False,
+                        accept_all: bool = False) -> PoseGraphResult:
+    """Dense Gauss-Newton/LM over the whole graph. ``accept_all``: take
+    every finite step at the fixed damping 1e-16 (the schedule of
+    parallel.dist_pose_graph)."""
     N = prob.R.shape[0]
     dev, dt = prob.R.device, prob.R.dtype
     ei, ej = prob.e_i.long(), prob.e_j.long()
@@ -128,11 +132,14 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
         chi2_old = (e * e * w_edge[:, None]).sum()
         e_new = residual(R_new, t_new, s_new)
         chi2_new = (e_new * e_new * w_edge[:, None]).sum()
-        ok = (chi2_new < chi2_old) & torch.isfinite(dxi).all()
+        ok = torch.isfinite(dxi).all()
+        if not accept_all:
+            ok = ok & (chi2_new < chi2_old)
         Rv = torch.where(ok, R_new, Rv)
         tv = torch.where(ok, t_new, tv)
         sv = torch.where(ok, s_new, sv)
-        lam = torch.where(ok, lam * 0.5, lam * 10.0).clamp(1e-16, 1e8)
+        if not accept_all:
+            lam = torch.where(ok, lam * 0.5, lam * 10.0).clamp(1e-16, 1e8)
     e = residual(Rv, tv, sv)
     return PoseGraphResult(Rv, tv, sv, (e * e * w_edge[:, None]).sum())
 

@@ -30,6 +30,7 @@ from ..mapstate.map import (MapState, covisibility_matrix,
 from ..matching import search as msearch
 from ..optim import ba, pose_graph, sim3_opt
 from ..optim.residuals import CamParams
+from ..parallel import dist_ba
 from ..place import vocabulary as V
 from ..place.database import KeyFrameDatabase, to_numpy
 from ..solvers import sim3solver
@@ -102,6 +103,10 @@ class LoopCloser:
         self.gba_generation = 0
         self.gba_chunk_iters = 2
         self.gba_total_iters = 10
+        # multi-device GBA: a torch.distributed process group (e.g.
+        # torch.distributed.group.WORLD) sends the global-BA chunks to
+        # parallel.dist_ba.ba_solve_sharded; None keeps them on this device
+        self.mesh = None
 
     def remap_slots(self, rank: np.ndarray, valid: np.ndarray):
         """Mirror a keyframe compaction: the last loop keyframe, the
@@ -413,11 +418,21 @@ class LoopCloser:
             return None
         iters = min(self.gba_chunk_iters, g["left"])
         prob = g["prob"]
-        solve = ba.ba_solve if g["Pp"] <= 64 else ba.ba_solve_cg
-        res = solve(self.cam, prob, iters=iters, robust=True,
-                    init_lambda=g["lam"])
-        g["prob"] = prob._replace(R=res.R, t=res.t, X=res.X)
-        g["lam"] = res.final_lambda
+        if (self.mesh is not None
+                and g["Lp"] % dist_ba.world_size(self.mesh) == 0):
+            # landmark shards and an all-reduced camera system over the
+            # group, every step taken at the chunk's fixed damping
+            Rn, tn, Xn, _ = dist_ba.ba_solve_sharded(
+                self.cam, dist_ba.shard_problem(prob, self.mesh), self.mesh,
+                iters=iters, lam=g["lam"], robust=True)
+            g["prob"] = prob._replace(
+                R=Rn, t=tn, X=dist_ba.gather_points(Xn, self.mesh))
+        else:
+            solve = ba.ba_solve if g["Pp"] <= 64 else ba.ba_solve_cg
+            res = solve(self.cam, prob, iters=iters, robust=True,
+                        init_lambda=g["lam"])
+            g["prob"] = prob._replace(R=res.R, t=res.t, X=res.X)
+            g["lam"] = res.final_lambda
         g["left"] -= iters
         if g["left"] > 0:
             return None

@@ -34,8 +34,9 @@ class FrameObs(NamedTuple):
 
 
 def _rdiv(a: float, x: torch.Tensor) -> torch.Tensor:
-    """a / x as a true division (``a / tensor`` multiplies by 1/x)."""
-    return torch.div(x.new_tensor(a), x)
+    """a / x as a true division (``a / tensor`` multiplies by 1/x); ``a``
+    goes to the device as a fill, not as a copy from the host."""
+    return torch.div(torch.full((), a, dtype=x.dtype, device=x.device), x)
 
 
 def make_feature_uvr(u, depth, bf: float):
@@ -71,15 +72,19 @@ def insert_keyframe(m: MapState, obs: FrameObs, R, t,
                     frame_id: int) -> MapState:
     """Copy the frame's features into keyframe slot n_kf and turn its
     landmark matches into observations (reference: CreateNewKeyFrame
-    Tracking.cc:1251-1264)."""
-    k = int(m.n_kf)
+    Tracking.cc:1251-1264). The slot is indexed on the device, as the JAX
+    package's dynamic_update_slice does: the host never reads n_kf. The
+    callers insert only below capacity (the index is clamped all the
+    same)."""
     f = obs.feats
     N = f.xy.shape[0]
+    dev = f.xy.device
+    slot = m.n_kf.view(1).long().clamp(max=m.kf_R.shape[0] - 1)
 
     def put(a, v):
-        a = a.clone()
-        a[k] = v
-        return a
+        if not isinstance(v, torch.Tensor):  # a fill, not a host copy
+            v = torch.full(a.shape[1:], v, dtype=a.dtype, device=dev)
+        return a.index_copy(0, slot, v.to(a.dtype).expand(a.shape[1:])[None])
 
     m = m._replace(
         kf_R=put(m.kf_R, R), kf_t=put(m.kf_t, t),
@@ -88,8 +93,7 @@ def insert_keyframe(m: MapState, obs: FrameObs, R, t,
         kf_depth=put(m.kf_depth, obs.depth), kf_octave=put(m.kf_octave, f.octave),
         kf_angle=put(m.kf_angle, f.angle), kf_desc=put(m.kf_desc, f.desc),
         kf_feat_valid=put(m.kf_feat_valid, f.valid), n_kf=m.n_kf + 1)
-    dev = f.xy.device
-    return add_observation(m, obs.lm.clamp(min=0), _full(N, k, dev),
+    return add_observation(m, obs.lm.clamp(min=0), slot.to(I32).expand(N),
                            _ids(N, dev), (obs.lm >= 0) & f.valid)
 
 
@@ -606,13 +610,15 @@ def merge_duplicate_landmarks(m: MapState, cur_kf: int,
     L = m.lm_pw.shape[0]
     dev = m.lm_pw.device
     Rb = min(block, L)
-    n_lm = int(m.n_lm)
-    start = min(max(n_lm - Rb, 0), L - Rb)
+    # the window [start, start + Rb) is built on the device: the host never
+    # reads n_lm
+    start = (m.n_lm - Rb).clamp(0, L - Rb)
     slot = start + _ids(Rb, dev)
-    pw_r = m.lm_pw[start:start + Rb]
-    desc_r = m.lm_desc[start:start + Rb]
-    recent = (m.lm_valid[start:start + Rb]
-              & (m.lm_first_kf[start:start + Rb] == cur_kf) & (slot < n_lm))
+    win = slot.long()
+    pw_r = m.lm_pw[win]
+    desc_r = m.lm_desc[win]
+    recent = (m.lm_valid[win] & (m.lm_first_kf[win] == cur_kf)
+              & (slot < m.n_lm))
     CH = 16384
     best_d2 = torch.full((Rb,), float("inf"), device=dev)
     best_tgt = torch.zeros(Rb, dtype=I32, device=dev)
@@ -717,13 +723,15 @@ def repack_obs_rows(m: MapState) -> MapState:
                       lm_obs_feat=m.lm_obs_feat.gather(1, order))
 
 
-def cull_keyframes(m: MapState, cur_kf: int, candidates: list[int]
-                   ) -> MapState:
+def cull_keyframes(m: MapState, cur_kf: int, candidates) -> MapState:
     """KeyFrameCulling (LocalMapping.cc:775-841): a candidate keyframe is
     redundant when > 90% of its landmarks are seen by >= 3 other keyframes
-    at the same or finer scale. Keyframe 0 and ``cur_kf`` are kept."""
+    at the same or finer scale. Keyframe 0 and ``cur_kf`` are kept.
+    ``candidates``: slots, -1 padded, as a list or a tensor on the map's
+    device."""
     dev = m.kf_lm.device
-    cands = torch.as_tensor(candidates, dtype=torch.long, device=dev)
+    cands = (candidates.long() if isinstance(candidates, torch.Tensor)
+             else torch.as_tensor(candidates, dtype=torch.long, device=dev))
     cand = cands.clamp(min=0)
     kf_lm = m.kf_lm[cand]
     lm = kf_lm.clamp(min=0).long()
@@ -763,7 +771,7 @@ def local_bundle_adjustment(m: MapState, cam, cur_kf: int, iters_a: int = 5,
         lm_cap, L)
     P = free_cap + fixed_cap
     w = covisibility_weights(m, cur_kf).clone()
-    w[0] = 0
+    w[0].fill_(0)  # a fill: assigning a Python scalar copies from the host
     top_w, top_i = sort_top_k(w, free_cap - 1)
     free_list = torch.cat([_full(1, cur_kf, dev), top_i.to(I32)])
     free_ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
@@ -860,17 +868,21 @@ def loop_search_and_fuse(m: MapState, cam, loop_lm_mask, group_kfs: list[int],
 
 
 def _keyframe_chunk(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
-                    width: int, height: int, new_landmarks) -> MapState:
+                    width: int, height: int, new_landmarks,
+                    kf: int | None) -> MapState:
     """A whole keyframe maintenance chunk at once: insertion, the top-5
     covisible neighbors, inward fusion, ``new_landmarks(map, slot,
     neighbors)``, outward fusion, duplicate merge, landmark refresh and
     culling, local BA (when the keyframe has a neighbor) and keyframe
-    culling over the top-10."""
-    k = int(m.n_kf)
+    culling over the top-10. ``kf`` is the slot the keyframe lands in
+    (n_kf), which the caller's own keyframe counter knows; the neighbor
+    window is the chunk's one readback, since it steers the fusion, the
+    BA and the culling."""
+    k = int(m.n_kf) if kf is None else kf
     m = insert_keyframe(m, obs, R, t, frame_id)
     top_w, top_i = sort_top_k(covisibility_weights(m, k), 10)
-    window = torch.where(top_w > 0, top_i, -1).tolist()
-    neighbors = window[:5]
+    window = torch.where(top_w > 0, top_i, -1)
+    neighbors = window[:5].tolist()
     m = fuse_neighbors(m, cam, k, neighbors, width, height, into=True)
     m = new_landmarks(m, k, neighbors)
     m = fuse_neighbors(m, cam, k, neighbors, width, height, into=False)
@@ -883,18 +895,22 @@ def _keyframe_chunk(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
 
 
 def keyframe_step(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
-                  th_depth: float, width: int, height: int) -> MapState:
+                  th_depth: float, width: int, height: int,
+                  kf: int | None = None) -> MapState:
     """The maintenance chunk of an RGB-D or stereo keyframe: its new
-    landmarks come from depth."""
+    landmarks come from depth. ``kf``: the slot it lands in (m.n_kf),
+    read back from the card when not given."""
     return _keyframe_chunk(
         m, cam, obs, R, t, frame_id, width, height,
-        lambda mm, k, _: create_depth_landmarks(mm, cam, k, th_depth))
+        lambda mm, k, _: create_depth_landmarks(mm, cam, k, th_depth), kf)
 
 
 def keyframe_step_mono(m: MapState, cam, obs: FrameObs, R, t, frame_id: int,
-                       width: int, height: int) -> MapState:
+                       width: int, height: int,
+                       kf: int | None = None) -> MapState:
     """The maintenance chunk of a monocular keyframe: its new landmarks
-    are triangulated against the top-5 covisible neighbors."""
+    are triangulated against the top-5 covisible neighbors. ``kf`` as in
+    keyframe_step."""
     return _keyframe_chunk(
         m, cam, obs, R, t, frame_id, width, height,
-        lambda mm, k, nb: triangulate_with_neighbors(mm, cam, k, nb))
+        lambda mm, k, nb: triangulate_with_neighbors(mm, cam, k, nb), kf)

@@ -104,15 +104,19 @@ class TrackerConfig:
 def upload_frame(a, device, depth: bool = False) -> torch.Tensor:
     """A frame on ``device``: raw unsigned depth goes up as int32 (many ops
     lack uint16), float64 arrays as float32, anything else (float32 depth
-    in metres, uint8 images, tensors) as it is."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    a = np.asarray(a)
-    if depth and a.dtype.kind == "u":
-        a = a.astype(np.int32)
-    elif a.dtype == np.float64:
-        a = a.astype(np.float32)
-    return torch.as_tensor(a).to(device)
+    in metres, uint8 images, tensors) as it is. A host frame goes to a card
+    through pinned memory without a wait: the host does not block on the
+    card's queue for it."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        if depth and a.dtype.kind == "u":
+            a = a.astype(np.int32)
+        elif a.dtype == np.float64:
+            a = a.astype(np.float32)
+        a = torch.as_tensor(a)
+    if a.device.type == "cpu" and torch.device(device).type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a.to(device)
 
 
 _VOC_CACHE: dict = {}
@@ -802,12 +806,12 @@ class Tracker:
         if cfg.sensor == "mono":
             self.map = steps.keyframe_step_mono(
                 self.map, self.cam, obs, R, t, frame_id, cfg.width,
-                cfg.height)
+                cfg.height, kf=kf)
         else:
             self.map = steps.keyframe_step(
                 self.map, self.cam, obs, R, t, frame_id,
                 float(np.float32(cfg.depth_threshold)), cfg.width,
-                cfg.height)
+                cfg.height, kf=kf)
         self.n_kf_host += 1
         self.kf_uids.append(self._kf_uid_counter)
         self._kf_uid_counter += 1

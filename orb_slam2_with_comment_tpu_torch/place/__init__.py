@@ -1,3 +1,3 @@
-# train_vocabulary, bow_vectors and score_l1 are not ported yet
-from .vocabulary import Vocabulary, transform  # noqa: F401
+from .vocabulary import (Vocabulary, bow_vectors, score_l1,  # noqa: F401
+                         train_vocabulary, transform)
 from .database import KeyFrameDatabase  # noqa: F401

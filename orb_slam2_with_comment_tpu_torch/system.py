@@ -77,8 +77,6 @@ class System:
                  sensor: Sensor = Sensor.RGBD, settings_path: str | None = None,
                  use_viewer: bool = False, viewer_port: int = 8765,
                  expected_frames: int | None = None, device="cuda"):
-        if use_viewer:
-            raise NotImplementedError("the viewer is not ported yet")
         if config is None and settings_path is not None:
             from .dataio.settings import load_tracker_config
             config = load_tracker_config(settings_path,
@@ -94,8 +92,12 @@ class System:
         self._localization_mode = False
         self._shutdown = False
         self._big_change_idx = 0
+        # the live web viewer (reference: the Viewer thread, System.cc:105-108)
         self.viewer = None
         self.viewer_port = viewer_port
+        if use_viewer:
+            from .visualization.viewer import Viewer
+            self.viewer = Viewer(self, port=viewer_port)
 
     # -- per-frame entries (System.cc:123-313) ------------------------------
     def track_monocular(self, img, timestamp: float = 0.0):
@@ -103,18 +105,24 @@ class System:
         when tracking failed."""
         assert self.sensor == Sensor.MONOCULAR, "wrong sensor for TrackMonocular"
         self.tracker._timestamp = timestamp
+        if self.viewer is not None:
+            self.viewer.push_frame(img)
         return self._pose44(self.tracker.process_mono(img))
 
     def track_stereo(self, img_left, img_right, timestamp: float = 0.0):
         """System::TrackStereo (System.cc:123-180)."""
         assert self.sensor == Sensor.STEREO, "wrong sensor for TrackStereo"
         self.tracker._timestamp = timestamp
+        if self.viewer is not None:
+            self.viewer.push_frame(img_left)
         return self._pose44(self.tracker.process_stereo(img_left, img_right))
 
     def track_rgbd(self, img, depth, timestamp: float = 0.0):
         """System::TrackRGBD (System.cc:182-222)."""
         assert self.sensor == Sensor.RGBD, "wrong sensor for TrackRGBD"
         self.tracker._timestamp = timestamp
+        if self.viewer is not None:
+            self.viewer.push_frame(img)
         return self._pose44(self.tracker.process_rgbd(img, depth))
 
     @staticmethod
@@ -148,8 +156,11 @@ class System:
 
     def shutdown(self):
         """System::Shutdown (System.cc:315-334): nothing to join; the frames
-        in flight are finalized."""
+        in flight are finalized and the viewer, if any, stops."""
         self.tracker.flush()
+        if self.viewer is not None:
+            self.viewer.close()
+            self.viewer = None
         self._shutdown = True
 
     # -- state (System.h:137-146) -----------------------------------------

@@ -134,3 +134,74 @@ def test_load_map_and_sync_on_the_card(dev, tmp_path):
     tracker.process_rgbd(np.clip(img, 0, 255).astype(np.uint8), depth)
     tracker.sync()
     assert tracker.state.map.lm_pw.is_cuda and tracker.finalize()["valid"][0]
+
+
+def test_map_writes_do_not_wait_on_the_card(dev):
+    """set_last, insert_keyframe and merge_duplicate_landmarks run under
+    torch.cuda's sync debug mode "error" (any host wait raises), and a
+    plain System.track_rgbd call waits on the card at most twice (the sync
+    debug mode's flagged waits plus the tracker's own non-blocking
+    readbacks)."""
+    import warnings
+    from orb_slam2_with_comment_tpu_torch.mapstate.map import set_last
+    from orb_slam2_with_comment_tpu_torch.pipeline import steps
+    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    cfg = TrackerConfig(**cam, bf=20.0, n_features=500, min_init_features=100,
+                        fps=30, depth_factor=1.0 / 5000.0,
+                        map_cfg=MapConfig(16, 500, 4000, 8))
+    slam = System(cfg, Sensor.RGBD)
+    tr = slam.tracker
+    world = SyntheticWorld(seed=1)
+    frames = []
+    for R, t in orbit_trajectory(16)[:12]:
+        img, depth = world.render(R, t, **cam)
+        frames.append((np.clip(img, 0, 255).astype(np.uint8),
+                       np.clip(depth * 5000, 0, 65535).astype(np.uint16)))
+    waits = {"n": 0}
+    wait = Readback.result
+
+    def counted(self):
+        waits["n"] += self._event is not None and not hasattr(self, "_w")
+        self._w = True
+        return wait(self)
+
+    plain = []
+    for i, (img, depth) in enumerate(frames):
+        n_kf = tr.n_kf_host
+        waits["n"] = 0
+        torch.cuda.set_sync_debug_mode("warn" if i >= 4 else 0)
+        Readback.result = counted
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                slam.track_rgbd(img, depth, i / 30.0)
+        finally:
+            Readback.result = wait
+            torch.cuda.set_sync_debug_mode(0)
+        n = waits["n"] + sum("synchroniz" in str(w.message) for w in caught)
+        if i >= 4 and tr.n_kf_host == n_kf:
+            plain.append(n)
+    slam.shutdown()
+    assert plain and max(plain) <= 2, plain
+
+    m = tr.map
+    obs = tr.last_obs
+    k = tr.n_kf_host
+    idx = torch.randint(0, 50, (300,), device=dev)
+    vals = torch.randn(300, 3, device=dev)
+    dst = torch.zeros(50, 3, device=dev)
+    R, t = m.kf_R[0].clone(), m.kf_t[0].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = set_last(dst, idx, vals)
+        m2 = steps.insert_keyframe(m, obs, R, t, 99)
+        m3 = steps.merge_duplicate_landmarks(m2, k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    last = {}
+    for i, j in enumerate(idx.tolist()):
+        last[j] = i
+    for j, i in last.items():
+        assert torch.equal(out[j], vals[i])
+    assert int(m2.n_kf) == int(m.n_kf) + 1 and bool(m3.kf_valid[k])

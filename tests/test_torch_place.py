@@ -5,7 +5,13 @@ the CPU, with the packaged vocabulary (98,411 nodes, k=10, 5 levels,
 - transform: word ids bit-exact (integer descent, first minimum wins);
 - bow_sparse: word ids exact, weights within 1e-6 (float32 sums of the
   L1 normalization in another order);
-- score_l1_sparse: scores within 1e-6.
+- score_l1_sparse: scores within 1e-6;
+- train_vocabulary: from the same descriptors and seed, the identical tree
+  (node descriptors, children, leaf words, idf weights; k = 8, 2 and 3
+  levels, seeds 0-4, tests/test_place.py's cases); save_vocabulary's files
+  load in the other package, both ways, to the same arrays;
+- bow_vectors and score_l1 (dense): within 1e-6 (float32 sums in another
+  order; the port sums the norms in float64).
 
 Descriptors: ORB descriptors of a rendered synthetic frame (the
 distribution the tracker feeds the tree) and uniformly random ones, with
@@ -117,3 +123,102 @@ def test_score_l1_sparse_matches_jax(vocs, descriptors):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-6)
         assert abs(got[q].item() - 1.0) < 1e-5 and got[4].item() == 0.0
+
+
+def _random_descs(seed: int, n: int) -> np.ndarray:
+    return np.random.RandomState(seed).randint(0, 2 ** 32, (n, 8),
+                                               dtype=np.uint32)
+
+
+def _assert_same_tree(voc, jvoc):
+    np.testing.assert_array_equal(voc.node_desc.numpy().view(np.uint32),
+                                  np.asarray(jvoc.node_desc))
+    for f in ("children", "leaf_word", "word_weight"):
+        np.testing.assert_array_equal(getattr(voc, f).numpy(),
+                                      np.asarray(getattr(jvoc, f)), err_msg=f)
+    assert (voc.k, voc.levels, voc.n_words) == (
+        jvoc.k, jvoc.levels, jvoc.n_words)
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+@pytest.mark.parametrize("seed", range(5))
+def test_train_vocabulary_identical_tree(levels, seed):
+    descs = _random_descs(9 + seed, 2000)
+    voc = V.train_vocabulary(descs, k=8, levels=levels, seed=seed,
+                             device="cpu")
+    _assert_same_tree(voc, JV.train_vocabulary(descs, k=8, levels=levels,
+                                               seed=seed))
+    # int32 descriptors (the port's layout) train the same tree
+    again = V.train_vocabulary(torch.as_tensor(descs.view(np.int32)), k=8,
+                               levels=levels, seed=seed, device="cpu")
+    for a, b in zip(voc[:4], again[:4]):
+        assert torch.equal(a, b)
+
+
+def test_saved_vocabularies_load_both_ways(tmp_path):
+    descs = _random_descs(11, 3000)
+    voc = V.train_vocabulary(descs, k=8, levels=3, seed=3, device="cpu")
+    jvoc = JV.train_vocabulary(descs, k=8, levels=3, seed=3)
+    V.save_vocabulary(voc, str(tmp_path / "port"))
+    JV.save_vocabulary(jvoc, str(tmp_path / "jax.npz"))
+    _assert_same_tree(voc, JV.load_vocabulary(str(tmp_path / "port.npz"),
+                                              as_numpy=True))
+    _assert_same_tree(V.load_vocabulary(str(tmp_path / "jax.npz"), "cpu"),
+                      jvoc)
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for f in a.files:
+            assert a[f].dtype == b[f].dtype, f
+
+
+@pytest.fixture(scope="module")
+def small_vocs():
+    descs = _random_descs(12, 3000)
+    return (V.train_vocabulary(descs, k=8, levels=3, seed=1, device="cpu"),
+            JV.train_vocabulary(descs, k=8, levels=3, seed=1), descs)
+
+
+def test_bow_vectors_and_score_l1_match_jax(small_vocs):
+    voc, jvoc, descs = small_vocs
+    rng = np.random.RandomState(5)
+    # five "images": rows of the training set, one noisy copy, one random,
+    # invalid features and repeated descriptors among them
+    rows = [descs[:300], descs[:300] ^ (rng.rand(300, 8) < 0.02).astype(
+        np.uint32), _random_descs(13, 300), descs[300:600], descs[:300]]
+    rows[3][:50] = rows[3][50:100]
+    d = np.stack(rows)
+    valid = rng.rand(5, 300) < 0.9
+    valid[4] = valid[0]
+    td = torch.as_tensor(d.view(np.int32))
+    words = torch.stack([V.transform(voc, td[i], torch.as_tensor(valid[i]))
+                         for i in range(5)])
+    jwords = jnp.stack([JV.transform(jvoc, jnp.asarray(d[i]),
+                                     jnp.asarray(valid[i]))
+                        for i in range(5)])
+    np.testing.assert_array_equal(words.numpy(), np.asarray(jwords))
+    vv = V.bow_vectors(voc, words, torch.as_tensor(valid))
+    jv = JV.bow_vectors(jvoc, jwords, jnp.asarray(valid))
+    assert vv.shape == (5, voc.n_words)
+    np.testing.assert_allclose(vv.numpy(), np.asarray(jv), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(vv.sum(-1).numpy(), 1.0, atol=1e-5)
+    s = V.score_l1(vv[0], vv)
+    js = JV.score_l1(jv[0], jv)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+    assert float(s[0]) == pytest.approx(1.0, abs=1e-6)
+    assert float(s[4]) == float(s[0])  # the same image again
+    assert float(s[1]) > float(s[2])  # the noisy copy beats a random set
+
+
+def test_train_vocab_entry_point(tmp_path):
+    """examples/train_vocab.py at a tiny size: it harvests the port
+    extractor's descriptors, and its file holds the tree that
+    train_vocabulary builds from them, readable by both packages."""
+    from orb_slam2_with_comment_tpu_torch.examples import train_vocab
+    out = str(tmp_path / "voc.npz")
+    assert train_vocab.main(["--worlds", "1", "--frames", "2", "--k", "4",
+                             "--levels", "2", "--out", out,
+                             "--device", "cpu"]) == 0
+    descs = train_vocab.harvest(1, 2, torch.device("cpu"), log=lambda m: None)
+    assert descs.dtype == np.uint32 and len(descs) > 500
+    want = V.train_vocabulary(descs, k=4, levels=2, seed=0, device="cpu")
+    _assert_same_tree(want, JV.load_vocabulary(out, as_numpy=True))

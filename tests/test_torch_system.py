@@ -316,8 +316,11 @@ def test_rgbd_node_divides_depth_and_initializes():
     assert len(poses) == 1 and poses[0].shape == (4, 4)
     np.testing.assert_allclose(poses[0], np.eye(4), atol=1e-6)
     assert node.stats.frames_tracked == 1 and slam.map_changed()
-    with pytest.raises(NotImplementedError):
-        System(config=cfg, use_viewer=True, device="cpu")
+    # the viewer is ported: it starts with the System and stops at shutdown
+    viewed = System(config=cfg, use_viewer=True, viewer_port=0, device="cpu")
+    assert viewed.viewer is not None and viewed.viewer.port > 0
+    viewed.shutdown()
+    assert viewed.viewer is None
 
 
 def test_load_map_defaults_to_the_card(tmp_path, monkeypatch):
