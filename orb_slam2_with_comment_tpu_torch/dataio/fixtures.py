@@ -16,7 +16,10 @@ truncated to uint16. The PNGs are written with filter 0.
         [--frames 120] [--street] [--street-frames 500] [--workers 1]
 
 ``workers`` > 1 renders in that many spawned processes (the renders are
-deterministic, so the files are the same).
+deterministic, so the files are the same). Each maker also renders on a
+torch device (``device``, e.g. "cuda"): 1000 views of the street take
+hours of a core in numpy and seconds on a card, and a few pixels of an
+image then differ by one grey level (synthetic.render_views).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import os
 import numpy as np
 
 from . import png
+from . import synthetic
 from .synthetic import (StreetWorld, SyntheticWorld, lookout_trajectory,
                         orbit_trajectory, street_trajectory)
 
@@ -66,10 +70,17 @@ def _render_chunk(job):
     return [world.render(R, t, **kw) for R, t in views]
 
 
-def render_views(spec, views, kw=None, workers: int = 1, chunk: int = 5):
+def render_views(spec, views, kw=None, workers: int = 1, chunk: int = 5,
+                 device=None):
     """(image, depth) of every view, in order; in ``workers`` spawned
-    processes, ``chunk`` views each, when ``workers`` > 1."""
+    processes, ``chunk`` views each, when ``workers`` > 1; on the torch
+    ``device``, 16 views a batch, when one is given."""
     kw = kw or {}
+    if device is not None:
+        world = _world(spec)
+        return [v for i in range(0, len(views), 16)
+                for v in synthetic.render_views(world, views[i:i + 16],
+                                                device, **kw)]
     if workers <= 1:
         return _render_chunk((spec, views, kw))
     jobs = [(spec, views[i:i + chunk], kw)
@@ -152,7 +163,8 @@ ORBextractor.minThFAST: 7
 
 
 def make_tum_rgbd(out_dir, n_frames=120, seed=1, fps=30.0, laps=1,
-                  style="orbit", cal_err=0.0, workers=1, written=None):
+                  style="orbit", cal_err=0.0, workers=1, written=None,
+                  device=None):
     """A TUM RGB-D sequence. laps > 1 revisits the start; style="lookout"
     rides an outward-gazing circle in a closed room (a genuine revisit),
     style="orbit" is the small arc. cal_err perturbs the settings file's
@@ -167,7 +179,7 @@ def make_tum_rgbd(out_dir, n_frames=120, seed=1, fps=30.0, laps=1,
         poses = poses[:n_frames]
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
-    renders = render_views(spec, poses, workers=workers)
+    renders = render_views(spec, poses, workers=workers, device=device)
     rgb_lines, dep_lines, gt_lines = [], [], []
     for k, ((R, t), (img, depth)) in enumerate(zip(poses, renders)):
         ts = k / fps
@@ -217,16 +229,19 @@ def _kitti_gt_row(R, t):
         [Rwc, twc[:, None]]).reshape(-1))
 
 
-def _write_kitti(out_dir, poses, renders, fps, settings, written):
+def _write_kitti(out_dir, poses, renders, fps, settings, written,
+                 workers: int = 1):
+    """The KITTI files; ``workers`` threads encode the PNGs (zlib lets go
+    of the interpreter lock)."""
     os.makedirs(os.path.join(out_dir, "image_0"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "image_1"), exist_ok=True)
+    jobs = [(os.path.join(out_dir, f"image_{c}", f"{k:06d}.png"),
+             renders[2 * k + c][0]) for k in range(len(poses))
+            for c in (0, 1)]
+    with concurrent.futures.ThreadPoolExecutor(max(workers, 1)) as pool:
+        list(pool.map(lambda job: _save_png8(*job, written), jobs))
     times, gt_rows = [], []
     for k, (R, t) in enumerate(poses):
-        (left, _), (right, _) = renders[2 * k], renders[2 * k + 1]
-        _save_png8(os.path.join(out_dir, "image_0", f"{k:06d}.png"), left,
-                   written)
-        _save_png8(os.path.join(out_dir, "image_1", f"{k:06d}.png"), right,
-                   written)
         times.append(f"{k / fps:.6e}")
         gt_rows.append(_kitti_gt_row(R, t))
     _write(os.path.join(out_dir, "times.txt"), "\n".join(times) + "\n")
@@ -236,12 +251,12 @@ def _write_kitti(out_dir, poses, renders, fps, settings, written):
 
 
 def make_kitti_stereo(out_dir, n_frames=100, seed=2, fps=10.0,
-                      baseline=0.08, workers=1, written=None):
+                      baseline=0.08, workers=1, written=None, device=None):
     """A KITTI odometry stereo sequence: the orbit at the 8 cm baseline."""
     poses = orbit_trajectory(n_frames=n_frames)
     off = np.array([baseline, 0, 0], np.float32)
     renders = render_views(("room", seed, False), _stereo_views(poses, off),
-                           workers=workers)
+                           workers=workers, device=device)
     return _write_kitti(out_dir, poses, renders, fps, SETTINGS_KITTI, written)
 
 
@@ -269,7 +284,7 @@ ORBextractor.minThFAST: 7
 
 
 def make_kitti_street(out_dir, n_frames=500, seed=3, fps=10.0, workers=1,
-                      written=None):
+                      written=None, device=None):
     """Street-scale KITTI-format stereo sequence: a ~60 m city-block
     circuit at the KITTI 00-02 camera geometry (1241x376, fx=718.856,
     bf=386.1448 -> 53.7 cm baseline), driven slightly past one lap so the
@@ -280,9 +295,9 @@ def make_kitti_street(out_dir, n_frames=500, seed=3, fps=10.0, workers=1,
     cam = dict(fx=KFX, fy=KFX, cx=KCX, cy=KCY, width=1241, height=376)
     off = np.array([KBF / KFX, 0, 0], np.float32)
     renders = render_views(("street", seed, False), _stereo_views(poses, off),
-                           cam, workers=workers)
+                           cam, workers=workers, device=device)
     return _write_kitti(out_dir, poses, renders, fps, SETTINGS_KITTI_REAL,
-                        written)
+                        written, workers)
 
 
 SETTINGS_EUROC = """%YAML:1.0
@@ -373,7 +388,7 @@ def _undistorted_dirs(width, height, fx, fy, cx, cy, D):
 
 
 def make_euroc_stereo(out_dir, n_frames=100, seed=3, fps=20.0,
-                      baseline=0.08, workers=1, written=None):
+                      baseline=0.08, workers=1, written=None, device=None):
     """EuRoC on-disk layout (mav0/cam0/data/<ns>.png + cam1 + timestamp
     file) with raw distorted images (radtan k1=-0.2, k2=0.05): the driver
     rectifies online through the YAML LEFT./RIGHT. blocks, as the reference
@@ -387,7 +402,7 @@ def make_euroc_stereo(out_dir, n_frames=100, seed=3, fps=20.0,
     dirs = _undistorted_dirs(640, 480, 500.0, 500.0, 320.0, 240.0, D)
     off = np.array([baseline, 0, 0], np.float32)
     renders = render_views(("room", seed, False), _stereo_views(poses, off),
-                           dict(dirs=dirs), workers=workers)
+                           dict(dirs=dirs), workers=workers, device=device)
     stamps, gt_lines = [], []
     for k, (R, t) in enumerate(poses):
         ns = int(round((k / fps) * 1e9))

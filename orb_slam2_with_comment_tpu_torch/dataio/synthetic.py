@@ -17,6 +17,7 @@ This is the synthetic-scene module-test strategy of SURVEY.md §4(b).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class _Plane:
@@ -173,6 +174,98 @@ class SyntheticWorld:
             noise = self.rng.randn(height, width).astype(np.float32)
             depth = np.where(depth > 0, depth * (1 + self.depth_noise * noise), 0.0)
         return np.clip(img, 0, 255), depth
+
+
+def _plane_tensors(pl: _Plane, device) -> dict:
+    """A plane's geometry and textures on ``device``, made once."""
+    cache = pl.__dict__.setdefault("_on", {})
+    key = str(device)
+    if key not in cache:
+        cache[key] = {name: torch.as_tensor(getattr(pl, name), device=device)
+                      for name in ("p0", "ea", "eb", "n", "tex", "tex2",
+                                   "phase")}
+    return cache[key]
+
+
+def _bilinear(tex: torch.Tensor, ga: torch.Tensor, gb: torch.Tensor):
+    ga = ga.clamp(0.0, float(tex.shape[0] - 2))
+    gb = gb.clamp(0.0, float(tex.shape[1] - 2))
+    ia = torch.floor(ga).long()
+    ib = torch.floor(gb).long()
+    fa = (ga - ia).clamp(0, 1)
+    fb = (gb - ib).clamp(0, 1)
+    return (tex[ia, ib] * (1 - fa) * (1 - fb) + tex[ia, ib + 1] * (1 - fa) * fb
+            + tex[ia + 1, ib] * fa * (1 - fb) + tex[ia + 1, ib + 1] * fa * fb)
+
+
+def render_views(world, views, device, fx=500.0, fy=500.0, cx=320.0,
+                 cy=240.0, width=640, height=480, z_min=0.4, dirs=None):
+    """``world.render`` of every view (R, t) at once, in float32 on
+    ``device`` (a torch device): a list of (image, depth) numpy arrays in
+    view order. The arithmetic is render's, elementwise (no matrix
+    product), so an image differs from render's by float32 rounding of
+    the trigonometry and the sums, at most a few grey levels at a few
+    pixels. Depth noise, where the world has it, is drawn on the host in
+    view order, as render draws it."""
+    f32 = torch.float32
+    R = torch.as_tensor(np.stack([np.asarray(r, np.float32)
+                                  for r, _ in views]), device=device)
+    t = torch.as_tensor(np.stack([np.asarray(tt, np.float32)
+                                  for _, tt in views]), device=device)
+    C = -(R * t[:, :, None]).sum(1)  # [V, 3]: -R^T t
+    if dirs is None:
+        xs = (torch.arange(width, dtype=f32, device=device) - cx) / fx
+        ys = (torch.arange(height, dtype=f32, device=device) - cy) / fy
+        dy, dx = torch.meshgrid(ys, xs, indexing="ij")
+        d_cam = torch.stack([dx, dy, torch.ones_like(dx)], -1)  # [H, W, 3]
+    else:  # per-pixel rays, as render takes them
+        d_cam = torch.as_tensor(np.asarray(dirs, np.float32), device=device)
+        height, width = d_cam.shape[:2]
+    # d_world[v, h, w, j] = sum_i d_cam[h, w, i] R[v, i, j]
+    d_world = sum(d_cam[None, :, :, i, None] * R[:, None, None, i, :]
+                  for i in range(3))
+    V = len(views)
+    img = torch.full((V, height, width), 25.0, dtype=f32, device=device)
+    depth = torch.zeros((V, height, width), dtype=f32, device=device)
+    best_t = torch.full((V, height, width), float("inf"), dtype=f32,
+                        device=device)
+    Cb = C[:, None, None, :]
+
+    def dot(a, b):
+        return a[..., 0] * b[0] + a[..., 1] * b[1] + a[..., 2] * b[2]
+
+    for pl in world.planes:
+        g = _plane_tensors(pl, device)
+        denom = dot(d_world, g["n"])
+        denom = torch.where(denom.abs() < 1e-9, 1e-9, denom)
+        tt = dot(g["p0"] - Cb, g["n"]) / denom
+        rel = Cb + tt[..., None] * d_world - g["p0"]
+        a = torch.nan_to_num(dot(rel, g["ea"]), posinf=1e6, neginf=-1e6)
+        b = torch.nan_to_num(dot(rel, g["eb"]), posinf=1e6, neginf=-1e6)
+        ok = ((tt > z_min) & (tt < best_t) & (a.abs() < pl.half_a)
+              & (b.abs() < pl.half_b))
+        ga = (a + pl.half_a) / pl.cell + 2
+        gb = (b + pl.half_b) / pl.cell + 2
+        p = g["phase"]
+        ga_w = (ga + 0.35 * torch.sin(gb * 1.7 + p[0])
+                + 0.2 * torch.sin(gb * 0.61 + p[1]))
+        gb_w = (gb + 0.35 * torch.sin(ga * 1.3 + p[2])
+                + 0.2 * torch.sin(ga * 0.47 + p[3]))
+        val = (_bilinear(g["tex"], ga_w, gb_w)
+               + _bilinear(g["tex2"], 2 * ga, 2 * gb))
+        img = torch.where(ok, val, img)
+        depth = torch.where(ok, tt, depth)
+        best_t = torch.where(ok, tt, best_t)
+    imgs = img.clamp(0, 255).cpu().numpy()
+    depths = depth.cpu().numpy()
+    out = []
+    for k in range(V):
+        d = depths[k]
+        if world.depth_noise > 0:
+            noise = world.rng.randn(height, width).astype(np.float32)
+            d = np.where(d > 0, d * (1 + world.depth_noise * noise), 0.0)
+        out.append((imgs[k], d))
+    return out
 
 
 def orbit_trajectory(n_frames, x_amp=0.35, y_amp=0.08, z_amp=0.12,

@@ -25,6 +25,10 @@ class FrameFeatures(NamedTuple):
     desc: torch.Tensor  # [N, 8] int32 packed 256-bit
     valid: torch.Tensor  # [N] bool
 
+    @property
+    def n(self) -> int:
+        return self.xy.shape[0]
+
 
 def level_budgets(n_features: int, n_levels: int = image.N_LEVELS,
                   scale_factor: float = image.SCALE_FACTOR) -> list[int]:
@@ -98,19 +102,10 @@ class OrbExtractor:
         blurred = torch.round(image.gaussian_blur(lvl_img))
         ang = orientation.ic_angles(lvl_img, yx)
         desc = brief.descriptors_exact(blurred, yx, ang)
-        sp = orientation.gather_patches(score, yx, 1)
-        c = sp[:, 1, 1]
-        up, dn = sp[:, 0, 1], sp[:, 2, 1]
-        lf, rt = sp[:, 1, 0], sp[:, 1, 2]
-        den_y = up - 2 * c + dn
-        den_x = lf - 2 * c + rt
-        sub_dy = (0.5 * (up - dn) / torch.where(
-            den_y.abs() < 1e-6, 1e-6, den_y)).clamp(-0.5, 0.5)
-        sub_dx = (0.5 * (lf - rt) / torch.where(
-            den_x.abs() < 1e-6, 1e-6, den_x)).clamp(-0.5, 0.5)
+        sub = fast.subpixel_refine(score, yx)
         scale = self.scales[lvl]
-        xy0 = torch.stack([(yx[:, 1].float() + sub_dx) * scale,
-                           (yx[:, 0].float() + sub_dy) * scale], -1)
+        xy0 = torch.stack([(yx[:, 1].float() + sub[:, 1]) * scale,
+                           (yx[:, 0].float() + sub[:, 0]) * scale], -1)
         octv = torch.full((budget,), lvl, dtype=torch.int32,
                           device=lvl_img.device)
         return xy0, resp, octv, ang, desc, valid

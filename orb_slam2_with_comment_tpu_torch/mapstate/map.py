@@ -56,6 +56,11 @@ class MapState(NamedTuple):
     n_lm: torch.Tensor  # [] int32 next free landmark slot
     n_obs_drop: torch.Tensor  # [] int32 observations dropped (full rows)
 
+    @property
+    def config(self) -> MapConfig:
+        return MapConfig(self.kf_R.shape[0], self.kf_xy.shape[1],
+                         self.lm_pw.shape[0], self.lm_obs_kf.shape[1])
+
 
 def empty_map(cfg: MapConfig, device) -> MapState:
     K, N, L, D = cfg.k_max, cfg.n_feat, cfg.l_max, cfg.d_max

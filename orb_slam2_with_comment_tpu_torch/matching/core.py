@@ -21,6 +21,18 @@ HISTO_LENGTH = 30
 BIG = hamming.BIG
 
 
+def masked_best_two(dist: torch.Tensor, mask: torch.Tensor):
+    """Row-wise best and second-best of a distance matrix already computed,
+    dist [Q, N] int32, over the candidates of mask [Q, N] bool: (best, idx,
+    second), masked entries counted as BIG (the searches themselves call
+    the fused hamming.masked_best_two)."""
+    d = torch.where(mask, dist, BIG)
+    best, idx = d.min(1)
+    cols = torch.arange(d.shape[1], device=d.device)
+    second = torch.where(cols == idx[:, None], BIG, d).amin(1)
+    return best, idx.to(torch.int32), second
+
+
 def ratio_ok(best: torch.Tensor, second: torch.Tensor, ratio: float):
     """Lowe-style test as the reference uses it: best < ratio * second."""
     return best.float() < ratio * second.float()

@@ -89,3 +89,23 @@ def select_keypoints(score: torch.Tensor, n_max: int, cell: int = 32,
         yx = torch.cat([yx, yx.new_zeros(pad, 2)])
         valid = torch.cat([valid, valid.new_zeros(pad)])
     return yx, gv, valid
+
+
+def subpixel_refine(score: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
+    """Sub-pixel corner offsets [N, 2] (dy, dx) in [-0.5, 0.5] from a 1D
+    parabola per axis through the score map at keypoints yx [N, 2] (row,
+    col), the neighbours clamped to the map's edge."""
+    h, w = score.shape
+    y = yx[:, 0].long()
+    x = yx[:, 1].long()
+
+    def at(dy, dx):
+        return score[(y + dy).clamp(0, h - 1), (x + dx).clamp(0, w - 1)]
+
+    c = at(0, 0)
+    up, dn, lf, rt = at(-1, 0), at(1, 0), at(0, -1), at(0, 1)
+    den_y = up - 2 * c + dn
+    den_x = lf - 2 * c + rt
+    dy = 0.5 * (up - dn) / torch.where(den_y.abs() < 1e-6, 1e-6, den_y)
+    dx = 0.5 * (lf - rt) / torch.where(den_x.abs() < 1e-6, 1e-6, den_x)
+    return torch.stack([dy.clamp(-0.5, 0.5), dx.clamp(-0.5, 0.5)], -1)

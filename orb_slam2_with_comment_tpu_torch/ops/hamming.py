@@ -165,3 +165,20 @@ def masked_best_two(dq: torch.Tensor, dt: torch.Tensor, mask: torch.Tensor):
     if q:
         LAUNCHES["masked_best_two"] += 1
     return tuple(outs.unbind(0))
+
+
+def best_two(dist: torch.Tensor, valid: torch.Tensor | None = None,
+             big: int = BIG):
+    """Row-wise best and second-best of a given distance matrix [..., M]
+    (M >= 2), entries outside ``valid`` counted as ``big``: (best, index
+    of its first occurrence, second), where second equals best when the
+    minimum repeats. A plain top-2 of a matrix already computed, not a
+    kernel."""
+    if valid is not None:
+        dist = torch.where(valid, dist, big)
+    best, idx = dist.min(-1)
+    info = torch.finfo if dist.is_floating_point() else torch.iinfo
+    cols = torch.arange(dist.shape[-1], device=dist.device)
+    second = torch.where(cols == idx[..., None], info(dist.dtype).max,
+                         dist).amin(-1)
+    return best, idx.to(torch.int32), second

@@ -96,6 +96,18 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7,
     return acc
 
 
+def conv2d_same(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """'SAME' 2D correlation of [H, W] with [kh, kw], zero padding: out[y,
+    x] = sum_{v,u} img[y + v - kh // 2, x + u - kw // 2] * kernel[v, u]. In
+    float32 on the card too: cuDNN's TF32 is switched off for the call."""
+    kh, kw = kernel.shape
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = torch.nn.functional.conv2d(
+            img[None, None], kernel.to(img)[None, None],
+            padding=(kh // 2, kw // 2))
+    return out[0, 0]
+
+
 def shifted(img: torch.Tensor, dy: int, dx: int, pad: int) -> torch.Tensor:
     """out[y, x] = img[y + dy, x + dx], zero outside the image."""
     h, w = img.shape

@@ -24,7 +24,12 @@ it inserts one, runs an eighth maintenance phase (triangulation against
 the covisible neighbors), and closes loops first in the cycle and with a
 free scale.
 
-Not ported yet: localization-only mode and batched dispatch.
+In localization mode (``localization_only``, the reference's
+ActivateLocalizationMode, Tracking.cc:222-235) the tracker follows a saved
+map (checkpoint.load_auto_state) without inserting keyframes, and a lost
+frame relocalizes whatever the map's size. ``batch_frames`` > 1 buffers
+RGB-D frames on the host and uploads them B at a time; the frames then run
+one after the other through the same per-frame step.
 """
 from __future__ import annotations
 
@@ -129,6 +134,13 @@ def empty_auto_state(cfg: TrackerConfig, traj_capacity: int,
         traj_stats=torch.zeros((T, 8), dtype=torch.int32, device=device))
 
 
+def _stack(frames):
+    """[B, H, W] of B frames: a tensor if any frame is one, else numpy."""
+    if any(isinstance(f, torch.Tensor) for f in frames):
+        return torch.stack([torch.as_tensor(f) for f in frames])
+    return np.stack([np.asarray(f) for f in frames])
+
+
 def _f32_lt_scaled(a: int, b: int, factor: float) -> bool:
     """a < b * factor in float32, as the JAX package compares them."""
     return bool(np.float32(a) < np.float32(b) * np.float32(factor))
@@ -137,13 +149,17 @@ def _f32_lt_scaled(a: int, b: int, factor: float) -> bool:
 class AutoStep:
     """The per-frame step: AutoState x (img, raw depth) -> AutoState,
     through ``stereo`` AutoState x (left, right) -> AutoState, or through
-    ``mono`` AutoState x img -> AutoState. ``build_auto_step`` makes one.
-    With a vocabulary ``voc`` the step keeps BoW rows, relocalizes and
-    closes loops."""
+    ``mono`` AutoState x img -> AutoState, or B RGB-D frames through
+    ``rgbd_batch``. ``build_auto_step`` makes one. With a vocabulary ``voc``
+    the step keeps BoW rows, relocalizes and closes loops. With
+    ``localization_only`` it never inserts a keyframe and never resets the
+    map (System::ActivateLocalizationMode, Tracking.cc:222-235)."""
 
     def __init__(self, extractor: OrbExtractor, cfg: TrackerConfig,
-                 traj_capacity: int, voc: V.Vocabulary | None = None):
+                 traj_capacity: int, voc: V.Vocabulary | None = None,
+                 localization_only: bool = False):
         self.extractor = extractor
+        self.localization_only = localization_only
         self.cfg = cfg
         self.cam = cfg.cam
         self.T = traj_capacity
@@ -175,6 +191,18 @@ class AutoStep:
             self.extractor, self.cam, img, depth_raw, self.depth_factor,
             cfg.width, cfg.height)
         return self.run_frame(s, feats, d)
+
+    def rgbd_batch(self, s: AutoState, imgs, depths) -> AutoState:
+        """B RGB-D frames, [B, H, W] stacks (numpy arrays or tensors): each
+        stack goes to the device in one pinned copy, then each frame runs
+        through the per-frame step in order, so the result equals B calls
+        of the step bit for bit."""
+        dev = s.last_t.device
+        imgs = upload_frame(imgs, dev)
+        depths = upload_frame(depths, dev, depth=True)
+        for img, depth in zip(imgs, depths):
+            s = self(s, img, depth)
+        return s
 
     def stereo(self, s: AutoState, img_l: torch.Tensor,
                img_r: torch.Tensor) -> AutoState:
@@ -438,7 +466,8 @@ class AutoStep:
         c2 = ((_f32_lt_scaled(local_in, ref_matches, th_ref) or need_close)
               and local_in > 15)
         live_kf = int(res.map.kf_valid.sum())
-        need_kf = (c1a or c1b or c1c) and c2 and live_kf < self.k_max
+        need_kf = ((c1a or c1b or c1c) and c2 and live_kf < self.k_max
+                   and not self.localization_only)
         m, loop = res.map, s.loop
         new_kf, lm_after, did_lm, did_kf, remap = -1, res.lm, 0, 0, None
         if need_kf:
@@ -591,7 +620,8 @@ class AutoStep:
 
     def run_frame(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         if s.lost >= 0:
-            if int(s.map.n_kf) <= 5:
+            # localization mode keeps the map it was given: relocalize
+            if not self.localization_only and int(s.map.n_kf) <= 5:
                 s = self.do_reset(s)
             elif self.voc is not None:
                 s = self.do_relocalize(s, feats, d)
@@ -608,9 +638,9 @@ class AutoStep:
 
 
 def build_auto_step(extractor: OrbExtractor, cfg: TrackerConfig,
-                    traj_capacity: int,
-                    voc: V.Vocabulary | None = None) -> AutoStep:
-    return AutoStep(extractor, cfg, traj_capacity, voc)
+                    traj_capacity: int, voc: V.Vocabulary | None = None,
+                    localization_only: bool = False) -> AutoStep:
+    return AutoStep(extractor, cfg, traj_capacity, voc, localization_only)
 
 
 @dataclass
@@ -618,6 +648,13 @@ class AutoTrackerConfig:
     traj_capacity: int = 4096  # trajectory ring size (frames)
     # BoW relocalization and loop closing against the packaged vocabulary
     loop_closing: bool = True
+    # track against the frozen map, never insert keyframes (reference:
+    # System::ActivateLocalizationMode, Tracking.cc:222-235); combine with
+    # checkpoint.load_auto_state for map-based localization
+    localization_only: bool = False
+    # RGB-D frames uploaded per batch: > 1 buffers frames on the host and
+    # uploads B at a time (B frames of latency); 1 = each frame at once
+    batch_frames: int = 1
 
 
 class AutoTracker:
@@ -633,7 +670,10 @@ class AutoTracker:
     pairs, ``tr.process_stereo(left, right)``; with ``sensor="mono"`` single
     images, ``tr.process_mono(img)``, and the map's scale is the monocular
     gauge (median scene depth 1 after the bootstrap). Input with lens
-    distortion is refused.
+    distortion is refused. ``AutoTrackerConfig(localization_only=True)``
+    after ``checkpoint.load_auto_state`` tracks against a saved map;
+    ``batch_frames`` > 1 buffers RGB-D frames until a batch is full
+    (``drain`` runs what is left, as ``sync`` and ``finalize`` do).
     """
 
     def __init__(self, cfg: TrackerConfig,
@@ -656,21 +696,40 @@ class AutoTracker:
             self.voc = V.load_default_vocabulary(self.device)
             auto_loop.warm_up_autodiff()
         self._step = build_auto_step(self.extractor, cfg,
-                                     auto_cfg.traj_capacity, self.voc)
+                                     auto_cfg.traj_capacity, self.voc,
+                                     auto_cfg.localization_only)
         self.state = empty_auto_state(cfg, auto_cfg.traj_capacity,
                                       self.device)
         self.frame_count = 0
         self.timestamps: list[float] = []
+        self._batch: list = []  # buffered (img, depth) while batch_frames > 1
 
     def process_rgbd(self, img, depth, timestamp: float | None = None):
         """Track one frame: uint8 image and raw (e.g. uint16) depth or
         float depth in metres (then ``cfg.depth_factor`` 1.0), as numpy
-        arrays or tensors."""
+        arrays or tensors. With ``batch_frames`` > 1 the frame waits on the
+        host until the batch is full."""
         self.timestamps.append(self.frame_count / self.cfg.fps
                                if timestamp is None else timestamp)
         self.frame_count += 1
-        self.state = self._step(self.state, upload_frame(img, self.device),
-                                upload_frame(depth, self.device, depth=True))
+        if self.auto_cfg.batch_frames <= 1:
+            self.state = self._step(
+                self.state, upload_frame(img, self.device),
+                upload_frame(depth, self.device, depth=True))
+            return
+        self._batch.append((img, depth))
+        if len(self._batch) >= self.auto_cfg.batch_frames:
+            imgs, depths = (_stack(f) for f in zip(*self._batch))
+            self._batch = []
+            self.state = self._step.rgbd_batch(self.state, imgs, depths)
+
+    def drain(self):
+        """Run the buffered frames of a partial batch, one by one."""
+        for img, depth in self._batch:
+            self.state = self._step(
+                self.state, upload_frame(img, self.device),
+                upload_frame(depth, self.device, depth=True))
+        self._batch = []
 
     def process_stereo(self, img_left, img_right,
                        timestamp: float | None = None):
@@ -693,15 +752,16 @@ class AutoTracker:
         self.frame_count += 1
 
     def sync(self):
-        """Wait for the device to drain (no data readback); a no-op on the
-        CPU. The JAX tracker's ``drain`` of buffered batches has no
-        counterpart: the port dispatches every frame at once."""
+        """Run any buffered frames, then wait for the device to drain (no
+        data readback; no wait on the CPU)."""
+        self.drain()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def finalize(self) -> dict:
         """The run's trajectory, flags and per-frame statistics, in frame
-        order."""
+        order (buffered frames run first)."""
+        self.drain()
         s = self.state
         T = self.auto_cfg.traj_capacity
         n = self.frame_count

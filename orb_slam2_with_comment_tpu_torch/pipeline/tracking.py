@@ -122,10 +122,15 @@ def upload_frame(a, device, depth: bool = False) -> torch.Tensor:
 _VOC_CACHE: dict = {}
 
 
-def default_vocabulary(device="cpu"):
+def default_vocabulary(device="cuda"):
     """The packaged vocabulary on ``device``, loaded once per process and
-    device (reference: System.cc:71 loads ORBvoc.txt)."""
-    key = str(torch.device(device))
+    device (reference: System.cc:71 loads ORBvoc.txt). The card unless the
+    caller names the CPU; without a card that raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("default_vocabulary: no CUDA device; pass "
+                           "device='cpu' to load it on the CPU")
+    key = str(device)
     if key not in _VOC_CACHE:
         from ..place.vocabulary import load_default_vocabulary
         _VOC_CACHE[key] = load_default_vocabulary(device)

@@ -30,6 +30,8 @@ from ..ops.hamming import BIG, hamming_pair
 
 DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "data", "vocab_default.npz")
+# the earlier 10k-word tree (24 training worlds), for examples/eval_vocab.py
+VOCAB_10K_PATH = os.path.join(os.path.dirname(DEFAULT_PATH), "vocab_10k.npz")
 _NO_WORD = torch.iinfo(torch.int32).max
 
 

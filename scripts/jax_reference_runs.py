@@ -5,6 +5,8 @@ set from.
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py mono [X_AMP]
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py loop K_MAX FIX_SCALE SEQ
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py drivers
+    JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py street FRAMES KMAX [ROOT]
+    JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py vocab
 
 ``mono`` runs the JAX AutoTracker at chip_smoke's monocular configuration
 (640x480, 2000 features, MapConfig(24, 2000, 8000, 8)) twice over the
@@ -21,6 +23,18 @@ functions, runs the JAX drivers' main (examples/*.py) on them as
 chip_smoke's phases 14b-f run the port's, and prints each run's outcome as
 chip_smoke.driver_outcome scores it: frames tracked, first tracked frame,
 keyframes, ATE and RPE (about 8 minutes).
+``street`` runs the JAX stereo_kitti driver with --auto --kmax KMAX on the
+street circuit of FRAMES frames (kitti_street_fixture, 1241x376, 2000
+features), as chip_smoke's phase 16c runs the port's, and prints what
+examples/eval_street.py scores: frames tracked, keyframes, compactions,
+loops closed, ATE, drift and path length. The fixture is ROOT's
+kitti_street_fixture when it exists, else the port's writer renders it
+in 7 processes (the same bytes as scripts/make_fixture_dataset.py's: 1000
+numpy views at about 12 s a view, 30 minutes); the run then takes about
+35 minutes at 500 frames. ``vocab`` runs scripts/eval_vocab.py's protocol
+(its own functions) and prints, per vocabulary, the table row, the 24
+same-place and 24 different-place scores in world order, the recall and
+the separation: phase 16d's gates (about 4 minutes).
 
 This is the one script of the port's tooling that imports the JAX
 package; it takes the pose lists and the scoring from chip_smoke.py.
@@ -205,6 +219,80 @@ def run_drivers():
         print(f"{phase}: {time.time() - t0:.1f} s, {got}", flush=True)
 
 
+def run_street(frames, kmax, root=None):
+    from orb_slam2_with_comment_tpu_torch.dataio import fixtures
+    from orb_slam2_with_comment_tpu_torch.examples import eval_street
+    root = root or tempfile.mkdtemp()
+    fix = os.path.join(root, "kitti_street_fixture")
+    t0 = time.time()
+    if not os.path.exists(os.path.join(fix, "poses_gt.txt")):
+        fixtures.make_kitti_street(fix, n_frames=frames, workers=7)
+        print(f"fixture written in {time.time() - t0:.1f} s to {fix}",
+              flush=True)
+    with open(os.path.join(fix, "times.txt")) as f:
+        assert len(f.read().split()) == frames, "another frame count"
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    mod = importlib.import_module("stereo_kitti")
+    wd = os.path.join(root, "run_street")
+    os.makedirs(wd, exist_ok=True)
+    t0 = time.time()
+    os.chdir(wd)
+    try:
+        rc = mod.main(["stereo_kitti", os.path.join(fix, "settings.yaml"),
+                       fix, "--auto", "--kmax", str(kmax)])
+    finally:
+        os.chdir(ROOT)
+    assert rc == 0
+    row, scores = eval_street.score(fix, wd, kmax)
+    with open(os.path.join(wd, "CameraTrajectory.txt")) as f:
+        tracked = sum(1 for ln in f if ln.strip())
+    print(f"street, {frames} frames, kmax {kmax}: {time.time() - t0:.1f} s, "
+          f"tracked {tracked}", flush=True)
+    print(row)
+    print(scores)
+
+
+def run_vocab():
+    import importlib.util as iu
+    spec = iu.spec_from_file_location(
+        "eval_vocab", os.path.join(ROOT, "scripts", "eval_vocab.py"))
+    ev = iu.module_from_spec(spec)
+    spec.loader.exec_module(ev)
+    data = os.path.join(ROOT, "orb_slam2_with_comment_tpu", "place", "data")
+    t0 = time.time()
+    for name in ("vocab_10k.npz", "vocab_default.npz"):
+        voc = ev.load_vocabulary(os.path.join(data, name), as_numpy=True)
+        ext = ev.OrbExtractor(n_features=600)
+        rng = np.random.default_rng(77)
+        same, diff = [], []
+        for seed in ev.HELD_OUT_SEEDS:  # eval_vocab.evaluate's loop
+            world = SyntheticWorld(seed=seed)
+            poses = chip_smoke.orbit_trajectory(n_frames=16)
+            R, t = poses[3]
+            img_a, _ = world.render(R, t)
+            img_b, _ = world.render(*poses[4])
+            va = ev.vec(voc, ext, img_a)
+            rows = [ev.vec(voc, ext, ev.jitter(img_a, rng)),
+                    ev.vec(voc, ext, ev.jitter(img_b, rng)),
+                    ev.vec(voc, ext, SyntheticWorld(seed=seed + 1000)
+                           .render(R, t)[0]),
+                    ev.vec(voc, ext, world.render(*poses[11])[0])]
+            sc = np.asarray(ev.score_l1_sparse(
+                va[0], va[1], jnp.stack([r[0] for r in rows]),
+                jnp.stack([r[1] for r in rows]), int(voc.n_words)))
+            same += sc[:2].tolist()
+            diff += sc[2:].tolist()
+        same, diff = np.asarray(same), np.asarray(diff)
+        recall = float(np.mean(same > diff.max()))
+        sep = float(np.median(same) / max(np.median(diff), 1e-9))
+        print(f"{name}: {time.time() - t0:.1f} s, recall {recall}, "
+              f"separation {sep!r}, median same {np.median(same):.3f}, "
+              f"diff {np.median(diff):.3f}", flush=True)
+        print(f'"{name}": {{"same": {[round(v, 8) for v in same.tolist()]}, '
+              f'"diff": {[round(v, 8) for v in diff.tolist()]}, '
+              f'"recall": {recall}, "separation": {sep!r}}},')
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mono"]:
         run_mono(float(sys.argv[2]) if len(sys.argv) > 2 else None)
@@ -212,5 +300,10 @@ if __name__ == "__main__":
         run_loop(int(sys.argv[2]), sys.argv[3] == "1", sys.argv[4])
     elif sys.argv[1:2] == ["drivers"]:
         run_drivers()
+    elif sys.argv[1:2] == ["street"] and len(sys.argv) in (4, 5):
+        run_street(int(sys.argv[2]), int(sys.argv[3]),
+                   sys.argv[4] if len(sys.argv) == 5 else None)
+    elif sys.argv[1:2] == ["vocab"]:
+        run_vocab()
     else:
         sys.exit(__doc__)

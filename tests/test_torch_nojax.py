@@ -33,7 +33,10 @@ slice7 = {"parallel", "parallel.dist_ba", "parallel.dist_pose_graph",
           "visualization.frame_drawer", "visualization.map_drawer",
           "visualization.ar", "visualization.viewer", "examples.mono_ar",
           "examples.train_vocab"}
-missing = (slice5 | slice6 | slice7) - {n.split(".", 1)[1] for n in names}
+slice8 = {"evaluation.trajectory", "examples.eval_street",
+          "examples.eval_vocab", "examples.run_fixture_eval"}
+missing = (slice5 | slice6 | slice7 | slice8) - {
+    n.split(".", 1)[1] for n in names}
 assert not missing, missing
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "jaxlib", "orb_slam2_with_comment_tpu."))
@@ -135,11 +138,12 @@ def test_port_opens_no_path_under_native():
 
 @pytest.mark.parametrize("rel, module, attr", [
     ("place/data/vocab_default.npz", "place.vocabulary", "DEFAULT_PATH"),
+    ("place/data/vocab_10k.npz", "place.vocabulary", "VOCAB_10K_PATH"),
     ("frontend/data/brief_pattern.npy", "ops.brief", "PATTERN_PATH"),
 ])
 def test_packaged_data_is_the_jax_packages(rel, module, attr):
-    """The port ships its own copies of the default vocabulary and of the
-    BRIEF pattern, byte for byte the JAX package's, and loads those."""
+    """The port ships its own copies of the vocabularies and of the BRIEF
+    pattern, byte for byte the JAX package's, and loads those."""
     import importlib
     mod = importlib.import_module(
         "orb_slam2_with_comment_tpu_torch." + module)
