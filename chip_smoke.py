@@ -11,10 +11,12 @@ Phases (any failure raises and the script exits nonzero without the final
    (dataio/synthetic.render_views: the numpy renderer's arithmetic in
    float32, a few pixels of a frame one grey level apart from it), before
    anything is timed.
-2. Build the Hamming kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
-   (``hamming.cu``, and the package's first kernel ``hamming_v1.cu`` as the
-   timing baseline; one nvcc each, started together) and print the build
-   time and ptxas' register report.
+2. Build the kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
+   (``hamming.cu``, the package's first kernel ``hamming_v1.cu`` as the
+   timing baseline, and ``pose_lm.cu``; one nvcc each, started together)
+   and print the build time and ptxas' register report. From here on every
+   feature extraction counts one frame (count_frames): the launches per
+   frame of each path.
 3. Hold both kernel entry points against their plain PyTorch versions on the
    card, bit-exact: random 30% masks with ties, an all-masked and an
    all-admissible row at [300,257], [1000,1000], [8000,1000], [1024,8000]
@@ -31,13 +33,22 @@ Phases (any failure raises and the script exits nonzero without the final
    with CUDA events (the host's launch cost included) and per launch
    inside a replayed CUDA graph (the device's time alone), beside the
    bound computed from each problem's bytes and admissible pairs.
+   Then K3, the pose LM kernel (csrc/pose_lm.cu), against
+   optimize_pose_plain on the card (hold_pose): random problems with 10%
+   gross outliers at [B,N] = [3,1000], [1,1000], [3,2000], [1,2000] and
+   [1,4096], and every case of tests/test_torch_pose_lm.py at [3,1000]
+   (dataio.synthetic.pose_problem): inlier masks and counts identical, R
+   and t within 1e-4, chi2 within 1e-3 relative, two launches bit for
+   bit; timed the same two ways beside its bound (float32 operations
+   counted from the kernel's code over 67 TFLOP/s, or its bytes) and the
+   plain version's time.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
    orbit before the stereo phases came; cut to keep the run's time);
    assert initialization, no loss, every frame of both passes valid, the
-   keyframe count, the pose error against ground truth, and that both
-   kernels were launched.
+   keyframe count, the pose error against ground truth, that both K1
+   entry points were launched and K3 at least twice per tracked frame.
 5. Run a 16-frame reduced-size slice on the card and on the CPU (plain
    versions) and compare keyframe decisions and poses.
 6. The default tracker, AutoTrackerConfig() (loop closing and
@@ -79,9 +90,10 @@ Phases (any failure raises and the script exits nonzero without the final
    with stage timers. Initialized, never lost, every frame valid,
    at least 3 keyframes, median translation error < 0.03 m, more than 200
    features with depth on frame 0, one ``masked_best_two`` launch by the
-   stereo association in every frame, and at least one launch per frame
+   stereo association in every frame, at least one launch per frame
    more than the default RGB-D tracker of phase 6 made over the same 60
-   poses. Prints ms per frame and the stage times of the front end: both
+   poses, and at least two K3 launches per tracked frame (phase 10 too).
+   Prints ms per frame and the stage times of the front end: both
    views' extraction, ``match_stereo`` and its ``_sad_refine`` part.
 10. Stereo at the KITTI 00-02 camera (bench.py's KITTI-shape figure):
    1241x376, 2000 features, fx = fy = 718.856, cx = 607.1928,
@@ -235,11 +247,15 @@ Phases (any failure raises and the script exits nonzero without the final
    e. examples.run_fixture_eval --skip-run over phase 14's run
       directories: its ATE and RPE equal phase 14's scores within 1e-6
       and its ATE cells read the same.
-   Every (calling function, shape) phases 13a, 13c and 14-16 gave the
-   kernels (the local-map window at [min(4096, l_max), n_feat] before and
-   after growth among them) is then held bit-exact against the plain
-   version and the baseline kernel and timed. The kernels line's launches
-   are phase 16c's; launches_by_phase lists every path's.
+   Every (calling function, shape) phases 4, 9-10, 13a, 13c and 14-16 gave
+   the kernels (the local-map window at [min(4096, l_max), n_feat] before
+   and after growth among them) is then held bit-exact against the plain
+   version and the baseline kernel and timed; every (calling function, B,
+   N) they gave K3 (the batched B = 3 solve of track_frame_core,
+   track_local_map, track_reference_keyframe, the relocalization) is held
+   to hold_pose's gates and timed. The kernels line's launches are phase
+   16c's; launches_by_phase and launches_per_frame_by_phase list every
+   path's. The last log line before it gives the whole run's time.
 
     python3 chip_smoke.py --kernels-only
 
@@ -273,7 +289,7 @@ from orb_slam2_with_comment_tpu_torch import Sensor, System, checkpoint
 from orb_slam2_with_comment_tpu_torch.dataio import (
     datasets, fixtures, native_loader, png, synthetic)
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
-    SyntheticWorld, orbit_trajectory)
+    POSE_CASES, SyntheticWorld, orbit_trajectory, pose_problem)
 from orb_slam2_with_comment_tpu_torch.evaluation import rpe
 from orb_slam2_with_comment_tpu_torch.evaluation.ate import (
     ate_rmse, camera_centers)
@@ -286,7 +302,7 @@ from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming
-from orb_slam2_with_comment_tpu_torch.optim import ba, pose_graph
+from orb_slam2_with_comment_tpu_torch.optim import ba, pose_graph, pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.parallel import (
     dist_ba, dist_pose_graph, launch)
@@ -556,6 +572,102 @@ def check_kernels(dev):
     ]
 
 
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# csrc/pose_lm.cu's float32 operations, counted from its code: per edge and
+# LM iteration (the linearization with H and b, 253; the trial pose's
+# chi2, 42), per edge and round and once more at the end (a projection's
+# chi2), and per iteration whatever N is (the 28 + 1 sums over 256 threads,
+# the damping, the 6x6 LU solve and the retract)
+POSE_OPS_EDGE_ITER = 295
+POSE_OPS_EDGE_ROUND = 37
+POSE_OPS_ITER = 29 * 256 + 500
+POSE_CAM = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)  # bench.py's
+
+
+def bound_pose_lm(args, rounds: int = 4, iters: int = 10):
+    """(bound_ms, bound_by) of one pose LM solve: each input read once
+    (the broadcast observations once for all poses), each output written
+    once, against the operations the schedule does on these inputs."""
+    _, R0, t0, Xw, obs, s2, valid = args
+    B, N = valid.shape
+    n_ops = B * (rounds * iters * (POSE_OPS_EDGE_ITER * N + POSE_OPS_ITER)
+                 + (rounds + 1) * POSE_OPS_EDGE_ROUND * N)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (R0, t0, Xw, obs, s2, valid))
+    n_bytes += B * (36 + 12 + N + 4 + 4)  # R, t, inliers, n_inliers, chi2
+    by_bytes = 1000.0 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1000.0 * n_ops / F32_OPS_PER_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def hold_pose(where: str, args, plain_reps: int = 3):
+    """The pose LM kernel on ``args`` (cam, R0, t0, Xw, obs_uvr,
+    inv_sigma2, valid) against optimize_pose_plain on the card: inlier
+    masks and counts identical, R and t within 1e-4, chi2 within 1e-3
+    relative (float32 sums in another order), two launches bit-identical;
+    then timed per wrapper call (CUDA events) and per launch inside a
+    replayed CUDA graph, beside its bound and the plain version's time.
+    Returns (row, largest |R| or |t| difference)."""
+    cam, *tensors = args
+    tensors = [t.contiguous() for t in tensors]
+    want = pose_opt.optimize_pose_plain(cam, *tensors)
+    got = pose_opt.optimize_pose(cam, *tensors)
+    again = pose_opt.optimize_pose(cam, *tensors)
+    for part, a, b in zip(want._fields, got, again):
+        assert torch.equal(a, b), f"pose_lm: two launches differ in {part} " \
+            f"at {where}"
+    assert torch.equal(got.inliers, want.inliers), \
+        f"pose_lm inliers differ at {where}"
+    assert torch.equal(got.n_inliers, want.n_inliers), where
+    err = max(float((got.R - want.R).abs().max()),
+              float((got.t - want.t).abs().max())) if got.R.numel() else 0.0
+    assert err <= 1e-4, f"pose_lm pose differs at {where}: {err}"
+    assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6), \
+        f"pose_lm chi2 differs at {where}: {got.chi2} {want.chi2}"
+    B, N = tensors[-1].shape
+    row = {"problem": where, "B": B, "N": N,
+           "n_valid": int(tensors[-1].sum()),
+           "n_inliers": got.n_inliers.tolist(), "max_abs_err": err}
+    row["ms"] = cuda_ms(lambda: pose_opt.optimize_pose(cam, *tensors), 20)
+    row["device_ms"] = graph_ms(lambda: pose_opt.optimize_pose(cam,
+                                                              *tensors))
+    row["plain_ms"] = cuda_ms(lambda: pose_opt.optimize_pose_plain(
+        cam, *tensors), plain_reps)
+    row["bound_ms"], row["bound_by"] = bound_pose_lm((cam, *tensors))
+    log(f"pose_lm {where} [{B},{N}] ({row['n_valid']} valid, inliers "
+        f"{row['n_inliers']}): same as plain (max |dR|,|dt| {err:.2e}), "
+        f"bit-identical twice; kernel {row['ms']:.4f} ms per call, "
+        f"{row['device_ms']:.4f} ms on the device; plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
+        f"{row['bound_by']}")
+    return row, err
+
+
+def check_pose_kernel(dev) -> dict:
+    """Phase 3, K3: the pose LM kernel held against its plain version and
+    timed (hold_pose) on random problems at the main path's shapes and on
+    every case of tests/test_torch_pose_lm.py. Returns the kernel's row."""
+    problems = [(f"random {b}x{n}", pose_problem("outliers", 300 + i, b, n))
+                for i, (b, n) in enumerate(((3, 1000), (1, 1000), (3, 2000),
+                                            (1, 2000), (1, 4096)))]
+    problems += [(f"case {c}", pose_problem(c, 400 + i))
+                 for i, c in enumerate(POSE_CASES)]
+    timed, err = [], 0.0
+    for where, p in problems:
+        args = (POSE_CAM, *(torch.as_tensor(p[k]).to(dev) for k in (
+            "R0", "t0", "Xw", "obs_uvr", "inv_sigma2", "valid")))
+        row, e = hold_pose(where, args)
+        timed.append(row)
+        err = max(err, e)
+    return dict(timed[0], name="pose_lm", route="cuda",
+                source="orb_slam2_with_comment_tpu_torch/csrc/pose_lm.cu",
+                replaces="orb_slam2_with_comment_tpu/optim/pose_opt.py:82 "
+                         "(an XLA program, :82-176; not a Pallas kernel)",
+                max_abs_err=err, library_ms=None,
+                other_problems=timed[1:])
+
+
 def fmt_times(row: dict) -> str:
     return (f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms "
             f"on the device; baseline kernel {row['prev_ms']:.4f} and "
@@ -563,9 +675,46 @@ def fmt_times(row: dict) -> str:
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
 
 
+FRAMES = {"frames": 0}  # feature extractions, one per frame (count_frames)
+
+
+def launch_counts() -> dict:
+    """Each kernel entry point's launches since reset_launches(), and
+    "frames": the frames whose features were extracted meanwhile."""
+    return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **FRAMES}
+
+
+def set_launches(counts: dict):
+    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, FRAMES):
+        for k in c:
+            c[k] = counts[k]
+
+
 def reset_launches():
-    for k in hamming.LAUNCHES:
-        hamming.LAUNCHES[k] = 0
+    set_launches(dict.fromkeys(launch_counts(), 0))
+
+
+def count_frames():
+    """Every frame of every path goes through OrbExtractor._extract (RGB-D,
+    mono) or OrbExtractor.stereo (a rectified pair) once: each call adds
+    one to FRAMES for the rest of the run."""
+    def counted(fn):
+        def run(*a, **kw):
+            FRAMES["frames"] += 1
+            return fn(*a, **kw)
+        return run
+    OrbExtractor._extract = counted(OrbExtractor._extract)
+    OrbExtractor.stereo = counted(OrbExtractor.stereo)
+
+
+def k1_launches(counts: dict) -> int:
+    """K1's launches in ``counts``, both entry points."""
+    return sum(counts[k] for k in hamming.LAUNCHES)
+
+
+def per_frame(counts: dict, key: str) -> float | None:
+    return (round(counts[key] / counts["frames"], 3) if counts.get("frames")
+            else None)
 
 
 def bench_cfg(map_cfg=BENCH_MAP):
@@ -731,19 +880,22 @@ def timed_pass(process, frames):
 
 
 def run_slice(dev):
-    """Phase 4: the full-width RGB-D slice, counted launches, timed passes."""
+    """Phase 4: the full-width RGB-D slice, counted launches, timed passes.
+    Returns (the launches, the newest problem of each calling function and
+    shape the kernels were given)."""
     n, n_again = 60, 30
     poses = orbit_trajectory(n_frames=n)
     frames = frames_of("orbit60")
     tracker = AutoTracker(bench_cfg(), AutoTrackerConfig(
         traj_capacity=8 * n, loop_closing=False), device=dev)
     reset_launches()
-    for k, count in enumerate((n, n_again)):
-        ms, wall = timed_pass(lambda f: tracker.process_rgbd(*f),
-                              frames[:count])
-        log(f"slice pass {k + 1} ({count} frames): {ms:.3f} ms/frame (CUDA "
-            f"events), {wall:.3f} ms/frame (host clock)")
-    launches = dict(hamming.LAUNCHES)
+    with captured_problems() as problems:
+        for k, count in enumerate((n, n_again)):
+            ms, wall = timed_pass(lambda f: tracker.process_rgbd(*f),
+                                  frames[:count])
+            log(f"slice pass {k + 1} ({count} frames): {ms:.3f} ms/frame "
+                f"(CUDA events), {wall:.3f} ms/frame (host clock)")
+    launches = launch_counts()
     out = tracker.finalize()
     log(f"slice: initialized={out['initialized']} lost_at={out['lost_at']} "
         f"valid={int(out['valid'].sum())}/{n + n_again} keyframes="
@@ -760,7 +912,14 @@ def run_slice(dev):
         assert t_med < 0.02 and r_med < 1.0, "pose error gate"
     for name, count in launches.items():
         assert count > 0, f"kernel {name} never launched on the main path"
-    return launches
+    # every frame but the first (the initialization) tracks: the batched
+    # B = 3 solve (or the reference-keyframe solve) and the local-map solve
+    tracked = int(out["valid"].sum()) - 1
+    log(f"slice: pose_lm {launches['pose_lm']} launches over {tracked} "
+        f"tracked frames, {per_frame(launches, 'pose_lm')} per frame")
+    assert launches["pose_lm"] >= 2 * tracked, \
+        "fewer than two pose LM launches per tracked frame"
+    return launches, problems
 
 
 def compare_devices(dev):
@@ -812,24 +971,24 @@ def run_default(dev):
         s = tracker.state
         may_loop = (s.initialized and s.lost < 0 and s.maint_kf >= 0
                     and s.maint_phase == n_phases - 1)
-        before, gen_state = dict(hamming.LAUNCHES), s.loop.gen.get_state()
+        before, gen_state = launch_counts(), s.loop.gen.get_state()
         with stage_ms(*(RELOC_STAGES if i == r else ())) as cold:
             ms = synced_ms(lambda: tracker.process_rgbd(img, depth))
         if may_loop and tracker.state.maint_kf < 0:  # ph_loop ran
             loop_ms.append(ms)
         if i < n:
             build_ms.append(ms)
-            build_launches = dict(hamming.LAUNCHES)
+            build_launches = launch_counts()
         if i == r:
             reloc_ms, reloc_cold = ms, cold
-            reloc_launches = {k: hamming.LAUNCHES[k] - before[k]
-                              for k in before}
+            reloc_launches = {k: v - before[k]
+                              for k, v in launch_counts().items()}
             # the same frame again from the same state: the warm cost
             reloc_warm = warm_rerun(lambda: tracker._step(
                 s, torch.as_tensor(img, device=dev),
                 torch.as_tensor(depth.astype(np.int32), device=dev)),
                 s.loop.gen, gen_state, RELOC_STAGES)
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     out = tracker.finalize()
     t_err = float(np.linalg.norm(out["t"][r] - poses[2][1]))
     log(f"default tracker: valid={int(out['valid'].sum())}/{len(seq)} "
@@ -902,12 +1061,12 @@ LOOP_STAGES = ((auto_loop, "add_keyframe_bow"), (auto_loop, "detect"),
 def warm_rerun(fn, gen: torch.Generator, gen_state, stages) -> dict:
     """fn() once more with the generator rewound to ``gen_state``, timed
     by stage; the generator and the launch counts are left as they were."""
-    after, counts = gen.get_state(), dict(hamming.LAUNCHES)
+    after, counts = gen.get_state(), launch_counts()
     gen.set_state(gen_state)
     with stage_ms(*stages) as out:
         fn()
     gen.set_state(after)
-    hamming.LAUNCHES.update(counts)
+    set_launches(counts)
     return out
 
 
@@ -998,7 +1157,7 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
                 height=cfg.height)
 
         gen_state = loop.gen.get_state()
-        before_close = dict(hamming.LAUNCHES)
+        before_close = launch_counts()
         auto_loop._essential_edges = counted_edges
         try:
             with stage_ms(*LOOP_STAGES) as cold:
@@ -1011,7 +1170,7 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
             if err_before is None:
                 err_before, fire_ms, stages = err_now, ms, {"first": cold}
                 fire_launches = {k: v - before_close[k]
-                                 for k, v in hamming.LAUNCHES.items()}
+                                 for k, v in launch_counts().items()}
                 scale_before = scale_now
                 # the same step again from the same input and draws
                 stages["again"] = warm_rerun(close, loop.gen, gen_state,
@@ -1021,7 +1180,7 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
                 again = box["r"][0]
                 rerun_diff = (float((again.kf_t - m.kf_t).abs().max()),
                               float((again.lm_pw - m.lm_pw).abs().max()))
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     assert events, "no loop closed over a perfect revisit"
     k0 = events[0]
     err_after = float(np.linalg.norm(m.kf_t[k0].cpu().numpy() - poses[k0][1]))
@@ -1048,8 +1207,10 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
         assert abs(scale_before - 1.0) > 0.08, "no scale error was injected"
         assert all(abs(v - 1.0) < 0.05 for v in after.values()), \
             "the corrected keyframes' scale is not back within 5% of 1"
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the loop path"
+    # keyframe_step and close_loop_step with given poses: no pose LM here
+    for name in hamming.LAUNCHES:
+        assert launches[name] > 0, \
+            f"kernel {name} never launched on the loop path"
     return launches, fire_ms
 
 
@@ -1069,7 +1230,7 @@ def run_compaction(dev):
         reset_launches()
         for img, depth in frames:
             tracker.process_rgbd(img, depth)
-        launches = dict(hamming.LAUNCHES)
+        launches = launch_counts()
         out = tracker.finalize()
         t_med, r_med = pose_errors(out, poses)
         log(f"compaction ({name}): n_compact_lm={out['n_compact_lm']} "
@@ -1096,7 +1257,8 @@ def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
     """Phases 9 and 10: the default tracker on rectified pairs, built, its
     first ``n_again`` frames re-tracked, then the ``n_staged`` frames after
     them with stage timers. Returns (first pass launches, finalize()'s
-    result, the tracker)."""
+    result, the tracker, (median t error, frame 0's features with depth),
+    the first pass's problems for the kernels)."""
     n = len(pairs)
     # frame 0's features with depth, outside the counted run
     feats, sd = OrbExtractor(n_features=cfg.n_features).stereo(
@@ -1117,8 +1279,9 @@ def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
 
     stereo.match_stereo = counted_match
     try:
-        build = timed_pass(lambda p: tracker.process_stereo(*p), pairs)
-        first_launches = dict(hamming.LAUNCHES)
+        with captured_problems() as problems:
+            build = timed_pass(lambda p: tracker.process_stereo(*p), pairs)
+        first_launches = launch_counts()
         again = timed_pass(lambda p: tracker.process_stereo(*p),
                            pairs[:n_again])
     finally:
@@ -1146,7 +1309,9 @@ def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
     assert out["valid"].all(), "not every frame valid"
     assert match_launches == [1] * (n + n_again), \
         "the stereo association is not one masked_best_two launch per frame"
-    return first_launches, out, tracker, (t_med, n_depth0)
+    assert first_launches["pose_lm"] >= 2 * (n - 1), \
+        "fewer than two pose LM launches per tracked frame"
+    return first_launches, out, tracker, (t_med, n_depth0), problems
 
 
 def stereo_bench_setup():
@@ -1173,7 +1338,7 @@ def stereo_kitti_setup():
 def run_stereo_bench(dev, rgbd_build_launches):
     """Phase 9: stereo at the bench configuration."""
     cfg, pairs, poses = stereo_bench_setup()
-    launches, out, _, (t_med, n_depth0) = run_stereo(
+    launches, out, _, (t_med, n_depth0), problems = run_stereo(
         dev, "stereo (bench)", cfg, pairs, poses, n_again=20)
     assert out["n_keyframes"] >= 3, out["n_keyframes"]
     assert t_med < 0.03, "pose error gate (tests/test_auto.py:183-185)"
@@ -1185,19 +1350,19 @@ def run_stereo_bench(dev, rgbd_build_launches):
         f"default RGB-D tracker over the same {len(pairs)} poses")
     assert more >= len(pairs), \
         "fewer than one masked_best_two launch per frame more than RGB-D"
-    return launches
+    return launches, problems
 
 
 def run_stereo_kitti(dev):
     """Phase 10: stereo at the KITTI 00-02 camera."""
     cfg, pairs, poses = stereo_kitti_setup()
-    launches, out, tracker, _ = run_stereo(
+    launches, out, tracker, _, problems = run_stereo(
         dev, "stereo (KITTI camera)", cfg, pairs, poses, n_again=10)
     lines = tracker.trajectory_kitti()
     log(f"stereo (KITTI camera): trajectory_kitti() gives {len(lines)} "
         f"lines of {len(lines[0].split())} numbers")
     assert len(lines) == int(out["valid"].sum()) == out["n_frames"]
-    return launches
+    return launches, problems
 
 
 MONO_MAP = MapConfig(k_max=24, n_feat=2000, l_max=8000, d_max=8)
@@ -1243,14 +1408,22 @@ def counted_launches(*targets):
             setattr(mod, name, fn)
 
 
+# the pose LM's callers that only pass a solve on: a captured problem is
+# named after the function that called them
+POSE_RELAYS = ("_pose_optimize_from_matches", "pose_optimize_one")
+
+
 @contextlib.contextmanager
 def captured_problems():
-    """Within the block, every launch of either kernel wrapper leaves a
-    copy of its inputs in the yielded dict, the newest of each (kernel,
-    calling function, shape): the problems this path really gives the
-    kernels, to be held against the plain versions after the run."""
+    """Within the block, every launch of a kernel wrapper leaves a copy of
+    its inputs in the yielded dict, the newest of each (kernel, calling
+    function, shape): the problems this path really gives the kernels, to
+    be held against the plain versions after the run. The pose LM's shape
+    is (B, N), its calling function the first outside POSE_RELAYS, and its
+    inputs (cam, R0, t0, Xw, obs_uvr, inv_sigma2, valid)."""
     out = {}
     saved = hamming.masked_best_two, hamming.distance_matrix
+    saved_pose = pose_opt.optimize_pose
 
     def keep(kernel, fn):
         def run(*tensors):
@@ -1261,12 +1434,24 @@ def captured_problems():
             return fn(*tensors)
         return run
 
+    def keep_pose(cam, *tensors, **kw):
+        if tensors[0].is_cuda and tensors[0].shape[0] and not kw:
+            frame = sys._getframe(1)
+            while frame.f_code.co_name in POSE_RELAYS:
+                frame = frame.f_back
+            out["pose_lm", frame.f_code.co_name,
+                tuple(tensors[-1].shape)] = (cam, *(t.clone()
+                                                    for t in tensors))
+        return saved_pose(cam, *tensors, **kw)
+
     hamming.masked_best_two = keep("masked_best_two", saved[0])
     hamming.distance_matrix = keep("distance_matrix", saved[1])
+    pose_opt.optimize_pose = keep_pose
     try:
         yield out
     finally:
         hamming.masked_best_two, hamming.distance_matrix = saved
+        pose_opt.optimize_pose = saved_pose
 
 
 def sim_ate(out, poses, offset=0):
@@ -1320,13 +1505,13 @@ def run_mono(dev):
                             frame=i, ms=build_ms[-1], stages=dict(staged),
                             n_lm=int(m.n_lm),
                             depth0=float(steps.scene_median_depth(m, 0)))
-                first_launches = dict(hamming.LAUNCHES)
+                first_launches = launch_counts()
             again = timed_pass(tracker.process_mono, frames)
     finally:
         initializer.initialize_from_samples = first_init
     # the phase is both passes: the build pass inserts so often that its
     # maintenance cycles seldom reach the duplicate merge (distance_matrix)
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     out = tracker.finalize()
     assert out["initialized"] and "frame" in boot, "never bootstrapped"
     b = boot["frame"]
@@ -1455,6 +1640,11 @@ def hold_problems(todo, rows):
     base = BaselineKernels()
     popc_rate = popc_per_s()
     for where, kernel, tensors in todo:
+        if kernel == "pose_lm":
+            row, err = hold_pose(where, tensors)
+            rows[2]["other_problems"].append(row)
+            rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err)
+            continue
         tensors = tuple(t.contiguous() for t in tensors)
         if kernel == "distance_matrix":
             d1, d2 = tensors
@@ -1527,10 +1717,6 @@ def counted_syncs():
                                     for w in caught)
 
 
-def kf_launches():
-    return sum(hamming.LAUNCHES.values())
-
-
 def run_system_rgbd(dev):
     """Phase 13a: System(cfg, Sensor.RGBD) at the bench configuration with
     the default pipelining: the 60-frame orbit, 3 black frames, frames 2-4
@@ -1550,7 +1736,8 @@ def run_system_rgbd(dev):
     rows = []  # (ms, syncs, K1 launches, inserted, state before, pose)
     with captured_problems() as problems:
         for i, (img, depth) in enumerate(seq):
-            n_kf, state, k1 = tr.n_kf_host, tr.state, kf_launches()
+            n_kf, state = tr.n_kf_host, tr.state
+            k1 = k1_launches(hamming.LAUNCHES)
             box = {}
 
             def call():
@@ -1559,10 +1746,11 @@ def run_system_rgbd(dev):
                 box["syncs"] = c
 
             ms = synced_ms(call)
-            rows.append((ms, box["syncs"]["n"], kf_launches() - k1,
+            rows.append((ms, box["syncs"]["n"],
+                         k1_launches(hamming.LAUNCHES) - k1,
                          tr.n_kf_host > n_kf, state, box["pose"],
                          tr.last_reloc_frame, box["syncs"]["readback"]))
-        launches = dict(hamming.LAUNCHES)
+        launches = launch_counts()
         n_kf_loc = tr.n_kf_host
         slam.activate_localization_mode()
         for i, (img, depth) in enumerate(frames[5:8]):
@@ -1722,7 +1910,7 @@ def run_host_loop(dev):
             events.append(k)
             if before is None:
                 before, fire = now, (k, ms, dict(staged))
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     assert events, "no loop closed over the revisit"
     gt = np.stack([-(R.T @ t) for R, t in poses])
     kf_R, kf_t = m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy()
@@ -1768,8 +1956,9 @@ def run_host_loop(dev):
     assert closer.gba_generation == gen + 2
     assert closer._gba["left"] == closer.gba_total_iters
     assert torch.isfinite(out.kf_t).all()
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the host loop"
+    for name in hamming.LAUNCHES:  # given poses: no pose LM here
+        assert launches[name] > 0, \
+            f"kernel {name} never launched on the host loop"
     return launches
 
 
@@ -1790,7 +1979,7 @@ def run_lifecycle(dev):
                for k, (img, depth) in enumerate(frames_of("orbit60"))]
         tracker.flush()
         wall = time.perf_counter() - t0
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     K, L = tracker.map.kf_R.shape[0], tracker.map.lm_pw.shape[0]
     ids, Rs, ts = tracker.trajectory_arrays()
     rmse = ate_rmse(camera_centers(Rs, ts), camera_centers(
@@ -2069,7 +2258,7 @@ def run_drivers(dev, seqs: dict, root: str) -> dict:
                     os.chdir(cwd)
             wall = time.perf_counter() - t0
             assert rc == 0, f"{phase}: main() returned {rc}"
-            launches = dict(hamming.LAUNCHES)
+            launches = launch_counts()
             assert len(made) == 1, made
             tracker = made[0] if auto else made[0].tracker
             got = driver_outcome(tracker, auto, run_dir, seq, traj, kitti,
@@ -2088,7 +2277,7 @@ def run_drivers(dev, seqs: dict, root: str) -> dict:
                 f"(host clock): {'loop and sync' if auto else 'tracking call'}"
                 f" {loop_ms:.2f}, main() {1000 * wall / n:.2f}; reader "
                 f"{summary['decode_ms']:.3f} ms per frame; K1 launches per "
-                f"frame {sum(launches.values()) / n:.2f} ({launches}); JAX "
+                f"frame {k1_launches(launches) / n:.2f} ({launches}); JAX "
                 f"drivers on the CPU: {ref}")
             assert got["share"] >= ref["share"] - 0.1, "share tracked"
             assert got["ate"] <= 2 * ref["ate"], "ATE gate"
@@ -2096,7 +2285,7 @@ def run_drivers(dev, seqs: dict, root: str) -> dict:
                 assert got["first"] <= ref["boot"] + 2, "bootstrap frame"
             assert launches["masked_best_two"] > 0, f"{phase}: K1 not launched"
             by_phase[phase], outcomes[phase] = launches, got
-    for key in hamming.LAUNCHES:
+    for key in (*hamming.LAUNCHES, *pose_opt.LAUNCHES):
         assert sum(c[key] for c in by_phase.values()) > 0, \
             f"kernel {key} never launched by the drivers"
     return by_phase, problems, outcomes
@@ -2137,10 +2326,10 @@ def run_multi_seq(dev):
     reset_launches()
     with captured_problems() as problems:
         step_ms = [synced_ms(lambda: mt.process_rgbd(*b)) for b in batches]
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     outs = mt.finalize()
     step_ms = np.array(step_ms)
-    k1 = sum(launches.values())
+    k1 = k1_launches(launches)
     log(f"multi seq: {n} B-frame steps of 2 sequences: ms per step "
         f"{step_ms.mean():.2f} (median {np.median(step_ms):.2f}, after the "
         f"first {step_ms[1:].mean():.2f}), ms per sequence-frame "
@@ -2384,18 +2573,18 @@ def run_localization(dev, mapper, root):
     reset_launches()
     with captured_problems() as problems:
         ms, wall = timed_pass(lambda f: loc.process_rgbd(*f), frames)
-        launches = dict(hamming.LAUNCHES)
+        launches = launch_counts()
         for img, depth in [black] * 3 + frames[2:5]:
             loc.process_rgbd(img, depth)
     out = loc.finalize()
     t_med, r_med = pose_errors(out, poses, offset=start)
     seg = slice(start, start + n)
     r = start + n + 3  # the first revisit frame
-    per_frame = sum(launches.values()) / n
+    k1_per_frame = k1_launches(launches) / n
     log(f"localization: {n} frames against the saved map of {n_kf} keyframe "
         f"slots, {ms:.3f} ms per frame (CUDA events), {wall:.3f} (host "
         f"clock); valid {int(out['valid'][seg].sum())}/{n}, median t err "
-        f"{t_med:.5f} m, rot err {r_med:.4f} deg; K1 {per_frame:.2f} "
+        f"{t_med:.5f} m, rot err {r_med:.4f} deg; K1 {k1_per_frame:.2f} "
         f"launches per frame ({launches}); after 3 black frames: stats "
         f"{out['stats'][r].tolist()}, t err "
         f"{np.linalg.norm(out['t'][r] - poses[2][1]):.5f} m; keyframe slots "
@@ -2508,7 +2697,7 @@ def run_street(dev, root, workers):
                                "--device", str(dev)])
     wall = time.perf_counter() - t0
     assert rc == 0 and len(made) == 1
-    launches = dict(hamming.LAUNCHES)
+    launches = launch_counts()
     wd = os.path.join(root, "run_street")
     _, sc = eval_street.score(fix, wd, STREET_KMAX)
     out = made[0].finalize()
@@ -2523,7 +2712,7 @@ def run_street(dev, root, workers):
         f"closed {out['n_loops_closed']}; {1000 / summ['fps']:.2f} ms per "
         f"frame (the driver's loop and sync, host clock), main() "
         f"{1000 * wall / n:.2f}; reader {summ['decode_ms']:.3f} ms per "
-        f"frame; K1 {sum(launches.values()) / n:.2f} launches per frame "
+        f"frame; K1 {k1_launches(launches) / n:.2f} launches per frame "
         f"({launches})")
     log(f"street: firing loop steps {fired} ms; {len(quiet)} other "
         f"close_loop_step calls, median "
@@ -2666,13 +2855,16 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    cuda_lib.build_all(["hamming", "hamming_v1"])
+    t_run = t0 = time.perf_counter()
+    libs = ["hamming", "hamming_v1", "pose_lm"]
+    cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
-    log(f"built csrc/hamming.cu and csrc/hamming_v1.cu in "
+    pose_opt._kernel_lib()
+    log(f"built csrc/{', csrc/'.join(libs)} (.cu) in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in ("hamming", "hamming_v1"):
+    for name in libs:
         log(cuda_lib.build_logs.get(name, "").strip())
+    count_frames()
     workers = max(1, min(7, (os.cpu_count() or 2) - 1))
     if not kernels_only:
         t0 = time.perf_counter()
@@ -2680,17 +2872,19 @@ def main():
         log(f"rendered {sum(len(f) for f in _FRAMES.values())} frames of "
             f"{len(_FRAMES)} sequences on the card in "
             f"{time.perf_counter() - t0:.2f} s")
-    rows = check_kernels(dev)
+    rows = check_kernels(dev) + [check_pose_kernel(dev)]
     if kernels_only:
         log(json.dumps({"kernels": rows}))
         return
-    by_phase = {"4 rgbd slice": run_slice(dev)}
+    by_phase = {}
+    by_phase["4 rgbd slice"], slice_problems = run_slice(dev)
     compare_devices(dev)
     by_phase["6 default rgbd"], rgbd_build, rgbd_tracker = run_default(dev)
     by_phase["7 controlled loop"], _ = run_controlled_loop(dev)
     run_compaction(dev)
-    by_phase["9 stereo bench"] = run_stereo_bench(dev, rgbd_build)
-    by_phase["10 stereo kitti"] = run_stereo_kitti(dev)
+    by_phase["9 stereo bench"], stereo_problems = run_stereo_bench(
+        dev, rgbd_build)
+    by_phase["10 stereo kitti"], kitti_problems = run_stereo_kitti(dev)
     by_phase["11 mono bench"], mono_tracker, mono_problems = run_mono(dev)
     check_mono_problems(dev, mono_tracker, mono_problems, rows)
     compare_initializer(dev)
@@ -2735,7 +2929,10 @@ def main():
             run_vocab_eval(dev, renders)
         check_results_table(root, outcomes)
         log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
-    hold_problems(captured_todo("system rgbd", system_problems)
+    hold_problems(captured_todo("rgbd slice", slice_problems)
+                  + captured_todo("stereo bench", stereo_problems)
+                  + captured_todo("stereo kitti", kitti_problems)
+                  + captured_todo("system rgbd", system_problems)
                   + captured_todo("lifecycle", life_problems)
                   + captured_todo("drivers", driver_problems)
                   + captured_todo("multi seq", multi_problems)
@@ -2750,6 +2947,11 @@ def main():
         key = row["name"].removeprefix("hamming_")
         row["launches"] = by_phase["16c street"][key]
         row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
+        row["launches_per_frame_by_phase"] = {
+            p: per_frame(c, key) for p, c in by_phase.items()}
+    log("pose_lm launches per frame by phase: "
+        f"{rows[2]['launches_per_frame_by_phase']}")
+    log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

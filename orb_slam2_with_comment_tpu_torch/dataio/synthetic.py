@@ -459,3 +459,92 @@ def street_trajectory(world: StreetWorld, n_frames, laps=1.05):
         t = (-R @ C).astype(np.float32)
         poses.append((R.astype(np.float32), t))
     return poses
+
+
+# ---------------------------------------------------------------------------
+# pose-only LM problems (the inputs of optim/pose_opt.optimize_pose)
+# ---------------------------------------------------------------------------
+
+POSE_CASES = ("mixed", "mono", "stereo", "outliers", "no_valid_row",
+              "three_valid_row", "z_near_zero", "far_init", "batched_obs")
+
+
+def _rotation(w) -> np.ndarray:
+    """Rodrigues in float64: axis-angle [3] -> [3, 3]."""
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def pose_problem(case: str, seed: int, B: int = 3, N: int = 1000,
+                 cam=(500.0, 500.0, 320.0, 240.0, 40.0)) -> dict:
+    """A pose-only LM problem of the kind tracking gives the solver, as
+    numpy arrays: R0 [B,3,3], t0 [B,3], Xw [B,N,3], obs_uvr [N,3] (or
+    [B,N,3] for ``batched_obs``), inv_sigma2 [N] (or [B,N]), valid [B,N].
+
+    Landmarks 2-6 m in front of a true pose, observed with 0.7 px noise at
+    octaves 0-3 (every fourth row mono, u_r = -1), about 90% valid per row,
+    each row starting a few cm and 1-2 degrees away. ``case`` (POSE_CASES)
+    changes one thing: ``mono`` / ``stereo`` rows only; ``outliers`` 10%
+    gross outliers (up to 40 px); ``no_valid_row`` row 1 without a valid
+    edge; ``three_valid_row`` row 2 with 3 valid edges; ``z_near_zero`` one
+    landmark, not valid, at depth ~1e-10 under each row's initial pose; ``far_init``
+    rows 0.1 rad and 0.2 m away; ``batched_obs`` the observations and their
+    weights per row, each row its own noise."""
+    if case not in POSE_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    fx, fy, cx, cy, bf = cam
+    rng = np.random.RandomState(seed)
+    X = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N),
+                  rng.uniform(2, 6, N)], 1)
+    R = _rotation([0.01, -0.02, 0.005])
+    t = np.array([0.05, 0.01, -0.03])
+    Xc = X @ R.T + t
+    clean = np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx,
+                      fy * Xc[:, 1] / Xc[:, 2] + cy,
+                      fx * Xc[:, 0] / Xc[:, 2] + cx - bf / Xc[:, 2]], 1)
+    rows = B if case == "batched_obs" else 1
+    uvr = clean[None] + rng.normal(0, 0.7, (rows, N, 3))
+    mono = np.zeros(N, bool)
+    if case == "mono":
+        mono[:] = True
+    elif case != "stereo":
+        mono[::4] = True
+    uvr[:, mono, 2] = -1.0
+    if case == "outliers":
+        bad = rng.rand(N) < 0.1
+        uvr[:, bad, :2] += rng.uniform(-40, 40, (rows, bad.sum(), 2))
+    octave = rng.randint(0, 4, (rows, N))
+    inv_s2 = 1.0 / 1.44 ** octave
+    valid = rng.rand(B, N) < 0.9
+    if case == "no_valid_row" and B > 1:
+        valid[1] = False
+    if case == "three_valid_row" and B > 2:
+        valid[2] = False
+        valid[2, rng.choice(N, 3, replace=False)] = True
+    scale = (0.1, 0.2) if case == "far_init" else (0.03, 0.06)
+    R0, t0 = [], []
+    for _ in range(B):
+        w = rng.normal(0, 1, 3)
+        d = rng.normal(0, 1, 3)
+        R0.append(_rotation(scale[0] * w / np.linalg.norm(w)) @ R)
+        t0.append(t + scale[1] * d / np.linalg.norm(d))
+    Xw = np.repeat(X[None], B, 0)
+    if case == "z_near_zero":
+        # landmark 0 at depth ~1e-10 under row b's initial pose (float32
+        # rounding leaves about 1e-8), an edge that is not valid: a valid
+        # one would outweigh the others in H by some 1e19, beyond what a
+        # float32 solve resolves, and any order of the sums would then
+        # decide the pose
+        for b in range(B):
+            Xw[b, 0] = R0[b].T @ (np.array([0.3, -0.2, 1e-10]) - t0[b])
+        valid[:, 0] = False
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    obs = uvr if rows > 1 else uvr[0]
+    s2 = inv_s2 if rows > 1 else inv_s2[0]
+    return dict(R0=f32(np.stack(R0)), t0=f32(np.stack(t0)), Xw=f32(Xw),
+                obs_uvr=f32(obs), inv_sigma2=f32(s2), valid=valid)

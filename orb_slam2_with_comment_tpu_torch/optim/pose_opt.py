@@ -5,14 +5,22 @@ iterations, Huber kernel in the first two rounds, chi2 inlier
 reclassification between rounds, then one orthonormalization. The batch
 axis carries the three independent solves of a tracking frame
 (pipeline/steps.py track_frame_core) through one schedule.
+
+``optimize_pose_plain`` is the plain PyTorch version. ``optimize_pose`` takes
+it only for tensors on the CPU; for CUDA tensors it launches the
+hand-written kernel of ``csrc/pose_lm.cu`` once, the whole schedule in one
+launch, or raises. ``LAUNCHES`` counts those launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..geometry import se3
+from ..ops import cuda_lib
 from .residuals import (CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO,
                         CamParams, huber_weight, reproj_residual)
 
@@ -54,8 +62,9 @@ def _components(cam, R, t, Xw, obs_uvr, srow):
     return e, -(Jproj @ torch.cat([eye, -se3.hat(Xc)], -1))
 
 
-def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
-                  rounds: int = 4, iters_per_round: int = 10) -> PoseOptResult:
+def optimize_pose_plain(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2,
+                        valid, rounds: int = 4,
+                        iters_per_round: int = 10) -> PoseOptResult:
     """R0 [B,3,3], t0 [B,3]; Xw [B,N,3]; obs_uvr [N,3] or [B,N,3];
     inv_sigma2 [N] or [B,N]; valid [B,N] bool."""
     is_stereo = obs_uvr[..., 2] >= 0
@@ -99,3 +108,90 @@ def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
     total = torch.where(inlier, chi2_i, 0.0).sum(-1)
     return PoseOptResult(se3.orthonormalize(R), t, inlier,
                          inlier.sum(-1, dtype=torch.int32), total)
+
+
+LAUNCHES = {"pose_lm": 0}
+MAX_EDGES = 7680  # csrc/pose_lm.cu kMaxEdges (29 bytes of shared memory each)
+# the thresholds as the plain version's float32 tensors hold them
+_THRESHOLDS = tuple(float(np.float32(v)) for v in (
+    CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO))
+
+_lib: ctypes.CDLL | None = None
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    lib.pose_lm_solve.argtypes = [p, p, p, p, ll, p, ll, p, f, f, f, f, f,
+                                  f, f, f, f, i, i, i, i, p, p, p, p, p, p]
+    lib.pose_lm_solve.restype = i
+    return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = _bind(cuda_lib.load("pose_lm"))
+    return _lib
+
+
+def _check_args(R0, t0, Xw, obs_uvr, inv_sigma2, valid) -> tuple[int, int]:
+    """(B, N) of a call; raises on what the kernel does not take."""
+    for name, x in (("R0", R0), ("t0", t0), ("Xw", Xw),
+                    ("obs_uvr", obs_uvr), ("inv_sigma2", inv_sigma2)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if valid.dtype != torch.bool or valid.dim() != 2:
+        raise ValueError(f"valid must be bool [B, N], got {valid.dtype} "
+                         f"{tuple(valid.shape)}")
+    B, N = valid.shape
+    if (tuple(R0.shape) != (B, 3, 3) or tuple(t0.shape) != (B, 3)
+            or tuple(Xw.shape) != (B, N, 3)
+            or tuple(obs_uvr.shape) not in ((N, 3), (B, N, 3))
+            or tuple(inv_sigma2.shape) not in ((N,), (B, N))):
+        got = [tuple(x.shape) for x in (R0, t0, Xw, obs_uvr, inv_sigma2)]
+        raise ValueError(
+            "expected R0 [B,3,3], t0 [B,3], Xw [B,N,3], obs_uvr [N,3] or "
+            "[B,N,3], inv_sigma2 [N] or [B,N] for valid [B,N] = "
+            f"{[B, N]}; got {got}")
+    return B, N
+
+
+def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
+                  rounds: int = 4, iters_per_round: int = 10) -> PoseOptResult:
+    """R0 [B,3,3], t0 [B,3]; Xw [B,N,3]; obs_uvr [N,3] or [B,N,3];
+    inv_sigma2 [N] or [B,N]; valid [B,N] bool; all float32 but valid. On
+    CUDA tensors one launch of csrc/pose_lm.cu, reading nothing back."""
+    tensors = (R0, t0, Xw, obs_uvr, inv_sigma2, valid)
+    B, N = _check_args(*tensors)
+    if all(x.device.type == "cpu" for x in tensors):
+        return optimize_pose_plain(cam, R0, t0, Xw, obs_uvr, inv_sigma2,
+                                   valid, rounds, iters_per_round)
+    dev = R0.device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError("the pose LM kernel takes tensors on one CUDA "
+                         f"device (got {[str(x.device) for x in tensors]})")
+    if N > MAX_EDGES:
+        raise ValueError(f"the pose LM kernel takes at most {MAX_EDGES} "
+                         f"edges, got {N}")
+    R0, t0, Xw, obs_uvr, inv_sigma2, valid = (x.contiguous()
+                                              for x in tensors)
+    R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    inliers = torch.empty((B, N), dtype=torch.bool, device=dev)
+    n_inliers = torch.empty((B,), dtype=torch.int32, device=dev)
+    chi2 = torch.empty((B,), dtype=torch.float32, device=dev)
+    # the broadcast forms of obs_uvr and inv_sigma2: a batch stride of 0
+    err = _kernel_lib().pose_lm_solve(
+        R0.data_ptr(), t0.data_ptr(), Xw.data_ptr(), obs_uvr.data_ptr(),
+        3 * N if obs_uvr.dim() == 3 else 0, inv_sigma2.data_ptr(),
+        N if inv_sigma2.dim() == 2 else 0, valid.data_ptr(),
+        *(float(v) for v in cam), *_THRESHOLDS, rounds, iters_per_round, B,
+        N, R.data_ptr(), t.data_ptr(), inliers.data_ptr(),
+        n_inliers.data_ptr(), chi2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pose_lm_solve launch failed: cudaError_t {err}")
+    if B:
+        LAUNCHES["pose_lm"] += 1
+    return PoseOptResult(R, t, inliers, n_inliers, chi2)

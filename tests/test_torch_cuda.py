@@ -1,5 +1,7 @@
 """The Hamming kernels' wrappers on a card: launch counting and argument
-checks, and the stereo association's one launch; the host tracker's
+checks, and the stereo association's one launch; the pose LM kernel
+against its plain version, and two of its launches bit for bit; the host
+tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
 
@@ -19,10 +21,12 @@ import torch
 
 from orb_slam2_with_comment_tpu_torch import Sensor, System
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
-    SyntheticWorld, orbit_trajectory)
+    POSE_CASES, SyntheticWorld, orbit_trajectory, pose_problem)
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
 from orb_slam2_with_comment_tpu_torch.ops import hamming
+from orb_slam2_with_comment_tpu_torch.optim import pose_opt
+from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.pipeline import TrackerConfig, TrackState
 from orb_slam2_with_comment_tpu_torch.pipeline.loop_closing import Readback
 
@@ -56,6 +60,48 @@ def test_wrappers_count_and_check(dev):
         hamming.masked_best_two(d, d.cpu(), mask)
     with pytest.raises(ValueError):
         hamming.masked_best_two(d, d, mask.int())
+
+
+def _pose_args(case, seed, dev, B=3, N=1000):
+    p = pose_problem(case, seed, B, N)
+    return [torch.as_tensor(p[k]).to(dev) for k in (
+        "R0", "t0", "Xw", "obs_uvr", "inv_sigma2", "valid")]
+
+
+@pytest.mark.parametrize("case", POSE_CASES)
+def test_pose_lm_kernel_matches_plain(dev, case):
+    """One launch per call; against the plain version on the same card:
+    inlier masks and counts exact, R and t within 1e-4, chi2 within 1e-3
+    relative (float32 sums in another order)."""
+    cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+    args = _pose_args(case, 200 + POSE_CASES.index(case), dev)
+    before = pose_opt.LAUNCHES["pose_lm"]
+    got = pose_opt.optimize_pose(cam, *args)
+    assert pose_opt.LAUNCHES["pose_lm"] == before + 1
+    want = pose_opt.optimize_pose_plain(cam, *args)
+    assert torch.equal(got.inliers, want.inliers)
+    assert torch.equal(got.n_inliers, want.n_inliers)
+    dR = (got.R - want.R).abs().amax((1, 2)).tolist()
+    dt = (got.t - want.t).abs().amax(1).tolist()
+    assert max(dR + dt) <= 1e-4, f"|dR| {dR}, |dt| {dt} per pose"
+    assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6)
+
+
+def test_pose_lm_launches_are_bit_identical(dev):
+    """Two launches on the same inputs give the same bits (fixed-order
+    reductions, no atomics), at the largest N the main path gives it; the
+    wrapper refuses what the kernel does not take."""
+    cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+    args = _pose_args("outliers", 9, dev, B=1, N=4096)
+    a = pose_opt.optimize_pose(cam, *args)
+    b = pose_opt.optimize_pose(cam, *args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(cam, *args[:2], args[2].cpu(), *args[3:])
+    with pytest.raises(ValueError):
+        pose_opt.optimize_pose(cam, *_pose_args(
+            "mixed", 9, dev, B=1, N=pose_opt.MAX_EDGES + 1))
 
 
 def test_stereo_association_is_one_launch(dev):
