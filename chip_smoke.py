@@ -13,10 +13,11 @@ Phases (any failure raises and the script exits nonzero without the final
    anything is timed.
 2. Build the kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
    (``hamming.cu``, the package's first kernel ``hamming_v1.cu`` as the
-   timing baseline, and ``pose_lm.cu``; one nvcc each, started together)
-   and print the build time and ptxas' register report. From here on every
-   feature extraction counts one frame (count_frames): the launches per
-   frame of each path.
+   timing baseline, ``pose_lm.cu`` and ``orb.cu``; one nvcc each, started
+   together) and print the build time and ptxas' register report. From
+   here on every feature extraction counts one frame and every view
+   extracted on the card one view (count_frames): the launches per frame
+   of each path.
 3. Hold both kernel entry points against their plain PyTorch versions on the
    card, bit-exact: random 30% masks with ties, an all-masked and an
    all-admissible row at [300,257], [1000,1000], [8000,1000], [1024,8000]
@@ -42,6 +43,23 @@ Phases (any failure raises and the script exits nonzero without the final
    bit; timed the same two ways beside its bound (float32 operations
    counted from the kernel's code over 67 TFLOP/s, or its bytes) and the
    plain version's time.
+   Then K2, ORB extraction (csrc/orb.cu), kernel by kernel against its
+   plain version on the same inputs (hold_orb), and the chain against the
+   plain chain: two orbit frames at 640x480 with 1000 and 2000 features, a
+   KITTI-camera frame at 1241x376 with 2000, an odd size (641x479: ragged
+   cells on every level), a flat image (no corner, every slot invalid), a
+   checkerboard (many equal scores), 50 features and 5 (levels of budget
+   0). The score and blurred buffers, the candidates, yx, response, valid,
+   octave and xy identical on every slot; angles identical on level 0 and
+   within 1e-4 on coarser levels wherever the IC moments keep 1/1000 of
+   their terms' magnitude (where they cancel, on flat patches and at
+   symmetric checkerboard junctions, the angle is rounding in either
+   version: reported, not held); descriptors identical wherever the angles
+   are, and on the rendered frames at most 1% of the valid rows differing,
+   by at most 8 bits; two launches identical. Each kernel is timed at the
+   main path's three shapes the same two ways beside its bound (bound_orb)
+   and its plain version's time, and the chain per view beside the plain
+   chain and the pyramid before it.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -255,7 +273,9 @@ Phases (any failure raises and the script exits nonzero without the final
    track_local_map, track_reference_keyframe, the relocalization) is held
    to hold_pose's gates and timed. The kernels line's launches are phase
    16c's; launches_by_phase and launches_per_frame_by_phase list every
-   path's. The last log line before it gives the whole run's time.
+   path's. Every path must have launched each K2 kernel once per view it
+   extracted on the card (check_k2_per_view: 3 per view, 6 per stereo
+   frame). The last log line before it gives the whole run's time.
 
     python3 chip_smoke.py --kernels-only
 
@@ -301,7 +321,8 @@ from orb_slam2_with_comment_tpu_torch.frontend import stereo
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
-from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming
+from orb_slam2_with_comment_tpu_torch.ops import (
+    cuda_lib, hamming, orb, orientation)
 from orb_slam2_with_comment_tpu_torch.optim import ba, pose_graph, pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.parallel import (
@@ -584,6 +605,15 @@ POSE_OPS_ITER = 29 * 256 + 500
 POSE_CAM = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)  # bench.py's
 
 
+def bound_of(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 rate."""
+    by_bytes = 1000.0 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1000.0 * n_ops / F32_OPS_PER_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def bound_pose_lm(args, rounds: int = 4, iters: int = 10):
     """(bound_ms, bound_by) of one pose LM solve: each input read once
     (the broadcast observations once for all poses), each output written
@@ -595,10 +625,7 @@ def bound_pose_lm(args, rounds: int = 4, iters: int = 10):
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (R0, t0, Xw, obs, s2, valid))
     n_bytes += B * (36 + 12 + N + 4 + 4)  # R, t, inliers, n_inliers, chi2
-    by_bytes = 1000.0 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1000.0 * n_ops / F32_OPS_PER_S
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
+    return bound_of(n_bytes, n_ops)
 
 
 def hold_pose(where: str, args, plain_reps: int = 3):
@@ -668,6 +695,210 @@ def check_pose_kernel(dev) -> dict:
                 other_problems=timed[1:])
 
 
+# csrc/orb.cu's float32 operations, counted from its code (multiplies,
+# adds, subtractions, negations, minima, maxima, comparisons, roundings;
+# the integer keys of the top-8 and of the sort count nothing): orb_cells
+# per masked-in pixel (the FAST score: 16 differences, 16 negations, 2 x 79
+# minima and maxima of the 9-arcs, 2 more) and per level pixel (8 NMS
+# maxima and its comparison, the cell maximum, the threshold's comparison;
+# the two blur passes, 7 multiplies and 7 adds each, and the rounding);
+# orb_select per key (the rank times 1e7, the subtraction, the + 0) and per
+# slot (valid's comparison); orb_describe per IC circle term (two
+# multiplies, two adds), per BRIEF pattern point (two multiplies, an add or
+# subtraction and a rounding for each of its row and column), and per slot
+# (atan2f, sinf and cosf at about 20 each, the parabola 22, the position 4,
+# the 256 comparisons)
+ORB_OPS_SCORED = 192
+ORB_OPS_PIXEL = 11 + 29
+ORB_OPS_KEY = 3
+ORB_OPS_SLOT_SELECT = 1
+ORB_OPS_TERM = 4
+ORB_OPS_POINT = 8
+ORB_OPS_SLOT_DESCRIBE = 60 + 22 + 4 + 256
+ORB_CIRCLE = int(sum(2 * orientation.UMAX[abs(v)] + 1
+                     for v in range(-orientation.HALF_PATCH,
+                                    orientation.HALF_PATCH + 1)))
+
+
+def bound_orb(kernel: str, levels, margin: int = 16):
+    """(bound_ms, bound_by) of one launch of an ORB kernel on ``levels``:
+    each input read once and each output written once (orb_describe's
+    reads are the patches its slots need, at most each buffer once),
+    against the float32 operations of csrc/orb.cu at 67 TFLOP/s."""
+    px = sum(lv.h * lv.w for lv in levels)
+    lo = max(3, margin)
+    scored = sum(max(lv.h - 2 * lo, 0) * max(lv.w - 2 * lo, 0)
+                 for lv in levels)
+    cells, slots = orb.n_cells(levels), orb.n_slots(levels)
+    if kernel == "orb_cells":
+        return bound_of(3 * 4 * px + 64 * cells,
+                        ORB_OPS_SCORED * scored + ORB_OPS_PIXEL * px)
+    if kernel == "orb_select":
+        return bound_of(64 * cells + 13 * slots,
+                        ORB_OPS_KEY * 8 * cells + ORB_OPS_SLOT_SELECT * slots)
+    return bound_of(min(4 * ORB_CIRCLE * slots, 4 * px)
+                    + min(4 * 512 * slots, 4 * px) + min(20 * slots, 4 * px)
+                    + (8 + 48) * slots,
+                    slots * (ORB_OPS_TERM * ORB_CIRCLE + ORB_OPS_POINT * 512
+                             + ORB_OPS_SLOT_DESCRIBE))
+
+
+def orb_cases(dev):
+    """Phase 3's K2 problems: (name, level images on the card, extractor,
+    whether it is a rendered frame)."""
+    f0, f1 = (f[0] for f in first_frames("orbit60", 2))
+    kitti = first_frames("kitti30_left", 1)[0]
+    R, t = orbit_trajectory(n_frames=60)[7]
+    odd, _ = SyntheticWorld(seed=1).render(R, t, fx=500.0, fy=500.0,
+                                           cx=320.5, cy=239.5, width=641,
+                                           height=479)
+    odd = np.clip(odd, 0, 255).astype(np.uint8)
+    yy, xx = np.mgrid[:480, :640]
+    checker = (((yy // 16) + (xx // 16)) % 2 * 180 + 40).astype(np.uint8)
+    flat = np.full((480, 640), 128, np.uint8)
+    cases = [("orbit frame 0, 640x480, 1000", f0, 1000, True),
+             ("orbit frame 1, 640x480, 2000", f1, 2000, True),
+             ("KITTI camera, 1241x376, 2000", kitti, 2000, True),
+             ("odd size, 641x479, 1000", odd, 1000, True),
+             ("flat, 640x480, 1000", flat, 1000, False),
+             ("checkerboard, 640x480, 1000", checker, 1000, False),
+             ("orbit frame 0, 640x480, 50", f0, 50, True),
+             ("orbit frame 0, 640x480, 5 (levels of budget 0)", f0, 5, True)]
+    out = []
+    for name, img, n, rendered in cases:
+        ext = OrbExtractor(n_features=n)
+        out.append((name, ext._pyramid(torch.as_tensor(img, device=dev)),
+                    ext, rendered))
+    return out
+
+
+def hold_orb(name, pyr, ext, rendered):
+    """K2a, K2b and K2c each against its plain version on the same inputs,
+    then the chain against the plain chain, then two launches. Returns
+    (max |angle| difference on coarser levels where the moments do not
+    cancel, differing valid descriptor rows)."""
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales))
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    want = orb.cells_plain(flat, levels)
+    got = orb.cells(flat, levels)
+    for part, a, b in zip(("score", "blurred"), got[:2], want[:2]):
+        for lv in levels:
+            assert torch.equal(orb._view(a, lv), orb._view(b, lv)), \
+                f"orb_cells {part} differs at {name}, level {lv.lvl}"
+    assert torch.equal(got[2], want[2]), f"orb_cells values at {name}"
+    assert torch.equal(got[3], want[3]), f"orb_cells indices at {name}"
+    score, blurred, cand_v, cand_i = want
+    want_s = orb.select_plain(cand_v, cand_i, levels)
+    for part, a, b in zip(("yx", "response", "valid"),
+                          orb.select(cand_v, cand_i, levels), want_s):
+        assert torch.equal(a, b), f"orb_select {part} differs at {name}"
+    yx = want_s[0]
+    want_d = orb.describe_plain(flat, score, blurred, yx, levels)
+    got_d = orb.describe(flat, score, blurred, yx, levels)
+    for part, a, b in zip(("xy", "octave"), got_d[:2], want_d[:2]):
+        assert torch.equal(a, b), f"orb_describe {part} differs at {name}"
+    valid = want_s[2]
+    lvl0 = want_d[1] == 0
+    dang = (got_d[2] - want_d[2]).abs()
+    assert torch.equal(got_d[2][lvl0], want_d[2][lvl0]), \
+        f"orb_describe level-0 angles differ at {name}"
+    kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
+    err_ang = float(dang[kept].max()) if kept.any() else 0.0
+    assert err_ang <= 1e-4, f"orb_describe angles differ at {name}: {err_ang}"
+    same_ang = dang == 0
+    rows = (got_d[3] != want_d[3]).any(1)
+    assert not rows[same_ang].any(), \
+        f"orb_describe descriptors differ at an equal angle at {name}"
+    bits = hamming.popcount32(got_d[3] ^ want_d[3]).sum(1)
+    n_rows = int((rows & valid).sum())
+    if rendered:
+        assert n_rows <= 0.01 * int(valid.sum()), \
+            f"{n_rows} valid descriptor rows differ at {name}"
+        worst = int(bits[valid].max()) if valid.any() else 0
+        assert worst <= 8, \
+            f"a valid descriptor row differs by {worst} bits at {name}"
+    chain = orb.extract_levels(pyr, ext.budgets, ext.scales)
+    again = orb.extract_levels(pyr, ext.budgets, ext.scales)
+    plain = orb.extract_levels_plain(flat, levels)
+    for part, a, b, c in zip(("xy", "response", "octave", "angle", "desc",
+                              "valid"), chain, again, plain):
+        assert torch.equal(a, b), f"two ORB launches differ in {part} at " \
+            f"{name}"
+        if part in ("xy", "response", "octave", "valid"):
+            assert torch.equal(a, c), f"the ORB chain's {part} differs at " \
+                f"{name}"
+    log(f"K2 {name}: levels {[lv.budget for lv in levels]}, "
+        f"{int(valid.sum())}/{len(valid)} valid; scores, blur, candidates, "
+        f"yx, response, valid, octave, xy identical, level-0 angles "
+        f"identical, coarser angles within {err_ang:.3g} where the moments "
+        f"keep >= 1e-3 of their terms ({int((~kept).sum())} slots cancel "
+        f"more: up to {float(dang[~kept].max()) if (~kept).any() else 0:.3g}"
+        f" rad); descriptor rows differing {int(rows.sum())} ({n_rows} "
+        f"valid, at most {int(bits.max()) if len(bits) else 0} bits); two "
+        f"launches identical")
+    return err_ang, n_rows
+
+
+def check_orb_kernels(dev) -> list:
+    """Phase 3, K2: each ORB kernel held against its plain version on
+    every case of orb_cases (hold_orb), then timed at the main path's three
+    shapes per wrapper call (CUDA events) and per launch in a replayed CUDA
+    graph, beside its bound and the plain version's time. Returns the
+    three kernels' rows."""
+    cases = orb_cases(dev)
+    err, n_rows = 0.0, 0
+    for case in cases:
+        e, r = hold_orb(*case)
+        err, n_rows = max(err, e), n_rows + r
+    torch.cuda.synchronize()
+    timed = {k: [] for k in orb.LAUNCHES}
+    for name, pyr, ext, _ in cases[:3]:
+        levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                                 tuple(ext.budgets), tuple(ext.scales))
+        flat = torch.cat([p.reshape(-1) for p in pyr])
+        score, blurred, cand_v, cand_i = orb.cells_plain(flat, levels)
+        yx = orb.select_plain(cand_v, cand_i, levels)[0]
+        runs = {
+            "orb_cells": (lambda: orb.cells(flat, levels),
+                          lambda: orb.cells_plain(flat, levels)),
+            "orb_select": (lambda: orb.select(cand_v, cand_i, levels),
+                           lambda: orb.select_plain(cand_v, cand_i, levels)),
+            "orb_describe": (
+                lambda: orb.describe(flat, score, blurred, yx, levels),
+                lambda: orb.describe_plain(flat, score, blurred, yx,
+                                           levels))}
+        for kernel, (fn, plain) in runs.items():
+            row = {"problem": name, "ms": cuda_ms(fn, 50),
+                   "device_ms": graph_ms(fn), "plain_ms": cuda_ms(plain, 3)}
+            row["bound_ms"], row["bound_by"] = bound_orb(kernel, levels)
+            timed[kernel].append(row)
+            log(f"{kernel} {name}: kernel {row['ms']:.4f} ms per call, "
+                f"{row['device_ms']:.4f} ms on the device; plain "
+                f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
+                f"{row['bound_by']}")
+        chain = cuda_ms(lambda: orb.extract_levels(pyr, ext.budgets,
+                                                   ext.scales), 50)
+        chain_dev = graph_ms(lambda: orb.extract_levels(pyr, ext.budgets,
+                                                        ext.scales))
+        eager = cuda_ms(lambda: orb.extract_levels_plain(flat, levels), 3)
+        pyramid = cuda_ms(lambda: ext._pyramid(pyr[0]), 20)
+        log(f"K2 chain {name}: {chain:.4f} ms per view ({chain_dev:.4f} on "
+            f"the device), the plain chain {eager:.4f}; the pyramid before "
+            f"it {pyramid:.4f}")
+    src = "orb_slam2_with_comment_tpu_torch/csrc/orb.cu"
+    xla = ("orb_slam2_with_comment_tpu/frontend/extractor.py:118 (XLA ops, "
+           ":118-203, on ops/{fast,image,orientation,brief}.py; not a "
+           "Pallas kernel)")
+    # no single PyTorch call computes any of the three: library_ms is null
+    return [dict(rows[0], name=k, route="cuda", source=src, replaces=xla,
+                 max_abs_err=err if k == "orb_describe" else 0.0,
+                 differing_valid_descriptor_rows=(
+                     n_rows if k == "orb_describe" else 0),
+                 library_ms=None, other_problems=rows[1:])
+            for k, rows in timed.items()]
+
+
 def fmt_times(row: dict) -> str:
     return (f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms "
             f"on the device; baseline kernel {row['prev_ms']:.4f} and "
@@ -675,17 +906,21 @@ def fmt_times(row: dict) -> str:
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
 
 
-FRAMES = {"frames": 0}  # feature extractions, one per frame (count_frames)
+# feature extractions, one per frame, and the views on the card they
+# extracted, one per frame or two per stereo frame (count_frames)
+FRAMES = {"frames": 0, "views": 0}
 
 
 def launch_counts() -> dict:
-    """Each kernel entry point's launches since reset_launches(), and
-    "frames": the frames whose features were extracted meanwhile."""
-    return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **FRAMES}
+    """Each kernel entry point's launches since reset_launches(), "frames":
+    the frames whose features were extracted meanwhile, and "views": the
+    views extracted on the card."""
+    return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **orb.LAUNCHES,
+            **FRAMES}
 
 
 def set_launches(counts: dict):
-    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, FRAMES):
+    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, orb.LAUNCHES, FRAMES):
         for k in c:
             c[k] = counts[k]
 
@@ -697,14 +932,35 @@ def reset_launches():
 def count_frames():
     """Every frame of every path goes through OrbExtractor._extract (RGB-D,
     mono) or OrbExtractor.stereo (a rectified pair) once: each call adds
-    one to FRAMES for the rest of the run."""
+    one to FRAMES["frames"] for the rest of the run. Every view goes
+    through OrbExtractor._extract_from_pyramid once: one on the card adds
+    one to FRAMES["views"]."""
     def counted(fn):
         def run(*a, **kw):
             FRAMES["frames"] += 1
             return fn(*a, **kw)
         return run
+
+    extract_view = OrbExtractor._extract_from_pyramid
+
+    def counted_view(self, pyr):
+        FRAMES["views"] += pyr[0].is_cuda
+        return extract_view(self, pyr)
     OrbExtractor._extract = counted(OrbExtractor._extract)
     OrbExtractor.stereo = counted(OrbExtractor.stereo)
+    OrbExtractor._extract_from_pyramid = counted_view
+
+
+def check_k2_per_view(by_phase: dict):
+    """Every path extracted each view on the card with one launch of each
+    K2 kernel: 3 per view, 6 per stereo frame."""
+    for phase, c in by_phase.items():
+        assert c["views"] > 0, f"{phase}: no view extracted on the card"
+        for k in orb.LAUNCHES:
+            assert c[k] == c["views"], \
+                f"{phase}: {c[k]} {k} launches for {c['views']} views"
+    log("K2 launches per frame by phase (3 kernels each): "
+        f"{ {p: per_frame(c, 'orb_cells') for p, c in by_phase.items()} }")
 
 
 def k1_launches(counts: dict) -> int:
@@ -2856,10 +3112,11 @@ def main():
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
-    libs = ["hamming", "hamming_v1", "pose_lm"]
+    libs = ["hamming", "hamming_v1", "pose_lm", "orb"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
+    orb._kernel_lib()
     log(f"built csrc/{', csrc/'.join(libs)} (.cu) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
@@ -2872,7 +3129,8 @@ def main():
         log(f"rendered {sum(len(f) for f in _FRAMES.values())} frames of "
             f"{len(_FRAMES)} sequences on the card in "
             f"{time.perf_counter() - t0:.2f} s")
-    rows = check_kernels(dev) + [check_pose_kernel(dev)]
+    rows = (check_kernels(dev) + [check_pose_kernel(dev)]
+            + check_orb_kernels(dev))
     if kernels_only:
         log(json.dumps({"kernels": rows}))
         return
@@ -2938,6 +3196,7 @@ def main():
                   + captured_todo("multi seq", multi_problems)
                   + captured_todo("localization", loc_problems)
                   + captured_todo("street", street_problems), rows)
+    check_k2_per_view(by_phase)
     for row in rows:
         # the newest slice's main path is phase 16c's street circuit;
         # every other path's count is listed beside it. Each phase has

@@ -5,7 +5,9 @@ frontend/extractor.py).
 spatial round-robin selection, IC angle, 7x7 sigma=2 blur rounded to
 integers, exact-angle rotated BRIEF, and a subpixel parabola on the score
 map. Each level contributes a fixed budget of keypoint slots; unused slots
-are marked invalid.
+are marked invalid. The pyramid is plain PyTorch (two matrix products a
+level); everything after it runs in ops/orb.py, three kernel launches a
+view on the card.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import brief, fast, image, orientation
+from ..ops import brief, fast, image, orb, orientation
 
 
 class FrameFeatures(NamedTuple):
@@ -84,18 +86,20 @@ class OrbExtractor:
         return self._extract_from_pyramid(self._pyramid(img))
 
     def _extract_from_pyramid(self, pyr) -> FrameFeatures:
-        parts = [self._level_features(lvl_img, lvl, budget)
-                 for lvl, (lvl_img, budget) in enumerate(zip(pyr, self.budgets))
-                 if budget > 0]
-        return FrameFeatures(*(torch.cat(p) for p in zip(*parts)))
+        """Every level with a budget above 0 in one call of the ORB
+        kernels (ops/orb.py: three launches on the card), concatenated in
+        level order: what _level_features gives level by level."""
+        if (self.cell, self.per_cell) != (orb.CELL, orb.PER_CELL):
+            raise ValueError(f"ORB extraction takes {orb.CELL} px cells of "
+                             f"{orb.PER_CELL} candidates")
+        return FrameFeatures(*orb.extract_levels(
+            pyr, self.budgets, self.scales, self.margin, self.th_high,
+            self.th_low))
 
     def _level_features(self, lvl_img: torch.Tensor, lvl: int, budget: int):
-        h, w = lvl_img.shape
-        m = self.margin
-        score = fast.fast_score_map(lvl_img)
-        inner = torch.zeros_like(score)
-        inner[m:h - m, m:w - m] = score[m:h - m, m:w - m]
-        score = inner
+        """One level's features with the per-level functions: the
+        reference ops/orb.py's plain chain is held to."""
+        score = orb.masked_score(lvl_img, self.margin)
         yx, resp, valid = fast.select_keypoints(
             score, budget, self.cell, self.per_cell, self.th_high,
             self.th_low)

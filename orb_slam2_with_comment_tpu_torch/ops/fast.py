@@ -55,10 +55,14 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score > neigh.amax(0), score, 0.0)
 
 
-def select_keypoints(score: torch.Tensor, n_max: int, cell: int = 32,
-                     per_cell: int = 4, th_high: float = 20.0,
-                     th_low: float = 7.0):
-    """Returns (yx [n_max, 2] int32, resp [n_max], valid [n_max] bool)."""
+def cell_candidates(score: torch.Tensor, cell: int = 32, per_cell: int = 4,
+                    th_high: float = 20.0, th_low: float = 7.0):
+    """Each cell's best ``per_cell`` corners of the 3x3-NMS'd score map,
+    kept above th_high, or th_low where the cell's maximum is not above
+    th_high; cells tile the map zero-padded to a multiple of ``cell``.
+    Returns (values [cy, cx, per_cell] descending, zero where fewer are
+    kept; their row-major in-cell indices [cy, cx, per_cell] int64, ties
+    to the lower index)."""
     h, w = score.shape
     s = nms3x3(score)
     ph, pw = (-h) % cell, (-w) % cell
@@ -69,8 +73,16 @@ def select_keypoints(score: torch.Tensor, n_max: int, cell: int = 32,
     cell_max = cells.amax(-1, keepdim=True)
     th = torch.where(cell_max > th_high, th_high, th_low)
     keep = torch.where(cells > th, cells, 0.0)
-    top_v, top_i = sort_top_k(keep, per_cell)  # [cy, cx, per_cell]
-    dev = score.device
+    return sort_top_k(keep, per_cell)
+
+
+def select_from_candidates(top_v: torch.Tensor, top_i: torch.Tensor,
+                           n_max: int, cell: int = 32):
+    """Spatial round-robin global top-n_max of cell_candidates' output:
+    every cell's best before any cell's second-best. Returns (yx [n_max,
+    2] int32, resp [n_max], valid [n_max] bool)."""
+    cy, cx, per_cell = top_v.shape
+    dev = top_v.device
     cyi = torch.arange(cy, device=dev)[:, None, None]
     cxi = torch.arange(cx, device=dev)[None, :, None]
     flat_v = top_v.reshape(-1)
@@ -89,6 +101,14 @@ def select_keypoints(score: torch.Tensor, n_max: int, cell: int = 32,
         yx = torch.cat([yx, yx.new_zeros(pad, 2)])
         valid = torch.cat([valid, valid.new_zeros(pad)])
     return yx, gv, valid
+
+
+def select_keypoints(score: torch.Tensor, n_max: int, cell: int = 32,
+                     per_cell: int = 4, th_high: float = 20.0,
+                     th_low: float = 7.0):
+    """Returns (yx [n_max, 2] int32, resp [n_max], valid [n_max] bool)."""
+    top_v, top_i = cell_candidates(score, cell, per_cell, th_high, th_low)
+    return select_from_candidates(top_v, top_i, n_max, cell)
 
 
 def subpixel_refine(score: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:

@@ -52,11 +52,27 @@ def resize_weights(in_size: int, out_size: int,
     return torch.where(inside[None, :], weights, 0.0)
 
 
+_WEIGHTS: dict = {}
+
+
+def cached_resize_weights(in_size: int, out_size: int,
+                          device) -> torch.Tensor:
+    """resize_weights(in_size, out_size, device), built once per (in, out,
+    device): the same operations run once, so the bits are the same, and a
+    pyramid no longer rebuilds its weights with some 200 small launches.
+    The cached tensors are shared, so callers only read them."""
+    key = (in_size, out_size, torch.device(device))
+    w = _WEIGHTS.get(key)
+    if w is None:
+        w = _WEIGHTS[key] = resize_weights(in_size, out_size, key[2])
+    return w
+
+
 def resize(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Antialiased bilinear resize of [H, W] to ``size``."""
     h, w = img.shape
-    wy = resize_weights(h, size[0], img.device)
-    wx = resize_weights(w, size[1], img.device)
+    wy = cached_resize_weights(h, size[0], img.device)
+    wx = cached_resize_weights(w, size[1], img.device)
     return (wy.T @ img) @ wx
 
 

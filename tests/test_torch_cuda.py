@@ -1,7 +1,9 @@
 """The Hamming kernels' wrappers on a card: launch counting and argument
 checks, and the stereo association's one launch; the pose LM kernel
-against its plain version, and two of its launches bit for bit; the host
-tracker's
+against its plain version, and two of its launches bit for bit; the ORB
+kernels against their plain chain on two rendered frames, two of their
+launches bit for bit, three launches per extracted view and no host wait;
+the host tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
 
@@ -24,7 +26,7 @@ from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     POSE_CASES, SyntheticWorld, orbit_trajectory, pose_problem)
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
-from orb_slam2_with_comment_tpu_torch.ops import hamming
+from orb_slam2_with_comment_tpu_torch.ops import hamming, orb
 from orb_slam2_with_comment_tpu_torch.optim import pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.pipeline import TrackerConfig, TrackState
@@ -125,6 +127,100 @@ def test_stereo_association_is_one_launch(dev):
     # the card sums the SAD windows and the IC moments in another order
     assert torch.equal(sd.depth.cpu() > 0, has)
     assert torch.allclose(sd.depth.cpu()[has], sd_c.depth[has], rtol=1e-3)
+
+
+def _orb_frame(w, h, n):
+    R, t = orbit_trajectory(16)[5]
+    f = 500.0 * w / 640.0
+    img, _ = SyntheticWorld(seed=1).render(R, t, fx=f, fy=f, cx=w / 2,
+                                           cy=h / 2, width=w, height=h)
+    return (torch.as_tensor(np.clip(img, 0, 255).astype(np.uint8)),
+            OrbExtractor(n_features=n))
+
+
+@pytest.mark.parametrize("size", [(640, 480, 1000), (320, 240, 500)])
+def test_orb_kernels_match_their_plain_chain(dev, size):
+    """K2's three launches against the plain chain on the same card:
+    positions, responses, octaves and valid flags identical; angles
+    identical on level 0 and within 1e-4 on coarser levels wherever the IC
+    moments keep 1/1000 of their terms' magnitude (the moments are summed
+    in another order than cuBLAS's); descriptors identical wherever the
+    angles are, at most 1% of the valid rows differing, by at most 8
+    bits."""
+    img, ext = _orb_frame(*size)
+    pyr = ext._pyramid(img.to(dev))
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales))
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    before = dict(orb.LAUNCHES)
+    got = orb.extract_levels(pyr, ext.budgets, ext.scales)
+    assert all(orb.LAUNCHES[k] == before[k] + 1 for k in orb.LAUNCHES)
+    want = orb.extract_levels_plain(flat, levels)
+    xy, resp, octv, ang, desc, valid = got
+    for a, b in ((xy, want[0]), (resp, want[1]), (octv, want[2]),
+                 (valid, want[5])):
+        assert torch.equal(a, b)
+    level0 = octv == 0
+    assert torch.equal(ang[level0], want[3][level0])
+    yx = orb.select_plain(*orb.cells_plain(flat, levels)[2:], levels)[0]
+    kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
+    assert (ang - want[3]).abs()[kept].max() <= 1e-4
+    rows = (desc != want[4]).any(1)
+    assert not rows[ang == want[3]].any()
+    assert int((rows & valid).sum()) <= 0.01 * int(valid.sum())
+    bits = hamming.popcount32(desc ^ want[4]).sum(1)
+    assert int(bits[valid].max()) <= 8
+
+
+def test_orb_launches_are_bit_identical_and_checked(dev):
+    """Two launches on the same view give the same bits (no atomics); the
+    wrapper refuses float64 and a level of more than 2048 cells."""
+    img, ext = _orb_frame(640, 480, 2000)
+    pyr = ext._pyramid(img.to(dev))
+    a = orb.extract_levels(pyr, ext.budgets, ext.scales)
+    b = orb.extract_levels(pyr, ext.budgets, ext.scales)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        orb.extract_levels([p.double() for p in pyr], ext.budgets,
+                           ext.scales)
+    with pytest.raises(ValueError):
+        orb.extract_levels([torch.zeros((1081, 1921), device=dev)], [100],
+                           [1.0])
+    with pytest.raises(ValueError):
+        orb.extract_levels([pyr[0], *(p.cpu() for p in pyr[1:])],
+                           ext.budgets, ext.scales)
+
+
+def test_extraction_is_three_launches_a_view(dev):
+    """OrbExtractor launches each K2 kernel once per view: once for an
+    image, twice for a stereo pair."""
+    img, ext = _orb_frame(320, 240, 500)
+    before = dict(orb.LAUNCHES)
+    ext(img.to(dev))
+    assert all(orb.LAUNCHES[k] == before[k] + 1 for k in orb.LAUNCHES)
+    ext.stereo(img.to(dev), img.to(dev), 20.0, 250.0)
+    assert all(orb.LAUNCHES[k] == before[k] + 3 for k in orb.LAUNCHES)
+
+
+def test_extraction_adds_no_host_wait(dev):
+    """After a warm-up call (the kernels' build, the BRIEF pattern's and
+    the resize weights' one upload each), an extraction on the card runs
+    under torch.cuda's sync debug mode "error": the pyramid, the packing,
+    the three launches and their allocations never wait on the card."""
+    img, ext = _orb_frame(640, 480, 1000)
+    img = img.to(dev)
+    ext(img)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feats = ext(img)
+        pyr = ext._pyramid(img)
+        again = ext._extract_from_pyramid(pyr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert feats.valid.is_cuda and int(feats.valid.sum()) > 500
+    assert torch.equal(again.desc, feats.desc)
 
 
 def test_readback_goes_through_pinned_memory(dev):
