@@ -13,8 +13,10 @@ Phases (any failure raises and the script exits nonzero without the final
    anything is timed.
 2. Build the kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
    (``hamming.cu``, the package's first kernel ``hamming_v1.cu`` as the
-   timing baseline, ``pose_lm.cu`` and ``orb.cu``; one nvcc each, started
-   together) and print the build time and ptxas' register report. From
+   timing baseline, ``pose_lm.cu``, the first pose kernel
+   ``pose_lm_v1.cu`` as its timing baseline, and ``orb.cu``; one nvcc
+   each, started together) and print the build time and ptxas' register
+   report. From
    here on every feature extraction counts one frame and every view
    extracted on the card one view (count_frames): the launches per frame
    of each path.
@@ -36,20 +38,26 @@ Phases (any failure raises and the script exits nonzero without the final
    bound computed from each problem's bytes and admissible pairs.
    Then K3, the pose LM kernel (csrc/pose_lm.cu), against
    optimize_pose_plain on the card (hold_pose): random problems with 10%
-   gross outliers at [B,N] = [3,1000], [1,1000], [3,2000], [1,2000] and
-   [1,4096], and every case of tests/test_torch_pose_lm.py at [3,1000]
+   gross outliers at [B,N] = [3,1000], [1,1000], [3,2000], [1,2000],
+   [1,4096], [3,4096] and [1,16384] (above the baseline kernel's 7680
+   edges), at [3,100] (one block a pose), at [3,896] and [3,897] (7 and 8
+   blocks a pose on the same work), and every case of tests/test_torch_pose_lm.py at [3,1000]
    (dataio.synthetic.pose_problem): inlier masks and counts identical, R
    and t within 1e-4, chi2 within 1e-3 relative, two launches bit for
-   bit; timed the same two ways beside its bound (float32 operations
-   counted from the kernel's code over 67 TFLOP/s, or its bytes) and the
-   plain version's time.
+   bit; the baseline kernel (csrc/pose_lm_v1.cu) on the same problems (up to
+   7680 edges) held to the same gates, and to the kernel's bits where the
+   kernel gives a pose one block; both timed in turns the same two ways
+   beside the bound (the baseline kernel's float32 operation count over
+   67 TFLOP/s, or the bytes) and the plain version's time.
    Then K2, ORB extraction (csrc/orb.cu), kernel by kernel against its
    plain version on the same inputs (hold_orb), and the chain against the
    plain chain: two orbit frames at 640x480 with 1000 and 2000 features, a
    KITTI-camera frame at 1241x376 with 2000, an odd size (641x479: ragged
    cells on every level), a flat image (no corner, every slot invalid), a
    checkerboard (many equal scores), 50 features and 5 (levels of budget
-   0). The score and blurred buffers, the candidates, yx, response, valid,
+   0), and two frames above the former 2048-cell limit: 1921x1081 and
+   2560x1440 with 1000 features. The score and blurred buffers, the
+   candidates, yx, response, valid,
    octave and xy identical on every slot; angles identical on level 0 and
    within 1e-4 on coarser levels wherever the IC moments keep 1/1000 of
    their terms' magnitude (where they cancel, on flat patches and at
@@ -57,9 +65,9 @@ Phases (any failure raises and the script exits nonzero without the final
    version: reported, not held); descriptors identical wherever the angles
    are, and on the rendered frames at most 1% of the valid rows differing,
    by at most 8 bits; two launches identical. Each kernel is timed at the
-   main path's three shapes the same two ways beside its bound (bound_orb)
-   and its plain version's time, and the chain per view beside the plain
-   chain and the pyramid before it.
+   main path's three shapes and at 2560x1440 the same two ways beside its
+   bound (bound_orb) and its plain version's time, and the chain per view
+   beside the plain chain and the pyramid before it.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -412,6 +420,31 @@ def band_problem(gen: torch.Generator, q: int, n: int, dev):
     return dq.to(dev), dt.to(dev), mask.to(dev)
 
 
+class BaselinePose:
+    """The package's first pose LM kernel (csrc/pose_lm_v1.cu), loaded
+    beside the current one for the comparison and the timing only."""
+
+    def __init__(self):
+        self.lib = pose_opt.bind_solve(ctypes.CDLL(
+            cuda_lib.build("pose_lm_v1")))
+
+    def solve(self, cam, R0, t0, Xw, obs, s2, valid):
+        """optimize_pose's launch, on contiguous CUDA tensors."""
+        out = pose_opt.empty_result(*valid.shape, R0.device)
+        err = pose_opt.launch(self.lib, cam, R0, t0, Xw, obs, s2, valid, out)
+        assert err == 0, err
+        return out
+
+
+_BASE_POSE: list = []
+
+
+def base_pose() -> BaselinePose:
+    if not _BASE_POSE:
+        _BASE_POSE.append(BaselinePose())
+    return _BASE_POSE[0]
+
+
 class BaselineKernels:
     """The package's first Hamming kernels (csrc/hamming_v1.cu), loaded
     beside the current ones for the timing comparison only."""
@@ -582,13 +615,16 @@ def check_kernels(dev):
         log(f"distance_matrix [{n1},{n2}]: " + fmt_times(row))
     src = "orb_slam2_with_comment_tpu_torch/csrc/hamming.cu"
     pallas = "orb_slam2_with_comment_tpu/ops/hamming_pallas.py:59"
+    # prev_ms and prev_device_ms are the baseline kernel's
+    base = {"name": "hamming_v1",
+            "source": "orb_slam2_with_comment_tpu_torch/csrc/hamming_v1.cu"}
     # no single PyTorch call computes either function: library_ms is null
     return [
         dict(timed[0], name="hamming_masked_best_two", route="cuda",
-             source=src, replaces=pallas, max_abs_err=err_bt,
+             source=src, replaces=pallas, baseline=base, max_abs_err=err_bt,
              library_ms=None, other_problems=timed[1:]),
         dict(timed_dm[0], name="hamming_distance_matrix", route="cuda",
-             source=src, replaces=pallas, max_abs_err=err_dm,
+             source=src, replaces=pallas, baseline=base, max_abs_err=err_dm,
              library_ms=None, other_problems=timed_dm[1:]),
     ]
 
@@ -628,56 +664,91 @@ def bound_pose_lm(args, rounds: int = 4, iters: int = 10):
     return bound_of(n_bytes, n_ops)
 
 
-def hold_pose(where: str, args, plain_reps: int = 3):
+def hold_pose(where: str, args, plain_reps: int = 3,
+              time_baseline: bool = True):
     """The pose LM kernel on ``args`` (cam, R0, t0, Xw, obs_uvr,
     inv_sigma2, valid) against optimize_pose_plain on the card: inlier
     masks and counts identical, R and t within 1e-4, chi2 within 1e-3
     relative (float32 sums in another order), two launches bit-identical;
-    then timed per wrapper call (CUDA events) and per launch inside a
-    replayed CUDA graph, beside its bound and the plain version's time.
-    Returns (row, largest |R| or |t| difference)."""
+    against the baseline kernel (csrc/pose_lm_v1.cu, up to 7680 edges)
+    bit-identical where the kernel gives a pose one block, else held to
+    the same gates; then the kernel (and, with ``time_baseline``, the
+    baseline kernel in turns with it) timed per wrapper call (CUDA events)
+    and per launch inside a replayed CUDA graph, beside the bound and the
+    plain version's time over ``plain_reps`` calls. Returns (row, largest |R| or |t|
+    difference)."""
     cam, *tensors = args
     tensors = [t.contiguous() for t in tensors]
+    B, N = tensors[-1].shape
     want = pose_opt.optimize_pose_plain(cam, *tensors)
     got = pose_opt.optimize_pose(cam, *tensors)
     again = pose_opt.optimize_pose(cam, *tensors)
     for part, a, b in zip(want._fields, got, again):
         assert torch.equal(a, b), f"pose_lm: two launches differ in {part} " \
             f"at {where}"
-    assert torch.equal(got.inliers, want.inliers), \
-        f"pose_lm inliers differ at {where}"
-    assert torch.equal(got.n_inliers, want.n_inliers), where
-    err = max(float((got.R - want.R).abs().max()),
-              float((got.t - want.t).abs().max())) if got.R.numel() else 0.0
-    assert err <= 1e-4, f"pose_lm pose differs at {where}: {err}"
-    assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6), \
-        f"pose_lm chi2 differs at {where}: {got.chi2} {want.chi2}"
-    B, N = tensors[-1].shape
-    row = {"problem": where, "B": B, "N": N,
+    blocks = pose_opt.blocks_per_pose(N)
+    outs = [("pose_lm", got)]
+    if N <= 7680:
+        prev = base_pose().solve(cam, *tensors)
+        if blocks == 1:
+            for part, a, b in zip(want._fields, got, prev):
+                assert torch.equal(a, b), \
+                    f"pose_lm and pose_lm_v1 differ in {part} at {where}"
+        outs.append(("pose_lm_v1", prev))
+    err = 0.0
+    for name, out in outs:
+        assert torch.equal(out.inliers, want.inliers), \
+            f"{name} inliers differ at {where}"
+        assert torch.equal(out.n_inliers, want.n_inliers), where
+        e = max(float((out.R - want.R).abs().max()),
+                float((out.t - want.t).abs().max())) if out.R.numel() else 0.0
+        assert e <= 1e-4, f"{name} pose differs at {where}: {e}"
+        assert torch.allclose(out.chi2, want.chi2, rtol=1e-3, atol=1e-6), \
+            f"{name} chi2 differs at {where}: {out.chi2} {want.chi2}"
+        if name == "pose_lm":
+            err = e
+    row = {"problem": where, "B": B, "N": N, "blocks_per_pose": blocks,
            "n_valid": int(tensors[-1].sum()),
            "n_inliers": got.n_inliers.tolist(), "max_abs_err": err}
-    row["ms"] = cuda_ms(lambda: pose_opt.optimize_pose(cam, *tensors), 20)
-    row["device_ms"] = graph_ms(lambda: pose_opt.optimize_pose(cam,
-                                                              *tensors))
-    row["plain_ms"] = cuda_ms(lambda: pose_opt.optimize_pose_plain(
-        cam, *tensors), plain_reps)
+
+    def new():
+        pose_opt.optimize_pose(cam, *tensors)
+
+    def old():
+        base_pose().solve(cam, *tensors)
+    if N <= 7680 and time_baseline:
+        row.update(time_pair(new, old, lambda: pose_opt.optimize_pose_plain(
+            cam, *tensors), plain_reps))
+    else:
+        row["ms"], row["device_ms"] = cuda_ms(new, 20), graph_ms(new)
+        row["plain_ms"] = cuda_ms(lambda: pose_opt.optimize_pose_plain(
+            cam, *tensors), plain_reps)
     row["bound_ms"], row["bound_by"] = bound_pose_lm((cam, *tensors))
+    prev = "" if N > 7680 else "; the baseline kernel " + (
+        "bit-identical" if blocks == 1 else "within the gates")
+    if "prev_ms" in row:
+        prev += (f", {row['prev_ms']:.4f} ms per call, "
+                 f"{row['prev_device_ms']:.4f} on the device")
     log(f"pose_lm {where} [{B},{N}] ({row['n_valid']} valid, inliers "
-        f"{row['n_inliers']}): same as plain (max |dR|,|dt| {err:.2e}), "
-        f"bit-identical twice; kernel {row['ms']:.4f} ms per call, "
-        f"{row['device_ms']:.4f} ms on the device; plain "
-        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
-        f"{row['bound_by']}")
+        f"{row['n_inliers']}, {blocks} block(s) a pose): same as plain (max "
+        f"|dR|,|dt| {err:.2e}), bit-identical twice; kernel "
+        f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms on the "
+        f"device{prev}; plain {row['plain_ms']:.4f}; bound "
+        f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
     return row, err
 
 
 def check_pose_kernel(dev) -> dict:
     """Phase 3, K3: the pose LM kernel held against its plain version and
-    timed (hold_pose) on random problems at the main path's shapes and on
-    every case of tests/test_torch_pose_lm.py. Returns the kernel's row."""
+    timed (hold_pose) on random problems at the main path's shapes, at
+    [3x100] (one block a pose: the baseline kernel's bits), at [3x896] and
+    [3x897] (7 and 8 blocks a pose on the same work), and on every case of
+    tests/test_torch_pose_lm.py. Returns the kernel's row."""
     problems = [(f"random {b}x{n}", pose_problem("outliers", 300 + i, b, n))
                 for i, (b, n) in enumerate(((3, 1000), (1, 1000), (3, 2000),
-                                            (1, 2000), (1, 4096)))]
+                                            (1, 2000), (1, 4096), (3, 4096),
+                                            (1, 16384), (3, 100), (3, 896),
+                                            (3, 897)))]
     problems += [(f"case {c}", pose_problem(c, 400 + i))
                  for i, c in enumerate(POSE_CASES)]
     timed, err = [], 0.0
@@ -689,6 +760,8 @@ def check_pose_kernel(dev) -> dict:
         err = max(err, e)
     return dict(timed[0], name="pose_lm", route="cuda",
                 source="orb_slam2_with_comment_tpu_torch/csrc/pose_lm.cu",
+                baseline={"name": "pose_lm_v1", "source": "orb_slam2_with_"
+                          "comment_tpu_torch/csrc/pose_lm_v1.cu"},
                 replaces="orb_slam2_with_comment_tpu/optim/pose_opt.py:82 "
                          "(an XLA program, :82-176; not a Pallas kernel)",
                 max_abs_err=err, library_ms=None,
@@ -756,6 +829,12 @@ def orb_cases(dev):
     yy, xx = np.mgrid[:480, :640]
     checker = (((yy // 16) + (xx // 16)) % 2 * 180 + 40).astype(np.uint8)
     flat = np.full((480, 640), 128, np.uint8)
+    big = []
+    for w, h in ((1921, 1081), (2560, 1440)):
+        f = 500.0 * w / 640.0
+        big.append(render_job((0.0, [orbit_trajectory(n_frames=60)[7]],
+                               dict(fx=f, fy=f, cx=w / 2, cy=h / 2, width=w,
+                                    height=h), "image"), dev)[0])
     cases = [("orbit frame 0, 640x480, 1000", f0, 1000, True),
              ("orbit frame 1, 640x480, 2000", f1, 2000, True),
              ("KITTI camera, 1241x376, 2000", kitti, 2000, True),
@@ -763,7 +842,10 @@ def orb_cases(dev):
              ("flat, 640x480, 1000", flat, 1000, False),
              ("checkerboard, 640x480, 1000", checker, 1000, False),
              ("orbit frame 0, 640x480, 50", f0, 50, True),
-             ("orbit frame 0, 640x480, 5 (levels of budget 0)", f0, 5, True)]
+             ("orbit frame 0, 640x480, 5 (levels of budget 0)", f0, 5, True),
+             ("above the former 2048-cell limit, 1921x1081, 1000", big[0],
+              1000, True),
+             ("2560x1440, 1000", big[1], 1000, True)]
     out = []
     for name, img, n, rendered in cases:
         ext = OrbExtractor(n_features=n)
@@ -853,7 +935,7 @@ def check_orb_kernels(dev) -> list:
         err, n_rows = max(err, e), n_rows + r
     torch.cuda.synchronize()
     timed = {k: [] for k in orb.LAUNCHES}
-    for name, pyr, ext, _ in cases[:3]:
+    for name, pyr, ext, _ in cases[:3] + cases[-1:]:
         levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
                                  tuple(ext.budgets), tuple(ext.scales))
         flat = torch.cat([p.reshape(-1) for p in pyr])
@@ -1897,7 +1979,9 @@ def hold_problems(todo, rows):
     popc_rate = popc_per_s()
     for where, kernel, tensors in todo:
         if kernel == "pose_lm":
-            row, err = hold_pose(where, tensors)
+            # the baseline kernel is held to the gates, timed in phase 3
+            row, err = hold_pose(where, tensors, plain_reps=1,
+                                 time_baseline=False)
             rows[2]["other_problems"].append(row)
             rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err)
             continue
@@ -3112,7 +3196,7 @@ def main():
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
-    libs = ["hamming", "hamming_v1", "pose_lm", "orb"]
+    libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
@@ -3129,8 +3213,10 @@ def main():
         log(f"rendered {sum(len(f) for f in _FRAMES.values())} frames of "
             f"{len(_FRAMES)} sequences on the card in "
             f"{time.perf_counter() - t0:.2f} s")
+    t3 = time.perf_counter()
     rows = (check_kernels(dev) + [check_pose_kernel(dev)]
             + check_orb_kernels(dev))
+    log(f"phase 3 in {time.perf_counter() - t3:.1f} s")
     if kernels_only:
         log(json.dumps({"kernels": rows}))
         return

@@ -8,7 +8,8 @@
 //                 the 7x7 sigma=2 blur rounded half to even.
 //   orb_select    one block per level: the spatial round-robin top-k of
 //                 the cells' candidates (every cell's best before any
-//                 cell's second-best) by a bitonic sort in shared memory.
+//                 cell's second-best) by a radix select of the k-th key,
+//                 then a counting rank of the k winners in shared memory.
 //   orb_describe  one warp per output slot: the IC angle, the 256-bit
 //                 rotated BRIEF at the exact angle, the subpixel parabola
 //                 and the level-0 position.
@@ -45,8 +46,13 @@
 //     weights the float32 values the plain version computes (passed in),
 //     rounded with rintf.
 //   - Selection (fast.select_from_candidates): key = v - (float)rank * 1e7f
-//     in float32; a stable descending sort of the keys (ties to the lower
-//     flat index), the first min(budget, count) slots, zeros after.
+//     in float32; the first min(budget, count) keys of a stable descending
+//     sort (ties to the lower flat index), zeros after. Not sorted: a
+//     radix select finds the last winner's key T, the keys above T and the
+//     first keys equal to T in flat index order are the winners, and each
+//     winner's slot is its rank among them. Shared memory holds the
+//     radix histogram and the winners (8 bytes each, up to kMaxBudget a
+//     level), so frame size does not limit it.
 //   - Describe: the moments over the radius-15 circle read clamped, atan2f;
 //     each pattern point rotated with sinf and cosf, rounded with rintf,
 //     clamped to +-19 and read clamped from the blurred buffer; bit k of
@@ -59,7 +65,7 @@
 //
 // What bounds it on this card, counted from this code (chip_smoke.py
 // bound_orb uses the same counts; float32 operations, the integer keys of
-// the top 8 and of the sort not counted). orb_cells does 192 for each
+// the top 8 and of the selection not counted). orb_cells does 192 for each
 // pixel it scores (16 differences, 16 negations, 2 x 79 minima and maxima
 // of the 9-arcs, 2 more) and 40 for each pixel of a level (the NMS, the
 // cell's maximum and threshold, the two blur passes of 7 multiplies and 7
@@ -73,9 +79,10 @@
 // slots, against the patches it reads and its 56 bytes out per slot, 1.5
 // us: bound by bytes. A view's bound is about 5 us. What this first
 // version waits on is its serial chains, not those rates: orb_cells'
-// eight top-8 rounds of block reductions, orb_select's 78 sort passes
-// with a barrier each on one block per level (the level-0 block sets its
-// time), and three launches.
+// eight top-8 rounds of block reductions, orb_select's four radix passes
+// and its tie and rank passes on one block per level (the level-0 block
+// sets its time; the bitonic sort it replaced took 78 passes with a
+// barrier each), and three launches.
 //
 // Why -fmad=false stays (ops/cuda_lib.py builds every kernel with it): the
 // plain version rounds every float multiply and add on its own, and the
@@ -87,8 +94,10 @@
 // atan2 call for float32; chip_smoke.py holds the angles and descriptors
 // against the plain version on the card.
 //
-// Determinism: no atomics and fixed-order reductions: two launches on the
-// same inputs give the same bits. Every launch is followed by
+// Determinism: no float atomics and fixed-order reductions: two launches
+// on the same inputs give the same bits. orb_select's integer atomics
+// count (the histogram, exact) or claim a place in the winners' buffer,
+// whose order the rank then ignores. Every launch is followed by
 // cudaGetLastError, whose value the C functions return.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,7 +107,7 @@ namespace {
 constexpr int kCell = 32;
 constexpr int kPerCell = 8;
 constexpr int kMaxLevels = 16;
-constexpr int kMaxKeys = 16384;   // orb_select sorts a level in 128 KB
+constexpr int kMaxBudget = 28672; // orb_select's winners: 224 KB
 constexpr int kHalfPatch = 15;    // the IC circle's radius
 constexpr int kBriefRadius = 19;
 constexpr int kHalo = 4;          // 3 px FAST ring + 1 px NMS
@@ -108,6 +117,8 @@ constexpr int kBlurCols = kCell + 6;       // 38: vertical blur columns
 constexpr int kCellThreads = 256;
 constexpr int kCellWarps = kCellThreads / 32;
 constexpr int kSelectThreads = 1024;
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr int kRadixBits = 8, kBins = 1 << kRadixBits;
 constexpr int kDescribeWarps = 8;
 
 // One level of the packed buffers. Mirrored by ops/orb.py _LevelDesc.
@@ -328,51 +339,127 @@ __device__ __forceinline__ unsigned orderable(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// a candidate's selection key as an ascending uint32: descending keys,
+// key = v - (float)rank * 1e7f in float32 (+ 0: one zero)
+__device__ __forceinline__ unsigned select_key(const float* v, int f) {
+  const float rank = (float)(f % kPerCell);
+  return ~orderable((v[f] - rank * 1e7f) + 0.0f);
+}
+
+// One block per level. The level's k = min(budget, count) winners are the
+// k smallest (select_key, flat index): a radix select of the k-th smallest
+// key T, 8 bits a pass over the candidates read from global memory (they
+// stay in L2); every key below T and the first keys equal to T in flat
+// index order (a block-wide prefix count). Each winner's slot is the
+// number of winners before it in (key, index) order.
 __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
     const float* __restrict__ cand_v, const int* __restrict__ cand_i,
     int* __restrict__ yx, float* __restrict__ resp,
     uint8_t* __restrict__ valid, OrbTable t) {
-  extern __shared__ unsigned long long keys[];
+  extern __shared__ unsigned long long win[];  // [budget]: key << 32 | f
+  __shared__ int hist[kBins];
+  __shared__ int wsum[kSelectWarps];
+  __shared__ unsigned s_prefix;
+  __shared__ int s_need, s_nwin;
   const LevelDesc L = t.lv[blockIdx.x];
   const int count = L.cy * L.cx * kPerCell;
-  int n = 1;
-  while (n < count) n <<= 1;
-  const int tid = threadIdx.x;
+  const int k = L.budget < count ? L.budget : count;
   const float* v = cand_v + (size_t)L.cell * kPerCell;
   const int* ci = cand_i + (size_t)L.cell * kPerCell;
-  // ascending order of (~orderable(key), flat index) is descending keys
-  // with ties to the lower flat index; the padding sorts last
-  for (int f = tid; f < n; f += kSelectThreads) {
-    unsigned long long k = ~0ull;
-    if (f < count) {
-      const float rank = (float)(f % kPerCell);
-      const float key = (v[f] - rank * 1e7f) + 0.0f;  // + 0: one zero
-      k = ((unsigned long long)(~orderable(key)) << 32) | (unsigned)f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // T, the k-th smallest key, and how many keys equal to T are winners
+  unsigned prefix = 0;
+  int need = k;
+  for (int shift = 24; shift >= 0; shift -= kRadixBits) {
+    if (tid < kBins) hist[tid] = 0;
+    if (tid == 0) s_nwin = 0;
+    __syncthreads();
+    const unsigned high = shift == 24 ? 0u : ~0u << (shift + kRadixBits);
+    for (int f = tid; f < count; f += kSelectThreads) {
+      const unsigned key = select_key(v, f);
+      if ((key & high) == prefix)
+        atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1);
     }
-    keys[f] = k;
-  }
-  __syncthreads();
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < n / 2; i += kSelectThreads) {
-        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
-        const unsigned long long ka = keys[a], kb = keys[b];
-        if ((ka > kb) == ((a & size) == 0)) {
-          keys[a] = kb;
-          keys[b] = ka;
+    __syncthreads();
+    if (warp == 0) {  // lane l scans bins 8l..8l+7
+      int c[kBins / 32], sum = 0;
+#pragma unroll
+      for (int j = 0; j < kBins / 32; ++j) {
+        c[j] = hist[(kBins / 32) * lane + j];
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int n = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += n;
+      }
+      int before = incl - sum;
+      if (before < need && need <= incl) {  // one lane: the bin of T
+#pragma unroll
+        for (int j = 0; j < kBins / 32; ++j) {
+          if (before + c[j] >= need) {
+            s_prefix = prefix | ((unsigned)((kBins / 32) * lane + j) << shift);
+            s_need = need - before;
+            break;
+          }
+          before += c[j];
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
+    prefix = s_prefix;
+    need = s_need;
   }
-  const int k = L.budget < count ? L.budget : count;
+
+  // the winners: thread tid scans the flat indices [lo, hi); the keys
+  // equal to T are taken in flat index order, the first `need` of them
+  const int per = (count + kSelectThreads - 1) / kSelectThreads;
+  const int lo = min(tid * per, count), hi = min(lo + per, count);
+  int ties = 0;
+  for (int f = lo; f < hi; ++f) ties += select_key(v, f) == prefix;
+  int incl = ties;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += n;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = wsum[lane];
+    int x = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += n;
+    }
+    wsum[lane] = x - w;
+  }
+  __syncthreads();
+  int tie = wsum[warp] + incl - ties;  // ties before this thread's range
+  for (int f = lo; f < hi; ++f) {
+    const unsigned key = select_key(v, f);
+    bool take = key < prefix;
+    if (key == prefix) take = tie++ < need;
+    if (take)
+      win[atomicAdd(&s_nwin, 1)] = ((unsigned long long)key << 32) |
+                                   (unsigned)f;
+  }
+  __syncthreads();
+
+  // slot = rank of the winner in (key, flat index) order; zeros after k
   for (int j = tid; j < L.budget; j += kSelectThreads) {
-    const int s = L.slot + j;
-    int y = 0, x = 0;
+    int s = L.slot + j, y = 0, x = 0;
     float val = 0.0f;
     if (j < k) {
-      const int f = (int)(keys[j] & 0xffffffffu);
+      const unsigned long long w = win[j];
+      int rank = 0;
+      for (int i = 0; i < k; ++i) rank += win[i] < w;
+      const int f = (int)(w & 0xffffffffu);
       const int cell = f / kPerCell, idx = ci[f];
+      s = L.slot + rank;
       val = v[f];
       y = (cell / L.cx) * kCell + idx / kCell;
       x = (cell % L.cx) * kCell + idx % kCell;
@@ -456,19 +543,16 @@ __global__ void __launch_bounds__(kDescribeWarps * 32) orb_describe_kernel(
   }
 }
 
-int max_sort_keys(const OrbTable& t) {
-  int most = 1;
-  for (int l = 0; l < t.n_levels; ++l) {
-    int n = 1;
-    while (n < t.lv[l].cy * t.lv[l].cx * kPerCell) n <<= 1;
-    most = n > most ? n : most;
-  }
+int max_budget(const OrbTable& t) {
+  int most = 0;
+  for (int l = 0; l < t.n_levels; ++l)
+    most = t.lv[l].budget > most ? t.lv[l].budget : most;
   return most;
 }
 
 bool valid_table(const OrbTable* t) {
   return t->n_levels >= 0 && t->n_levels <= kMaxLevels &&
-         max_sort_keys(*t) <= kMaxKeys;
+         max_budget(*t) <= kMaxBudget;
 }
 
 }  // namespace
@@ -504,11 +588,11 @@ int orb_select(const void* cand_v, const void* cand_i, void* yx, void* resp,
   if (!granted[dev]) {
     err = cudaFuncSetAttribute(orb_select_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxKeys * (int)sizeof(unsigned long long));
+                               kMaxBudget * (int)sizeof(unsigned long long));
     if (err != cudaSuccess) return (int)err;
     granted[dev] = true;
   }
-  const size_t smem = (size_t)max_sort_keys(*t) * sizeof(unsigned long long);
+  const size_t smem = (size_t)max_budget(*t) * sizeof(unsigned long long);
   orb_select_kernel<<<t->n_levels, kSelectThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),

@@ -44,6 +44,9 @@ def level_budgets(n_features: int, n_levels: int = image.N_LEVELS,
 
 
 class OrbExtractor:
+    """Configured extractor. sigma2 and inv_sigma2 are the reference's
+    mvLevelSigma2 and mvInvLevelSigma2 (sigma2 = 1.2^(2 level))."""
+
     def __init__(self, n_features: int = 1000, n_levels: int = image.N_LEVELS,
                  scale_factor: float = image.SCALE_FACTOR,
                  th_high: float = 20.0, th_low: float = 7.0,
@@ -58,6 +61,8 @@ class OrbExtractor:
         self.margin = margin
         self.budgets = level_budgets(n_features, n_levels, scale_factor)
         self.scales = image.level_scales(n_levels, scale_factor)
+        self.sigma2 = [s * s for s in self.scales]
+        self.inv_sigma2 = [1.0 / s for s in self.sigma2]
 
     def __call__(self, img: torch.Tensor) -> FrameFeatures:
         return self._extract(img)
@@ -88,10 +93,21 @@ class OrbExtractor:
     def _extract_from_pyramid(self, pyr) -> FrameFeatures:
         """Every level with a budget above 0 in one call of the ORB
         kernels (ops/orb.py: three launches on the card), concatenated in
-        level order: what _level_features gives level by level."""
-        if (self.cell, self.per_cell) != (orb.CELL, orb.PER_CELL):
-            raise ValueError(f"ORB extraction takes {orb.CELL} px cells of "
-                             f"{orb.PER_CELL} candidates")
+        level order: what _level_features gives level by level. A
+        configuration the kernels do not take runs _level_features level
+        by level on the CPU and raises on the card."""
+        if ((self.cell, self.per_cell) != (orb.CELL, orb.PER_CELL)
+                or self.n_levels > orb.MAX_LEVELS):
+            if pyr[0].device.type != "cpu":
+                raise ValueError(
+                    f"the ORB kernels take {orb.CELL} px cells of "
+                    f"{orb.PER_CELL} candidates and at most "
+                    f"{orb.MAX_LEVELS} levels; got cell={self.cell}, "
+                    f"per_cell={self.per_cell}, n_levels={self.n_levels}")
+            parts = [self._level_features(p, lvl, b)
+                     for lvl, (p, b) in enumerate(zip(pyr, self.budgets))
+                     if b > 0]
+            return FrameFeatures(*(torch.cat(p) for p in zip(*parts)))
         return FrameFeatures(*orb.extract_levels(
             pyr, self.budgets, self.scales, self.margin, self.th_high,
             self.th_low))

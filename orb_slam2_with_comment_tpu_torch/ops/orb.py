@@ -17,7 +17,9 @@ hand-written kernels of ``csrc/orb.cu``, one launch each per view:
 The levels are packed into one flat float32 buffer (each level's pixels
 row-major, level after level); the score and blurred buffers are packed
 the same way. ``level_table`` says where each level with a budget above 0
-lies. Each kernel has a plain PyTorch version at its own interface
+lies, for any frame size and level count; the kernels take at most
+MAX_LEVELS levels and MAX_BUDGET slots a level, which their wrappers check
+on the card. Each kernel has a plain PyTorch version at its own interface
 (``cells_plain``, ``select_plain``, ``describe_plain``) built from the
 port's per-level functions, and ``extract_levels_plain`` chains them: it
 equals frontend/extractor.py's per-level loop bit for bit. The wrappers
@@ -37,8 +39,8 @@ from . import brief, consts, cuda_lib, fast, image, orientation
 
 CELL = 32  # the kernels' cell side
 PER_CELL = 8  # candidates per cell
-MAX_LEVELS = 16
-MAX_KEYS = 16384  # orb_select sorts a level's cells x 8 keys in 128 KB
+MAX_LEVELS = 16  # csrc/orb.cu's OrbTable holds 16 levels
+MAX_BUDGET = 28672  # orb_select ranks a level's winners in 224 KB
 LAUNCHES = {"orb_cells": 0, "orb_select": 0, "orb_describe": 0}
 
 
@@ -66,21 +68,11 @@ class Level(NamedTuple):
 def level_table(sizes: tuple, budgets: tuple, scales: tuple
                 ) -> tuple[Level, ...]:
     """The levels of a pyramid of level sizes ``sizes`` ((h, w) each)
-    whose budget is above 0, in level order. Raises for more than
-    MAX_LEVELS levels or a level of more than MAX_KEYS / 8 cells (above
-    1920x1080 at level 0)."""
-    if len(sizes) > MAX_LEVELS:
-        raise ValueError(f"ORB extraction takes at most {MAX_LEVELS} "
-                         f"levels, got {len(sizes)}")
+    whose budget is above 0, in level order."""
     out, off, slot, cell = [], 0, 0, 0
     for lvl, ((h, w), budget, scale) in enumerate(zip(sizes, budgets,
                                                       scales)):
         lv = Level(lvl, off, h, w, budget, slot, cell, scale)
-        if lv.cy * lv.cx * PER_CELL > MAX_KEYS:
-            raise ValueError(
-                f"level {lvl} of {h}x{w} has {lv.cy * lv.cx} cells of "
-                f"{CELL} px; ORB extraction takes at most "
-                f"{MAX_KEYS // PER_CELL} (1920x1080 at level 0)")
         if budget > 0:
             out.append(lv)
             slot += budget
@@ -231,9 +223,23 @@ class _OrbTable(ctypes.Structure):
                 ("lv", _LevelDesc * MAX_LEVELS)]
 
 
+def check_kernel_limits(levels) -> None:
+    """Raises for what the kernels do not take: more than MAX_LEVELS
+    levels with a budget, or a level budget above MAX_BUDGET. Frame size
+    is not limited."""
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"the ORB kernels take at most {MAX_LEVELS} levels "
+                         f"with a budget, got {len(levels)}")
+    most = max((lv.budget for lv in levels), default=0)
+    if most > MAX_BUDGET:
+        raise ValueError(f"the ORB kernels take at most {MAX_BUDGET} slots "
+                         f"a level (orb_select's shared memory), got {most}")
+
+
 @functools.lru_cache(maxsize=64)
 def _table(levels: tuple, margin: int = 16, th_high: float = 20.0,
            th_low: float = 7.0) -> _OrbTable:
+    check_kernel_limits(levels)
     t = _OrbTable()
     t.n_levels, t.n_cells, t.n_slots = (len(levels), n_cells(levels),
                                         n_slots(levels))

@@ -9,7 +9,9 @@ axis carries the three independent solves of a tracking frame
 ``optimize_pose_plain`` is the plain PyTorch version. ``optimize_pose`` takes
 it only for tensors on the CPU; for CUDA tensors it launches the
 hand-written kernel of ``csrc/pose_lm.cu`` once, the whole schedule in one
-launch, or raises. ``LAUNCHES`` counts those launches.
+launch, or raises. ``LAUNCHES`` counts those launches; ``blocks_per_pose``
+says how many thread blocks (one cluster) the kernel gives a pose of N
+edges.
 """
 from __future__ import annotations
 
@@ -111,7 +113,9 @@ def optimize_pose_plain(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2,
 
 
 LAUNCHES = {"pose_lm": 0}
-MAX_EDGES = 7680  # csrc/pose_lm.cu kMaxEdges (29 bytes of shared memory each)
+# csrc/pose_lm.cu kMaxEdges: up to 8 blocks (a cluster) per pose, each with
+# 7680 edges of 29 bytes in its shared memory
+MAX_EDGES = 61440
 # the thresholds as the plain version's float32 tensors hold them
 _THRESHOLDS = tuple(float(np.float32(v)) for v in (
     CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO))
@@ -119,7 +123,9 @@ _THRESHOLDS = tuple(float(np.float32(v)) for v in (
 _lib: ctypes.CDLL | None = None
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def bind_solve(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Binds ``pose_lm_solve``, the C interface of csrc/pose_lm.cu and of
+    csrc/pose_lm_v1.cu (the timing baseline)."""
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     lib.pose_lm_solve.argtypes = [p, p, p, p, ll, p, ll, p, f, f, f, f, f,
@@ -128,11 +134,51 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    bind_solve(lib)
+    lib.pose_lm_blocks_per_pose.argtypes = [ctypes.c_int]
+    lib.pose_lm_blocks_per_pose.restype = ctypes.c_int
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         _lib = _bind(cuda_lib.load("pose_lm"))
     return _lib
+
+
+def blocks_per_pose(N: int) -> int:
+    """The thread blocks, one cluster, that csrc/pose_lm.cu gives a pose
+    of N edges (loads the kernel)."""
+    return _kernel_lib().pose_lm_blocks_per_pose(N)
+
+
+def empty_result(B: int, N: int, dev) -> PoseOptResult:
+    """Uninitialized outputs of a solve of B poses against N edges."""
+    return PoseOptResult(
+        torch.empty((B, 3, 3), dtype=torch.float32, device=dev),
+        torch.empty((B, 3), dtype=torch.float32, device=dev),
+        torch.empty((B, N), dtype=torch.bool, device=dev),
+        torch.empty((B,), dtype=torch.int32, device=dev),
+        torch.empty((B,), dtype=torch.float32, device=dev))
+
+
+def launch(lib: ctypes.CDLL, cam: CamParams, R0, t0, Xw, obs_uvr,
+           inv_sigma2, valid, out: PoseOptResult, rounds: int = 4,
+           iters_per_round: int = 10) -> int:
+    """One launch of ``lib``'s pose_lm_solve on contiguous CUDA tensors
+    into ``out`` (empty_result), on the current stream; returns its
+    cudaError_t. The broadcast forms of obs_uvr and inv_sigma2 pass a
+    batch stride of 0."""
+    B, N = valid.shape
+    return lib.pose_lm_solve(
+        R0.data_ptr(), t0.data_ptr(), Xw.data_ptr(), obs_uvr.data_ptr(),
+        3 * N if obs_uvr.dim() == 3 else 0, inv_sigma2.data_ptr(),
+        N if inv_sigma2.dim() == 2 else 0, valid.data_ptr(),
+        *(float(v) for v in cam), *_THRESHOLDS, rounds, iters_per_round, B,
+        N, *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(R0.device).cuda_stream)
 
 
 def _check_args(R0, t0, Xw, obs_uvr, inv_sigma2, valid) -> tuple[int, int]:
@@ -174,24 +220,11 @@ def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
     if N > MAX_EDGES:
         raise ValueError(f"the pose LM kernel takes at most {MAX_EDGES} "
                          f"edges, got {N}")
-    R0, t0, Xw, obs_uvr, inv_sigma2, valid = (x.contiguous()
-                                              for x in tensors)
-    R = torch.empty((B, 3, 3), dtype=torch.float32, device=dev)
-    t = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    inliers = torch.empty((B, N), dtype=torch.bool, device=dev)
-    n_inliers = torch.empty((B,), dtype=torch.int32, device=dev)
-    chi2 = torch.empty((B,), dtype=torch.float32, device=dev)
-    # the broadcast forms of obs_uvr and inv_sigma2: a batch stride of 0
-    err = _kernel_lib().pose_lm_solve(
-        R0.data_ptr(), t0.data_ptr(), Xw.data_ptr(), obs_uvr.data_ptr(),
-        3 * N if obs_uvr.dim() == 3 else 0, inv_sigma2.data_ptr(),
-        N if inv_sigma2.dim() == 2 else 0, valid.data_ptr(),
-        *(float(v) for v in cam), *_THRESHOLDS, rounds, iters_per_round, B,
-        N, R.data_ptr(), t.data_ptr(), inliers.data_ptr(),
-        n_inliers.data_ptr(), chi2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    out = empty_result(B, N, dev)
+    err = launch(_kernel_lib(), cam, *(x.contiguous() for x in tensors), out,
+                 rounds, iters_per_round)
     if err != 0:
         raise RuntimeError(f"pose_lm_solve launch failed: cudaError_t {err}")
     if B:
         LAUNCHES["pose_lm"] += 1
-    return PoseOptResult(R, t, inliers, n_inliers, chi2)
+    return out

@@ -1,8 +1,10 @@
 """The Hamming kernels' wrappers on a card: launch counting and argument
 checks, and the stereo association's one launch; the pose LM kernel
-against its plain version, and two of its launches bit for bit; the ORB
-kernels against their plain chain on two rendered frames, two of their
-launches bit for bit, three launches per extracted view and no host wait;
+against its plain version and against the baseline kernel (csrc/pose_lm_v1.cu),
+one launch per solve, and two of its launches bit for bit; the ORB
+kernels against their plain chain on rendered frames up to 2560x1440,
+two of their launches bit for bit, three launches per extracted view and
+no host wait;
 the host tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
@@ -17,6 +19,8 @@ has only PyTorch:
 
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +30,7 @@ from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     POSE_CASES, SyntheticWorld, orbit_trajectory, pose_problem)
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
-from orb_slam2_with_comment_tpu_torch.ops import hamming, orb
+from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming, orb
 from orb_slam2_with_comment_tpu_torch.optim import pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.pipeline import TrackerConfig, TrackState
@@ -87,6 +91,41 @@ def test_pose_lm_kernel_matches_plain(dev, case):
     dt = (got.t - want.t).abs().amax(1).tolist()
     assert max(dR + dt) <= 1e-4, f"|dR| {dR}, |dt| {dt} per pose"
     assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6)
+
+
+def _v1_solve(cam, *args):
+    """The baseline pose LM kernel (csrc/pose_lm_v1.cu) on the same inputs."""
+    lib = pose_opt.bind_solve(ctypes.CDLL(cuda_lib.build("pose_lm_v1")))
+    out = pose_opt.empty_result(*args[-1].shape, args[0].device)
+    assert pose_opt.launch(lib, cam, *args, out) == 0
+    return out
+
+
+@pytest.mark.parametrize("shape", [(3, 1000), (1, 4096), (3, 100)])
+def test_pose_lm_kernel_matches_plain_and_v1(dev, shape):
+    """At the main path's shapes: one launch per solve; the plain version's
+    inlier masks and counts, R and t within 1e-4, chi2 within 1e-3
+    relative; the baseline kernel's bits where the kernel gives a pose one
+    block, as at [3x100] (else the baseline kernel meets the same
+    gates)."""
+    cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+    args = _pose_args("outliers", 21, dev, *shape)
+    if shape == (3, 100):
+        assert pose_opt.blocks_per_pose(shape[1]) == 1
+    before = pose_opt.LAUNCHES["pose_lm"]
+    got = pose_opt.optimize_pose(cam, *args)
+    assert pose_opt.LAUNCHES["pose_lm"] == before + 1
+    want = pose_opt.optimize_pose_plain(cam, *args)
+    prev = _v1_solve(cam, *args)
+    for out in (got, prev):
+        assert torch.equal(out.inliers, want.inliers)
+        assert torch.equal(out.n_inliers, want.n_inliers)
+        assert max(float((out.R - want.R).abs().max()),
+                   float((out.t - want.t).abs().max())) <= 1e-4
+        assert torch.allclose(out.chi2, want.chi2, rtol=1e-3, atol=1e-6)
+    if pose_opt.blocks_per_pose(shape[1]) == 1:
+        for a, b in zip(got, prev):
+            assert torch.equal(a, b)
 
 
 def test_pose_lm_launches_are_bit_identical(dev):
@@ -172,9 +211,49 @@ def test_orb_kernels_match_their_plain_chain(dev, size):
     assert int(bits[valid].max()) <= 8
 
 
+@pytest.mark.parametrize("size", [(1921, 1081), (2560, 1440)])
+def test_orb_select_takes_any_frame_size(dev, size):
+    """Frames above the former 2048-cell limit: orb_select bit for bit
+    against select_plain on the same candidates, one launch; the whole
+    extract_levels against the plain chain: positions, responses, octaves
+    and valid flags identical, angles identical on level 0 and within
+    1e-4 on coarser levels where the moments keep 1/1000 of their terms,
+    descriptors identical wherever the angles are, at most 1% of the valid
+    rows differing, by at most 8 bits."""
+    img, ext = _orb_frame(*size, 1000)
+    pyr = ext._pyramid(img.to(dev))
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales))
+    assert levels[0].cy * levels[0].cx > 2048
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    cand_v, cand_i = orb.cells_plain(flat, levels)[2:]
+    before = orb.LAUNCHES["orb_select"]
+    got = orb.select(cand_v, cand_i, levels)
+    assert orb.LAUNCHES["orb_select"] == before + 1
+    for a, b in zip(got, orb.select_plain(cand_v, cand_i, levels)):
+        assert torch.equal(a, b)
+    xy, resp, octv, ang, desc, valid = orb.extract_levels(
+        pyr, ext.budgets, ext.scales)
+    want = orb.extract_levels_plain(flat, levels)
+    for a, b in ((xy, want[0]), (resp, want[1]), (octv, want[2]),
+                 (valid, want[5])):
+        assert torch.equal(a, b)
+    assert int(valid.sum()) > 300
+    level0 = octv == 0
+    assert torch.equal(ang[level0], want[3][level0])
+    kept = orb.moment_cancellation(flat, got[0], levels) >= 1e-3
+    assert (ang - want[3]).abs()[kept].max() <= 1e-4
+    rows = (desc != want[4]).any(1)
+    assert not rows[ang == want[3]].any()
+    assert int((rows & valid).sum()) <= 0.01 * int(valid.sum())
+    bits = hamming.popcount32(desc ^ want[4]).sum(1)
+    assert int(bits[valid].max()) <= 8
+
+
 def test_orb_launches_are_bit_identical_and_checked(dev):
-    """Two launches on the same view give the same bits (no atomics); the
-    wrapper refuses float64 and a level of more than 2048 cells."""
+    """Two launches on the same view give the same bits (no float
+    atomics); the wrapper refuses float64 and a level budget above what
+    orb_select's shared memory holds."""
     img, ext = _orb_frame(640, 480, 2000)
     pyr = ext._pyramid(img.to(dev))
     a = orb.extract_levels(pyr, ext.budgets, ext.scales)
@@ -185,8 +264,8 @@ def test_orb_launches_are_bit_identical_and_checked(dev):
         orb.extract_levels([p.double() for p in pyr], ext.budgets,
                            ext.scales)
     with pytest.raises(ValueError):
-        orb.extract_levels([torch.zeros((1081, 1921), device=dev)], [100],
-                           [1.0])
+        orb.extract_levels([torch.zeros((4096, 4096), device=dev)],
+                           [orb.MAX_BUDGET + 1], [1.0])
     with pytest.raises(ValueError):
         orb.extract_levels([pyr[0], *(p.cpu() for p in pyr[1:])],
                            ext.budgets, ext.scales)

@@ -126,6 +126,66 @@ def test_plain_chain_matches_jax_per_level(name):
     assert dang[kept].max(initial=0) <= 1e-4
 
 
+# configurations beyond the kernels' old or current limits: name ->
+# (image maker, OrbExtractor keywords); both packages take each on the CPU
+BEYOND = {
+    # the smallest frame above the former 2048-cell limit: 34 x 61 cells
+    "1081x1921-1000": (lambda: _render(1921, 1081), {}),
+    "640x480-cell16": (lambda: _render(640, 480), {"cell": 16}),
+    "640x480-per_cell4": (lambda: _render(640, 480), {"per_cell": 4}),
+    "640x480-17-levels": (lambda: _render(640, 480), {"n_levels": 17}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BEYOND))
+def test_extractor_matches_jax_beyond_the_kernels_limits(name):
+    """The port's OrbExtractor._extract_from_pyramid (the plain chain, or
+    level by level where the kernels do not take the configuration) on
+    the JAX package's level images against the JAX extractor's, at
+    test_plain_chain_matches_jax_per_level's tolerances."""
+    make, kw = BEYOND[name]
+    img = make()
+    jx = JaxExtractor(n_features=1000, **kw)
+    jpyr = [np.asarray(a) for a in jax.jit(
+        lambda x: jimage.build_pyramid(x, jx.n_levels))(
+        jnp.asarray(img, jnp.float32))]
+    want = [np.asarray(a) for a in jax.jit(
+        lambda *lv: jx._extract_from_pyramid(list(lv)))(*jpyr)]
+    ext = OrbExtractor(n_features=1000, **kw)
+    tpyr = [torch.as_tensor(a.copy()) for a in jpyr]
+    got = ext._extract_from_pyramid(tpyr)
+    assert got.n == 1000
+    xy, resp, octv, ang, desc, valid = (a.numpy() for a in got)
+    np.testing.assert_array_equal(xy, want[0])
+    np.testing.assert_array_equal(resp, want[1])
+    np.testing.assert_array_equal(octv, want[2])
+    np.testing.assert_array_equal(valid, want[5])
+    assert valid.sum() > 500
+    wdesc = want[4].view(np.int32)
+    rows = (desc != wdesc).any(1)
+    assert not rows[ang == want[3]].any()
+    assert rows.sum() <= 0.01 * len(rows)
+    bits = np.unpackbits((desc ^ wdesc).view(np.uint8), axis=1).sum(1)
+    assert bits.max(initial=0) <= 8
+    levels = _levels(tpyr, ext)
+    flat = torch.cat([p.reshape(-1) for p in tpyr])
+    yx = torch.cat([fast.select_keypoints(
+        orb.masked_score(tpyr[lv.lvl], ext.margin), lv.budget, ext.cell,
+        ext.per_cell)[0] for lv in levels])
+    kept = (orb.moment_cancellation(flat, yx, levels) >= 1e-3).numpy()
+    dang = np.abs(ang - want[3])
+    level0 = octv == 0
+    assert dang[level0 & kept].max(initial=0) <= 1e-5
+    assert dang[kept].max(initial=0) <= 1e-4
+
+
+def test_sigma2_lists_match_jax():
+    for kw in ({}, {"n_levels": 17}, {"scale_factor": 1.3}):
+        jx, ext = JaxExtractor(**kw), OrbExtractor(**kw)
+        assert ext.sigma2 == jx.sigma2
+        assert ext.inv_sigma2 == jx.inv_sigma2
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plain_chain_equals_the_per_level_loop(name):
     """OrbExtractor (ops/orb.py's plain chain on the CPU) against the
@@ -250,14 +310,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         orb.describe(flat, score, blurred, yx.long(), levels)
     with pytest.raises(ValueError):
         orb.describe(flat, score.to("meta"), blurred, yx, levels)
-    # above 1920x1080 a level has more cells than orb_select sorts
-    orb.level_table(((1080, 1920),), (100,), (1.0,))
-    with pytest.raises(ValueError):
-        orb.extract_levels([torch.zeros((1081, 1921))], [100], [1.0])
-    with pytest.raises(ValueError):
-        orb.level_table(((64, 64),) * 17, (1,) * 17, (1.0,) * 17)
-    with pytest.raises(ValueError):
-        OrbExtractor(n_features=100, per_cell=4)(torch.zeros((64, 64)))
+    # frame size is not limited; the kernels' own limits (16 levels with
+    # a budget, MAX_BUDGET slots a level) raise on the card only
+    big = orb.level_table(((1081, 1921),), (100,), (1.0,))
+    assert big[0].cy * big[0].cx == 34 * 61
+    got = orb.extract_levels([torch.zeros((1081, 1921))], [100], [1.0])
+    assert got[0].shape == (100, 2) and not got[5].any()
+    many = orb.level_table(((64, 64),) * 17, (1,) * 17, (1.0,) * 17)
+    assert len(many) == 17
+    with pytest.raises(ValueError, match="16 levels"):
+        orb.check_kernel_limits(many)
+    with pytest.raises(ValueError, match=str(orb.MAX_BUDGET)):
+        orb.check_kernel_limits(orb.level_table(
+            ((4096, 4096),), (orb.MAX_BUDGET + 1,), (1.0,)))
+    orb.check_kernel_limits(orb.level_table(((4096, 4096),),
+                                            (orb.MAX_BUDGET,), (1.0,)))
+    with pytest.raises(ValueError, match="per_cell=4"):
+        OrbExtractor(n_features=100, per_cell=4)._extract_from_pyramid(
+            [p.to("meta") for p in pyr])
+    with pytest.raises(ValueError, match="n_levels=17"):
+        OrbExtractor(n_features=100, n_levels=17)._extract_from_pyramid(
+            [p.to("meta") for p in pyr])
 
 
 class _FakeFn:
@@ -324,7 +397,7 @@ def test_table_layout_matches_the_source():
                 assert base is kinds[ctype], struct
     for const, value in (("kCell", orb.CELL), ("kPerCell", orb.PER_CELL),
                          ("kMaxLevels", orb.MAX_LEVELS),
-                         ("kMaxKeys", orb.MAX_KEYS),
+                         ("kMaxBudget", orb.MAX_BUDGET),
                          ("kHalfPatch", orientation.HALF_PATCH)):
         assert int(re.search(rf"{const} = (\d+);", src).group(1)) == value
     ring = [[int(v) for v in re.search(

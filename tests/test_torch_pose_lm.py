@@ -136,20 +136,27 @@ class _FakeFn:
 def test_binding_matches_the_extern_c_interface():
     """The symbols the wrapper binds are the source's extern "C" functions,
     with the same parameter types in the same order, and the source's edge
-    limit is the wrapper's."""
+    limit (edges a block holds times blocks a pose may have) is the
+    wrapper's."""
     src_path = os.path.join(cuda_lib.CSRC_DIR, "pose_lm.cu")
     with open(src_path) as f:
         src = f.read()
     extern = src[src.index('extern "C" {'):]
-    m = re.search(r"int pose_lm_solve\(([^)]*)\)", extern)
-    assert m, "pose_lm_solve is not in the extern \"C\" block"
-    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
-    limit = int(re.search(r"kMaxEdges = (\d+);", src).group(1))
-    assert limit == pose_opt.MAX_EDGES
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", src).group(1))
+
+    assert re.search(r"kMaxEdges = kBlockEdges \* kMaxCluster;", src)
+    assert const("kBlockEdges") * const("kMaxCluster") == pose_opt.MAX_EDGES
 
     class Lib:
         pose_lm_solve = _FakeFn()
+        pose_lm_blocks_per_pose = _FakeFn()
 
     lib = pose_opt._bind(Lib())
-    assert lib.pose_lm_solve.argtypes == [_C_TYPES[p] for p in params]
-    assert lib.pose_lm_solve.restype is ctypes.c_int
+    for fn in ("pose_lm_solve", "pose_lm_blocks_per_pose"):
+        m = re.search(rf"int {fn}\(([^)]*)\)", extern)
+        assert m, f"{fn} is not in the extern \"C\" block"
+        params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+        assert getattr(lib, fn).argtypes == [_C_TYPES[p] for p in params]
+        assert getattr(lib, fn).restype is ctypes.c_int
