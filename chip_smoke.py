@@ -14,9 +14,12 @@ Phases (any failure raises and the script exits nonzero without the final
 2. Build the kernels from ``orb_slam2_with_comment_tpu_torch/csrc``
    (``hamming.cu``, the package's first kernel ``hamming_v1.cu`` as the
    timing baseline, ``pose_lm.cu``, the first pose kernel
-   ``pose_lm_v1.cu`` as its timing baseline, and ``orb.cu``; one nvcc
-   each, started together) and print the build time and ptxas' register
-   report. From
+   ``pose_lm_v1.cu`` as its timing baseline, ``orb.cu``, and PR 10's
+   ``orb_cells`` and ``orb_describe`` as ``orb_v1.cu``, their timing
+   baseline; one nvcc each, started together) and print the build time,
+   ptxas' register report and the blocks of ``orb_cells`` and
+   ``orb_describe`` resident on one SM, current and baseline
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor). From
    here on every feature extraction counts one frame and every view
    extracted on the card one view (count_frames): the launches per frame
    of each path.
@@ -55,10 +58,14 @@ Phases (any failure raises and the script exits nonzero without the final
    KITTI-camera frame at 1241x376 with 2000, an odd size (641x479: ragged
    cells on every level), a flat image (no corner, every slot invalid), a
    checkerboard (many equal scores), 50 features and 5 (levels of budget
-   0), and two frames above the former 2048-cell limit: 1921x1081 and
-   2560x1440 with 1000 features. The score and blurred buffers, the
+   0), two frames above the former 2048-cell limit: 1921x1081 and
+   2560x1440 with 1000 features, and orbit frame 0's pyramid less 128
+   with some -0 pixels (orb_cells scores tiles with a sign bit set on the
+   floats, the others on the bits). The score and blurred buffers, the
    candidates, yx, response, valid,
-   octave and xy identical on every slot; angles identical on level 0 and
+   octave and xy identical on every slot (the baseline kernels'
+   orb_cells, csrc/orb_v1.cu, gives the current one's buffers and
+   candidates too, and its orb_describe is held to the same gates); angles identical on level 0 and
    within 1e-4 on coarser levels wherever the IC moments keep 1/1000 of
    their terms' magnitude (where they cancel, on flat patches and at
    symmetric checkerboard junctions, the angle is rounding in either
@@ -66,8 +73,11 @@ Phases (any failure raises and the script exits nonzero without the final
    are, and on the rendered frames at most 1% of the valid rows differing,
    by at most 8 bits; two launches identical. Each kernel is timed at the
    main path's three shapes and at 2560x1440 the same two ways beside its
-   bound (bound_orb) and its plain version's time, and the chain per view
-   beside the plain chain and the pyramid before it.
+   bound (bound_orb) and its plain version's time, orb_cells and
+   orb_describe in turns with their baseline kernels (both sides through
+   ops/orb.launch_cells and launch_describe, so that the two times differ
+   only by the kernel), and the chain per
+   view beside the plain chain and the pyramid before it.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -445,6 +455,34 @@ def base_pose() -> BaselinePose:
     return _BASE_POSE[0]
 
 
+class BaselineOrb:
+    """PR 10's orb_cells and orb_describe (csrc/orb_v1.cu), loaded beside
+    the current ones for the comparison and the timing only."""
+
+    def __init__(self):
+        self.lib = orb._bind(ctypes.CDLL(cuda_lib.build("orb_v1")),
+                             ORB_V1_FUNCTIONS)
+        got, want = self.lib.orb_table_bytes(), ctypes.sizeof(orb._OrbTable)
+        assert got == want, (got, want)
+
+    def cells(self, flat, levels):
+        return orb.launch_cells(self.lib, flat, levels)
+
+    def describe(self, flat, score, blurred, yx, levels):
+        return orb.launch_describe(self.lib, flat, score, blurred, yx, levels)
+
+
+ORB_V1_FUNCTIONS = ("orb_table_bytes", "orb_resident_blocks", "orb_cells",
+                    "orb_describe")
+_BASE_ORB: list = []
+
+
+def base_orb() -> BaselineOrb:
+    if not _BASE_ORB:
+        _BASE_ORB.append(BaselineOrb())
+    return _BASE_ORB[0]
+
+
 class BaselineKernels:
     """The package's first Hamming kernels (csrc/hamming_v1.cu), loaded
     beside the current ones for the timing comparison only."""
@@ -771,8 +809,10 @@ def check_pose_kernel(dev) -> dict:
 # csrc/orb.cu's float32 operations, counted from its code (multiplies,
 # adds, subtractions, negations, minima, maxima, comparisons, roundings;
 # the integer keys of the top-8 and of the sort count nothing): orb_cells
-# per masked-in pixel (the FAST score: 16 differences, 16 negations, 2 x 79
-# minima and maxima of the 9-arcs, 2 more) and per level pixel (8 NMS
+# per masked-in pixel (the FAST score: 2 x 57 minima and maxima of the
+# arcs, 2 subtractions, the larger side, the clamp; PR 10's kernel did 192:
+# 16 differences, 16 negations, 2 x 79 minima and maxima, 2 more) and per
+# level pixel (8 NMS
 # maxima and its comparison, the cell maximum, the threshold's comparison;
 # the two blur passes, 7 multiplies and 7 adds each, and the rounding);
 # orb_select per key (the rank times 1e7, the subtraction, the + 0) and per
@@ -781,7 +821,13 @@ def check_pose_kernel(dev) -> dict:
 # subtraction and a rounding for each of its row and column), and per slot
 # (atan2f, sinf and cosf at about 20 each, the parabola 22, the position 4,
 # the 256 comparisons)
-ORB_OPS_SCORED = 192
+ORB_OPS_SCORED = 120
+# the minimum and maximum instructions orb_cells issues (three-input DPX
+# ones on a tile of nonnegative pixels): per scored pixel the arcs' 2 x 40,
+# the larger side and the clamp; per level pixel the NMS's 5, its
+# comparison and the cell's maximum
+ORB_MINMAX_SCORED = 2 * 40 + 2
+ORB_MINMAX_PIXEL = 5 + 2
 ORB_OPS_PIXEL = 11 + 29
 ORB_OPS_KEY = 3
 ORB_OPS_SLOT_SELECT = 1
@@ -814,6 +860,26 @@ def bound_orb(kernel: str, levels, margin: int = 16):
                     + (8 + 48) * slots,
                     slots * (ORB_OPS_TERM * ORB_CIRCLE + ORB_OPS_POINT * 512
                              + ORB_OPS_SLOT_DESCRIBE))
+
+
+def issue_orb_cells(levels, margin: int = 16) -> float:
+    """An estimate of the ms that orb_cells' minima and maxima take to
+    issue at the card's highest SM clock, at an assumed 64 a clock on each
+    SM: the rate of NVIDIA's table of arithmetic instruction throughput for
+    compute capability 9.0, 32-bit minimum and maximum. The table lists no
+    rate for the DPX instructions the kernel issues, so this is logged
+    beside the times, not reported as a bound."""
+    px = sum(lv.h * lv.w for lv in levels)
+    lo = max(3, margin)
+    scored = sum(max(lv.h - 2 * lo, 0) * max(lv.w - 2 * lo, 0)
+                 for lv in levels)
+    n = ORB_MINMAX_SCORED * scored + ORB_MINMAX_PIXEL * px
+    return 1000.0 * n / (popc_per_s() * 64.0 / 16.0)
+
+
+# the K2 problems phase 3 times: the main path's three shapes and 2560x1440
+ORB_TIMED = ("orbit frame 0, 640x480, 1000", "orbit frame 1, 640x480, 2000",
+             "KITTI camera, 1241x376, 2000", "2560x1440, 1000")
 
 
 def orb_cases(dev):
@@ -851,25 +917,72 @@ def orb_cases(dev):
         ext = OrbExtractor(n_features=n)
         out.append((name, ext._pyramid(torch.as_tensor(img, device=dev)),
                     ext, rendered))
+    # pixels below 0 (and -0): orb_cells scores such tiles on the floats
+    name, pyr, ext, _ = out[0]
+    shifted = [p - 128.0 for p in pyr]
+    shifted[0][::7, ::5] = -0.0
+    out.append(("orbit frame 0 less 128, 640x480, 1000 (negative pixels)",
+                shifted, ext, False))
     return out
+
+
+def hold_describe(kernel, got_d, want_d, valid, kept, rendered, name):
+    """orb_describe's gates against the plain version: xy and octave
+    identical, level-0 angles identical, coarser angles within 1e-4 where
+    the moments keep >= 1e-3 of their terms (``kept``), no descriptor row
+    differing at an equal angle, and on a rendered frame at most 1% of
+    the valid rows differing, by at most 8 bits. Returns (the largest
+    held angle difference, |angle differences|, differing rows, their
+    bits, differing valid rows)."""
+    for part, a, b in zip(("xy", "octave"), got_d[:2], want_d[:2]):
+        assert torch.equal(a, b), f"{kernel} {part} differs at {name}"
+    lvl0 = want_d[1] == 0
+    dang = (got_d[2] - want_d[2]).abs()
+    assert torch.equal(got_d[2][lvl0], want_d[2][lvl0]), \
+        f"{kernel} level-0 angles differ at {name}"
+    err_ang = float(dang[kept].max()) if kept.any() else 0.0
+    assert err_ang <= 1e-4, f"{kernel} angles differ at {name}: {err_ang}"
+    rows = (got_d[3] != want_d[3]).any(1)
+    assert not rows[dang == 0].any(), \
+        f"{kernel} descriptors differ at an equal angle at {name}"
+    bits = hamming.popcount32(got_d[3] ^ want_d[3]).sum(1)
+    n_rows = int((rows & valid).sum())
+    if rendered:
+        assert n_rows <= 0.01 * int(valid.sum()), \
+            f"{kernel}: {n_rows} valid descriptor rows differ at {name}"
+        worst = int(bits[valid].max()) if valid.any() else 0
+        assert worst <= 8, \
+            f"{kernel}: a valid descriptor row differs by {worst} bits at " \
+            f"{name}"
+    return err_ang, dang, rows, bits, n_rows
 
 
 def hold_orb(name, pyr, ext, rendered):
     """K2a, K2b and K2c each against its plain version on the same inputs,
-    then the chain against the plain chain, then two launches. Returns
-    (max |angle| difference on coarser levels where the moments do not
-    cancel, differing valid descriptor rows)."""
+    the baseline kernels (csrc/orb_v1.cu) too, then the chain against the
+    plain chain, then two launches. Returns (max |angle| difference on
+    coarser levels where the moments do not cancel, differing valid
+    descriptor rows)."""
     levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
                              tuple(ext.budgets), tuple(ext.scales))
     flat = torch.cat([p.reshape(-1) for p in pyr])
     want = orb.cells_plain(flat, levels)
     got = orb.cells(flat, levels)
-    for part, a, b in zip(("score", "blurred"), got[:2], want[:2]):
-        for lv in levels:
-            assert torch.equal(orb._view(a, lv), orb._view(b, lv)), \
-                f"orb_cells {part} differs at {name}, level {lv.lvl}"
-    assert torch.equal(got[2], want[2]), f"orb_cells values at {name}"
-    assert torch.equal(got[3], want[3]), f"orb_cells indices at {name}"
+    prev = base_orb().cells(flat, levels)
+    for kernel, out in (("orb_cells", got), ("orb_cells (orb_v1)", prev)):
+        for part, a, b in zip(("score", "blurred"), out[:2], want[:2]):
+            for lv in levels:
+                assert torch.equal(orb._view(a, lv), orb._view(b, lv)), \
+                    f"{kernel} {part} differs at {name}, level {lv.lvl}"
+        assert torch.equal(out[2], want[2]), f"{kernel} values at {name}"
+        assert torch.equal(out[3], want[3]), f"{kernel} indices at {name}"
+    for part, a, b in zip(("score", "blurred", "values", "indices"),
+                          got, prev):
+        views = ([(orb._view(a, lv), orb._view(b, lv)) for lv in levels]
+                 if part in ("score", "blurred") else [(a, b)])
+        for x, y in views:  # bits: a zero's sign too
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), \
+                f"orb_cells and orb_v1 differ in the bits of {part} at {name}"
     score, blurred, cand_v, cand_i = want
     want_s = orb.select_plain(cand_v, cand_i, levels)
     for part, a, b in zip(("yx", "response", "valid"),
@@ -877,29 +990,15 @@ def hold_orb(name, pyr, ext, rendered):
         assert torch.equal(a, b), f"orb_select {part} differs at {name}"
     yx = want_s[0]
     want_d = orb.describe_plain(flat, score, blurred, yx, levels)
-    got_d = orb.describe(flat, score, blurred, yx, levels)
-    for part, a, b in zip(("xy", "octave"), got_d[:2], want_d[:2]):
-        assert torch.equal(a, b), f"orb_describe {part} differs at {name}"
     valid = want_s[2]
-    lvl0 = want_d[1] == 0
-    dang = (got_d[2] - want_d[2]).abs()
-    assert torch.equal(got_d[2][lvl0], want_d[2][lvl0]), \
-        f"orb_describe level-0 angles differ at {name}"
     kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
-    err_ang = float(dang[kept].max()) if kept.any() else 0.0
-    assert err_ang <= 1e-4, f"orb_describe angles differ at {name}: {err_ang}"
-    same_ang = dang == 0
-    rows = (got_d[3] != want_d[3]).any(1)
-    assert not rows[same_ang].any(), \
-        f"orb_describe descriptors differ at an equal angle at {name}"
-    bits = hamming.popcount32(got_d[3] ^ want_d[3]).sum(1)
-    n_rows = int((rows & valid).sum())
-    if rendered:
-        assert n_rows <= 0.01 * int(valid.sum()), \
-            f"{n_rows} valid descriptor rows differ at {name}"
-        worst = int(bits[valid].max()) if valid.any() else 0
-        assert worst <= 8, \
-            f"a valid descriptor row differs by {worst} bits at {name}"
+    err_ang, dang, rows, bits, n_rows = hold_describe(
+        "orb_describe", orb.describe(flat, score, blurred, yx, levels),
+        want_d, valid, kept, rendered, name)
+    err_v1, _, rows_v1, _, n_rows_v1 = hold_describe(
+        "orb_describe (orb_v1)", base_orb().describe(flat, score, blurred,
+                                                     yx, levels),
+        want_d, valid, kept, rendered, name)
     chain = orb.extract_levels(pyr, ext.budgets, ext.scales)
     again = orb.extract_levels(pyr, ext.budgets, ext.scales)
     plain = orb.extract_levels_plain(flat, levels)
@@ -918,7 +1017,10 @@ def hold_orb(name, pyr, ext, rendered):
         f"more: up to {float(dang[~kept].max()) if (~kept).any() else 0:.3g}"
         f" rad); descriptor rows differing {int(rows.sum())} ({n_rows} "
         f"valid, at most {int(bits.max()) if len(bits) else 0} bits); two "
-        f"launches identical")
+        f"launches identical; orb_v1: the same cells bit for bit, angles "
+        f"within {err_v1:.3g}, "
+        f"descriptor rows differing {int(rows_v1.sum())} ({n_rows_v1} "
+        f"valid)")
     return err_ang, n_rows
 
 
@@ -926,8 +1028,9 @@ def check_orb_kernels(dev) -> list:
     """Phase 3, K2: each ORB kernel held against its plain version on
     every case of orb_cases (hold_orb), then timed at the main path's three
     shapes per wrapper call (CUDA events) and per launch in a replayed CUDA
-    graph, beside its bound and the plain version's time. Returns the
-    three kernels' rows."""
+    graph, beside its bound and the plain version's time; orb_cells'
+    log line also gives issue_orb_cells' estimate. Returns the three
+    kernels' rows."""
     cases = orb_cases(dev)
     err, n_rows = 0.0, 0
     for case in cases:
@@ -935,7 +1038,7 @@ def check_orb_kernels(dev) -> list:
         err, n_rows = max(err, e), n_rows + r
     torch.cuda.synchronize()
     timed = {k: [] for k in orb.LAUNCHES}
-    for name, pyr, ext, _ in cases[:3] + cases[-1:]:
+    for name, pyr, ext, _ in (c for c in cases if c[0] in ORB_TIMED):
         levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
                                  tuple(ext.budgets), tuple(ext.scales))
         flat = torch.cat([p.reshape(-1) for p in pyr])
@@ -950,15 +1053,32 @@ def check_orb_kernels(dev) -> list:
                 lambda: orb.describe(flat, score, blurred, yx, levels),
                 lambda: orb.describe_plain(flat, score, blurred, yx,
                                            levels))}
+        # the kernel and its baseline timed through one path,
+        # launch_cells / launch_describe, each given its own library
+        both = {"orb_cells": lambda lib: (
+                    lambda: orb.launch_cells(lib, flat, levels)),
+                "orb_describe": lambda lib: (
+                    lambda: orb.launch_describe(lib, flat, score, blurred,
+                                                yx, levels))}
         for kernel, (fn, plain) in runs.items():
-            row = {"problem": name, "ms": cuda_ms(fn, 50),
-                   "device_ms": graph_ms(fn), "plain_ms": cuda_ms(plain, 3)}
+            row = {"problem": name}
+            if kernel in both:
+                row.update(time_pair(both[kernel](orb._kernel_lib()),
+                                     both[kernel](base_orb().lib), plain, 3))
+            else:
+                row.update(ms=cuda_ms(fn, 50), device_ms=graph_ms(fn),
+                           plain_ms=cuda_ms(plain, 3))
             row["bound_ms"], row["bound_by"] = bound_orb(kernel, levels)
             timed[kernel].append(row)
+            prev = (f"; orb_v1 {row['prev_ms']:.4f} and "
+                    f"{row['prev_device_ms']:.4f}" if "prev_ms" in row else "")
+            # an estimate at an assumed rate, logged only
+            issue = (f"; min/max issue estimate {issue_orb_cells(levels):.6f}"
+                     if kernel == "orb_cells" else "")
             log(f"{kernel} {name}: kernel {row['ms']:.4f} ms per call, "
-                f"{row['device_ms']:.4f} ms on the device; plain "
+                f"{row['device_ms']:.4f} ms on the device{prev}; plain "
                 f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
-                f"{row['bound_by']}")
+                f"{row['bound_by']}{issue}")
         chain = cuda_ms(lambda: orb.extract_levels(pyr, ext.budgets,
                                                    ext.scales), 50)
         chain_dev = graph_ms(lambda: orb.extract_levels(pyr, ext.budgets,
@@ -972,12 +1092,15 @@ def check_orb_kernels(dev) -> list:
     xla = ("orb_slam2_with_comment_tpu/frontend/extractor.py:118 (XLA ops, "
            ":118-203, on ops/{fast,image,orientation,brief}.py; not a "
            "Pallas kernel)")
+    base = {"name": "orb_v1",
+            "source": "orb_slam2_with_comment_tpu_torch/csrc/orb_v1.cu"}
     # no single PyTorch call computes any of the three: library_ms is null
     return [dict(rows[0], name=k, route="cuda", source=src, replaces=xla,
                  max_abs_err=err if k == "orb_describe" else 0.0,
                  differing_valid_descriptor_rows=(
                      n_rows if k == "orb_describe" else 0),
-                 library_ms=None, other_problems=rows[1:])
+                 library_ms=None, other_problems=rows[1:],
+                 **({"baseline": base} if k != "orb_select" else {}))
             for k, rows in timed.items()]
 
 
@@ -3196,7 +3319,8 @@ def main():
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
-    libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb"]
+    libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb",
+            "orb_v1"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
@@ -3205,6 +3329,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
         log(cuda_lib.build_logs.get(name, "").strip())
+    for name, lib in (("orb", None), ("orb_v1", base_orb().lib)):
+        log(f"csrc/{name}.cu resident blocks per SM (orb_cells, "
+            f"orb_describe): {orb.resident_blocks(lib)}")
     count_frames()
     workers = max(1, min(7, (os.cpu_count() or 2) - 1))
     if not kernels_only:

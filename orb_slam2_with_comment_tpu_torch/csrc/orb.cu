@@ -2,17 +2,18 @@
 // bound through a plain C interface (ctypes): three kernels, each launched
 // once per view and each covering all levels.
 //
-//   orb_cells     one block per 32x32 cell of every level: the FAST-9/16
-//                 score masked to the border, strict 3x3 NMS, the cell's
-//                 20 -> 7 threshold and its top 8 corners; in the same pass
-//                 the 7x7 sigma=2 blur rounded half to even.
+//   orb_cells     one 256-thread block per strip of kStrip 32x32 cells along
+//                 a row of a level: the FAST-9/16 score masked to the border,
+//                 strict 3x3 NMS, each cell's 20 -> 7 threshold and its top
+//                 8 corners; in the same pass the 7x7 sigma=2 blur rounded
+//                 half to even.
 //   orb_select    one block per level: the spatial round-robin top-k of
 //                 the cells' candidates (every cell's best before any
 //                 cell's second-best) by a radix select of the k-th key,
 //                 then a counting rank of the k winners in shared memory.
-//   orb_describe  one warp per output slot: the IC angle, the 256-bit
-//                 rotated BRIEF at the exact angle, the subpixel parabola
-//                 and the level-0 position.
+//   orb_describe  one 128-thread block per output slot: the IC angle, the
+//                 256-bit rotated BRIEF at the exact angle, the subpixel
+//                 parabola and the level-0 position.
 //
 // What it replaces. In the JAX package extraction is one compiled XLA
 // program per view, orb_slam2_with_comment_tpu/frontend/extractor.py:118-203
@@ -33,13 +34,21 @@
 // where everything is. The score and blurred buffers are packed like the
 // pyramid. Candidates are [cells, 8] values and in-cell indices. Ties go to
 // the lower index everywhere, as the plain version's stable sorts do.
-//   - FAST (ops/fast.py fast_score_map): the 16 ring differences, the
-//     minimum of each 9-arc, the larger of the bright and dark maxima,
-//     clamped at 0; zero in the 3 px frame and outside the margin. Minima
-//     and maxima are exact, so any order gives the same bits.
+//   - FAST (ops/fast.py fast_score_map): the larger of the bright score
+//     max_i min(arc i) - c and the dark score c - min_i max(arc i) over the
+//     16 arcs of 9 ring pixels, clamped at 0; zero in the 3 px frame and
+//     outside the margin. Minima and maxima are exact, so any order gives
+//     the same value. A tile whose pixels are all nonnegative (every
+//     pyramid of an image) takes the arcs on the pixels themselves, as
+//     their bits, with three-input integer minima and maxima (DPX), and
+//     subtracts the center after (2 subtractions a pixel, not 16; see
+//     fast_score); a tile with a sign bit set takes the arcs of the
+//     differences on the floats. Either gives PR 10's bits, zeros' signs
+//     included.
 //   - NMS, threshold, top 8 (fast.cell_candidates): zero outside the map;
 //     the top 8 of the kept values by a 64-bit key (value bits, then the
-//     in-cell index reversed), eight block-wide maxima.
+//     in-cell index reversed): unique keys, so any exact selection gives
+//     the plain version's top 8 in its order.
 //   - Blur (ops/image.py gaussian_blur): vertical pass first with rows
 //     clamped, then the horizontal pass over the vertical results with
 //     columns clamped, each sum 0 + k0 x0 + k1 x1 + ... in that order, the
@@ -59,30 +68,58 @@
 //     word w is comparison 32 w + k (one __ballot_sync per word); the
 //     parabola from the score buffer; x and y times the float32 scale.
 //   The IC moments are the one sum whose order differs from the plain
-//   version's (cuBLAS there): exact on level 0, where the terms are
-//   integers and every partial sum stays below 2^24; coarser levels round
-//   in another order, within 1e-4 rad, which can flip a BRIEF bit.
+//   version's (cuBLAS there): a fixed tree (each thread's terms in row
+//   order, a shuffle butterfly per warp, the warps' sums in warp order;
+//   tests/test_torch_orb.py emulates it). Exact on level 0, where the terms
+//   are integers and every partial sum stays below 2^24; coarser levels
+//   round in another order, within 1e-4 rad, which can flip a BRIEF bit.
 //
-// What bounds it on this card, counted from this code (chip_smoke.py
-// bound_orb uses the same counts; float32 operations, the integer keys of
-// the top 8 and of the selection not counted). orb_cells does 192 for each
-// pixel it scores (16 differences, 16 negations, 2 x 79 minima and maxima
-// of the 9-arcs, 2 more) and 40 for each pixel of a level (the NMS, the
-// cell's maximum and threshold, the two blur passes of 7 multiplies and 7
-// adds, the rounding): 1.9e8 at 640x480, 2.8 us at 67 TFLOP/s; it reads the
-// pyramid once and writes the score and blurred buffers once, 11.4 MB at
-// 640x480, 3.4 us at 3.35 TB/s: bound by bytes. orb_select does 3 per key
-// against 64 bytes per cell and 13 per slot: under 0.05 us, by bytes.
-// orb_describe does 4 per IC circle term (749 of them), 8 per rotated
-// BRIEF point (512) and about 340 more per slot (the angle, sine and
-// cosine, the comparisons, the parabola): 7,434 per slot, 0.11 us at 1000
-// slots, against the patches it reads and its 56 bytes out per slot, 1.5
-// us: bound by bytes. A view's bound is about 5 us. What this first
-// version waits on is its serial chains, not those rates: orb_cells'
-// eight top-8 rounds of block reductions, orb_select's four radix passes
-// and its tie and rank passes on one block per level (the level-0 block
-// sets its time; the bitonic sort it replaced took 78 passes with a
-// barrier each), and three launches.
+// What bounds it on this card (chip_smoke.py bound_orb counts the same
+// operations; the integer keys of the top 8 and of the selection not
+// counted). orb_cells needs 120 operations for each pixel it
+// scores (the arcs of both sides as van Herk's runs of 57 two-input
+// minima and maxima each, 2 subtractions, the larger side, the clamp) and 40
+// for each pixel of a level (the NMS, the cell's maximum and threshold,
+// the two blur passes of 7 multiplies and 7 adds, the rounding): 1.2e8 at
+// 640x480, 1.8 us at 67 TFLOP/s; it reads the pyramid once and writes the
+// score and blurred buffers once, 11.4 MB at 640x480, 3.4 us at 3.35
+// TB/s: bound by bytes. What it issues may set its time: with DPX the arcs
+// are 80 three-input instructions a scored pixel (PR 10's kernel: 158
+// two-input ones), 6.6e7 minima and maxima at 640x480; at an assumed 64 a
+// clock an SM (the rate NVIDIA's throughput table gives compute
+// capability 9.0 for 32-bit minimum and maximum; it lists no DPX rate)
+// about 4.3 us, an estimate (chip_smoke.py issue_orb_cells logs it).
+// orb_select does 3 per key against
+// 64 bytes per cell and 13 per slot: under 0.05 us, by bytes. orb_describe
+// does 4 per IC circle term (749 of them), 8 per rotated BRIEF point (512)
+// and about 340 more per slot (the angle, sine and cosine, the
+// comparisons, the parabola): 7,434 per slot, 0.11 us at 1000 slots,
+// against the patches it reads and its 56 bytes out per slot, 1.5 us:
+// bound by bytes; what it waits on is each slot's chain of dependent
+// loads (the keypoint, the circle, the BRIEF gathers after the angle).
+//
+// What the design does about it. PR 10's orb_cells (csrc/orb_v1.cu) ran
+// one block per cell: a 40x40 tile for 1,024 pixels, and after the scores
+// a chain of eight block-wide maxima, one barrier each, for the top 8. Here
+// a block takes kStrip cells of a row from one tile of 40 x (32 kStrip + 8)
+// pixels, all its loads issued before any store, each row read by one
+// warp; the FAST arcs cost 80 DPX instructions a pixel; then warp w owns
+// kRowsPerWarp rows of one cell, lane q column q, and walks down them
+// reading each score row once for the NMS. The top 8 needs no rounds: a
+// warp lists its kept values (strict 3x3 maxima, at most one in 2x2
+// pixels), ranks each by counting the listed keys above it, and fills the
+// ranks left with zero values in index order by ballots; one warp of each
+// cell ranks its warps' 8s the same way. Four barriers a block (the tile,
+// the scores, the cell's maximum, the warps' 8s), not eleven. PR 10's
+// orb_describe ran one warp per slot, lane v summing row v, a chain of up
+// to 31 dependent loads, and the BRIEF words one after another: 125 blocks
+// for 1,000 slots, under one an SM. Here a block per slot issues every
+// load that does not wait on the angle at once (its circle terms, 8 a
+// thread; its two pattern pairs; the parabola's 5 scores), thread 0 alone
+// takes atan2f, sinf and cosf and broadcasts them, and each warp ballots
+// two BRIEF words. kStrip, kDescribeThreads and the launch bounds were
+// chosen on the card, each variant timed against csrc/orb_v1.cu in one
+// call; the variants and the times against the bound: PERF.md.
 //
 // Why -fmad=false stays (ops/cuda_lib.py builds every kernel with it): the
 // plain version rounds every float multiply and add on its own, and the
@@ -111,15 +148,29 @@ constexpr int kMaxBudget = 28672; // orb_select's winners: 224 KB
 constexpr int kHalfPatch = 15;    // the IC circle's radius
 constexpr int kBriefRadius = 19;
 constexpr int kHalo = 4;          // 3 px FAST ring + 1 px NMS
-constexpr int kTile = kCell + 2 * kHalo;   // 40: the image tile
-constexpr int kScoreTile = kCell + 2;      // 34: the scored tile
-constexpr int kBlurCols = kCell + 6;       // 38: vertical blur columns
+constexpr int kTile = kCell + 2 * kHalo;   // 40: the image tile's rows
+constexpr int kScoreTile = kCell + 2;      // 34: the scored tile's rows
+constexpr int kStrip = 2;                  // orb_cells' cells a block
+constexpr int kCellBlocks = 4;             // its blocks an SM, at least
 constexpr int kCellThreads = 256;
 constexpr int kCellWarps = kCellThreads / 32;
+constexpr int kWarpsPerCell = kCellWarps / kStrip;
+constexpr int kRowsPerWarp = kCell / kWarpsPerCell;  // of its cell
+constexpr int kListCap = kRowsPerWarp * kCell / 4;   // a warp's kept values
+constexpr int kTileW = kStrip * kCell + 2 * kHalo;   // image tile columns
+constexpr int kScoreW = kStrip * kCell + 2;          // scored tile columns
+constexpr int kBlurW = kStrip * kCell + 6;           // vertical blur columns
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectWarps = kSelectThreads / 32;
 constexpr int kRadixBits = 8, kBins = 1 << kRadixBits;
-constexpr int kDescribeWarps = 8;
+constexpr int kDescribeThreads = 128;  // orb_describe's threads a slot
+constexpr int kDescribeBlocks = 12;    // its blocks an SM, at least
+constexpr int kDescribeWarps = kDescribeThreads / 32;
+constexpr int kWordsPerWarp = 8 / kDescribeWarps;  // BRIEF words a warp
+constexpr int kRowSteps =  // circle rows a warp
+    (2 * kHalfPatch + 1 + kDescribeWarps - 1) / kDescribeWarps;
+static_assert(kCellWarps % kStrip == 0, "whole warps a cell");
+static_assert(8 % kDescribeWarps == 0, "whole BRIEF words a warp");
 
 // One level of the packed buffers. Mirrored by ops/orb.py _LevelDesc.
 struct LevelDesc {
@@ -142,17 +193,22 @@ struct OrbTable {
   LevelDesc lv[kMaxLevels];
 };
 
-// the FAST ring, ops/fast.py CIRCLE, as (dy, dx)
-__constant__ int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
-                                3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
-                                0, -1, -2, -3, -3, -3, -2, -1};
-
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// the largest over i of min(d[i], ..., d[i + 8 mod 16])
+// the image tile offset of FAST ring pixel i (ops/fast.py CIRCLE as
+// (dy, dx)); the compiler folds it into the load's address
+__device__ __forceinline__ int ring_offset(int i) {
+  constexpr int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
+                               3, 3, 2, 1, 0, -1, -2, -3};
+  constexpr int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
+                               0, -1, -2, -3, -3, -3, -2, -1};
+  return kRingDy[i] * kTileW + kRingDx[i];
+}
+
+// the largest over i of min(d[i], ..., d[i + 8 mod 16]): PR 10's order of
+// minima, so that a tile with a sign bit set gives its zeros' signs too
 __device__ __forceinline__ float max_arc9(const float* d) {
   float m2[16], m4[16], m8[16];
 #pragma unroll
@@ -167,23 +223,68 @@ __device__ __forceinline__ float max_arc9(const float* d) {
   return best;
 }
 
-// FAST score of the tile pixel (ty, tx); its ring lies inside the tile
-__device__ __forceinline__ float fast_score(const float* tile, int ty, int tx) {
-  const float c = tile[ty * kTile + tx];
-  float d[16], nd[16];
+// On the bits of nonnegative floats, which order as the floats do, with
+// Hopper's three-input integer minima and maxima (DPX): kBright, the
+// largest over the 16 arcs q[i..i+8 mod 16] of the arc's least pixel; else
+// the least over the arcs of the arc's largest. An arc is the extreme of
+// three runs of three, q[i..i+2], q[i+3..i+5], q[i+6..i+8]: 16 + 16 for the
+// arcs and 8 for their extreme, 40 a side (two-input ones: 57 with van
+// Herk's runs, 79 as PR 10's kernel took them).
+template <bool kBright>
+__device__ __forceinline__ int arc_extreme_bits(const int (&q)[16]) {
+  auto in3 = [](int a, int b, int c) {
+    return kBright ? __vimin3_s32(a, b, c) : __vimax3_s32(a, b, c);
+  };
+  auto out3 = [](int a, int b, int c) {
+    return kBright ? __vimax3_s32(a, b, c) : __vimin3_s32(a, b, c);
+  };
+  int m3[16], a[16];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    d[i] = tile[(ty + kRingDy[i]) * kTile + tx + kRingDx[i]] - c;
-    nd[i] = -d[i];
+  for (int i = 0; i < 16; ++i)
+    m3[i] = in3(q[i], q[(i + 1) & 15], q[(i + 2) & 15]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    a[i] = in3(m3[i], m3[(i + 3) & 15], m3[(i + 6) & 15]);
+  const int b0 = out3(a[0], a[1], a[2]), b1 = out3(a[3], a[4], a[5]);
+  const int b2 = out3(a[6], a[7], a[8]), b3 = out3(a[9], a[10], a[11]);
+  const int b4 = out3(a[12], a[13], a[14]);
+  const int c0 = out3(b0, b1, b2), c1 = out3(b3, b4, a[15]);
+  return kBright ? max(c0, c1) : min(c0, c1);
+}
+
+// FAST score of the image tile pixel at t; its ring lies inside the tile.
+// The plain version takes the arcs of the differences d = p - c and of
+// -d. Rounding is monotone, so the extreme of the rounded differences is
+// the rounded difference of the extreme: with kBits (every pixel of the
+// tile nonnegative, so no -0) the arcs are taken on the pixels' bits and
+// the two sides are B - c and -(D - c), the very values, zeros' signs
+// included, of PR 10's arcs; else the arcs of d and -d as PR 10 took them.
+template <bool kBits>
+__device__ __forceinline__ float fast_score(const float* t) {
+  const float c = t[0];
+  float s;
+  if (kBits) {
+    int q[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = __float_as_int(t[ring_offset(i)]);
+    const float b = __int_as_float(arc_extreme_bits<true>(q)) - c;
+    const float d = __int_as_float(arc_extreme_bits<false>(q)) - c;
+    s = fmaxf(b, -d);
+  } else {
+    float d[16], nd[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      d[i] = t[ring_offset(i)] - c;
+      nd[i] = -d[i];
+    }
+    s = fmaxf(max_arc9(d), max_arc9(nd));
   }
-  const float s = fmaxf(max_arc9(d), max_arc9(nd));
   return s < 0.0f ? 0.0f : s;
 }
 
-__device__ __forceinline__ int level_of_cell(const OrbTable& t, int c) {
-  int l = 0;
-  while (l + 1 < t.n_levels && c >= t.lv[l + 1].cell) ++l;
-  return l;
+// the strips (blocks) of orb_cells on a level
+__device__ __host__ __forceinline__ int strips(const LevelDesc& L) {
+  return L.cy * ((L.cx + kStrip - 1) / kStrip);
 }
 
 __device__ __forceinline__ int level_of_slot(const OrbTable& t, int s) {
@@ -198,137 +299,209 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ unsigned long long warp_max_u64(
-    unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = u > v ? u : v;
-  }
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__global__ void __launch_bounds__(kCellThreads) orb_cells_kernel(
+__global__ void __launch_bounds__(kCellThreads, kCellBlocks)
+orb_cells_kernel(
     const float* __restrict__ pyr, float* __restrict__ score,
     float* __restrict__ blurred, float* __restrict__ cand_v,
     int* __restrict__ cand_i, OrbTable t) {
-  __shared__ float img[kTile * kTile];
-  __shared__ float sc[kScoreTile * kScoreTile];
-  __shared__ float vb[kCell * kBlurCols];
+  __shared__ float img[kTile * kTileW];       // [kTile][kTileW]
+  __shared__ float sc[kScoreTile * kScoreW];  // [kScoreTile][kScoreW]
+  __shared__ float vb[kCell * kBlurW];        // [kCell][kBlurW]
   __shared__ float fred[kCellWarps];
-  __shared__ unsigned long long kred[2][kCellWarps];
+  __shared__ unsigned long long lists[kCellWarps][kListCap];
+  __shared__ unsigned long long tops[kCellWarps][kPerCell];
 
-  const int c = blockIdx.x;
-  const LevelDesc L = t.lv[level_of_cell(t, c)];
-  const int local = c - L.cell;
-  const int y0 = (local / L.cx) * kCell, x0 = (local % L.cx) * kCell;
+  // the level, and the strip's row of cells and first cell across
+  int l = 0, first = 0;
+  while (l + 1 < t.n_levels && (int)blockIdx.x >= first + strips(t.lv[l])) {
+    first += strips(t.lv[l]);
+    ++l;
+  }
+  const LevelDesc L = t.lv[l];
+  const int across = (L.cx + kStrip - 1) / kStrip;
+  const int row = ((int)blockIdx.x - first) / across;
+  const int cx0 = ((int)blockIdx.x - first) % across * kStrip;
+  const int n_here = min(kStrip, L.cx - cx0);  // cells in this strip
+  const int y0 = row * kCell, x0 = cx0 * kCell;
   const float* src = pyr + L.off;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // the cell and a 4 px halo, read clamped to the level's edge (the blur's
-  // padding; the FAST ring of a scored pixel never reaches the padding)
-  for (int k = tid; k < kTile * kTile; k += kCellThreads) {
-    const int y = clampi(y0 - kHalo + k / kTile, 0, L.h - 1);
-    const int x = clampi(x0 - kHalo + k % kTile, 0, L.w - 1);
-    img[k] = src[y * L.w + x];
+  // the strip and a 4 px halo, read clamped to the level's edge (the
+  // blur's padding; the FAST ring of a scored pixel never reaches it):
+  // warp w reads rows w, w + 8, ..., all loads issued before any store
+  const int tw = n_here * kCell + 2 * kHalo;
+  constexpr int kLoadRows = kTile / kCellWarps;
+  constexpr int kLoadCols = (kTileW + 31) / 32;
+  static_assert(kTile % kCellWarps == 0, "whole rows a warp");
+  float ld[kLoadRows][kLoadCols];
+#pragma unroll
+  for (int i = 0; i < kLoadRows; ++i) {
+    const float* in = src + clampi(y0 - kHalo + warp + kCellWarps * i, 0,
+                                   L.h - 1) * L.w;
+#pragma unroll
+    for (int j = 0; j < kLoadCols; ++j) {
+      const int q = lane + 32 * j;
+      ld[i][j] = q < tw ? in[clampi(x0 - kHalo + q, 0, L.w - 1)] : 0.0f;
+    }
   }
-  __syncthreads();
+  int sign = 0;  // any sign bit set in this thread's pixels
+#pragma unroll
+  for (int i = 0; i < kLoadRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kLoadCols; ++j) {
+      sign |= __float_as_int(ld[i][j]);
+      if (lane + 32 * j < kTileW)
+        img[(warp + kCellWarps * i) * kTileW + lane + 32 * j] = ld[i][j];
+    }
+  // a tile of nonnegative pixels (every pyramid of an image) scores on the
+  // bits; one with a negative value or -0 on the floats
+  const bool bits = !__syncthreads_or(sign < 0);
 
-  // masked FAST scores of the cell and a 1 px halo; zero outside the map
+  // masked FAST scores of the strip and a 1 px halo; zero outside the map
   const int lo = t.margin > 3 ? t.margin : 3;
-  for (int k = tid; k < kScoreTile * kScoreTile; k += kCellThreads) {
-    const int r = k / kScoreTile, q = k % kScoreTile;
+  const int sw = n_here * kCell + 2, bw = n_here * kCell + 6;
+  for (int k = tid; k < kScoreTile * kScoreW; k += kCellThreads) {
+    const int r = k / kScoreW, q = k % kScoreW;
+    if (q >= sw) continue;
     const int y = y0 - 1 + r, x = x0 - 1 + q;
     float s = 0.0f;
-    if (y >= lo && y < L.h - lo && x >= lo && x < L.w - lo)
-      s = fast_score(img, r + kHalo - 1, q + kHalo - 1);
+    if (y >= lo && y < L.h - lo && x >= lo && x < L.w - lo) {
+      const float* at = img + (r + kHalo - 1) * kTileW + q + kHalo - 1;
+      s = bits ? fast_score<true>(at) : fast_score<false>(at);
+    }
     sc[k] = s;
   }
-  // the vertical blur pass: rows y0..y0+31, columns x0-3..x0+34
-  for (int k = tid; k < kCell * kBlurCols; k += kCellThreads) {
-    const int r = k / kBlurCols, q = k % kBlurCols;
-    const float* col = img + (r + kHalo - 3) * kTile + q + kHalo - 3;
+  // the vertical blur pass: rows y0..y0+31, columns x0-3..
+  for (int k = tid; k < kCell * kBlurW; k += kCellThreads) {
+    const int r = k / kBlurW, q = k % kBlurW;
+    if (q >= bw) continue;
+    const float* col = img + (r + kHalo - 3) * kTileW + q + kHalo - 3;
     float acc = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 7; ++i) acc = acc + t.gauss[i] * col[i * kTile];
+    for (int i = 0; i < 7; ++i) acc = acc + t.gauss[i] * col[i * kTileW];
     vb[k] = acc;
   }
   __syncthreads();
 
-  // each thread's 4 pixels: in-cell indices tid + 256 j, row-major
-  float nv[4];
+  // warp w owns rows part * kRowsPerWarp.. of cell ci of the strip, lane
+  // q its column q: NMS, the horizontal blur pass, the writes
+  const int ci = warp / kWarpsPerCell, part = warp % kWarpsPerCell;
+  const bool live = ci < n_here;
+  const int sq = ci * kCell + lane;  // the strip column
+  const int x = x0 + sq;
+  // walking down the rows, each score row is read once (3 values): the
+  // 3x3 maximum around a pixel, itself left out, is the larger of the
+  // rows above and below (3 each) and its left and right neighbours
+  float nv[kRowsPerWarp];
   float cmax = 0.0f;
+  const float* p = sc + part * kRowsPerWarp * kScoreW + sq;  // row above
+  float above = fmaxf(fmaxf(p[0], p[1]), p[2]);
+  float left = p[kScoreW], mid = p[kScoreW + 1], right = p[kScoreW + 2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int k = tid + kCellThreads * j;
-    const int r = k / kCell, q = k % kCell;
-    const int y = y0 + r, x = x0 + q;
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int r = part * kRowsPerWarp + j;
+    const int y = y0 + r;
+    const float* b = p + (j + 2) * kScoreW;  // the row below
+    const float bl = b[0], bm = b[1], br = b[2];
+    const float below = fmaxf(fmaxf(bl, bm), br);
     float v = 0.0f;
-    if (y < L.h && x < L.w) {
-      const float* p = sc + (r + 1) * kScoreTile + q + 1;
-      const float s = p[0];
-      score[L.off + y * L.w + x] = s;
-      float m = p[-kScoreTile - 1];
-      m = fmaxf(m, p[-kScoreTile]);
-      m = fmaxf(m, p[-kScoreTile + 1]);
-      m = fmaxf(m, p[-1]);
-      m = fmaxf(m, p[1]);
-      m = fmaxf(m, p[kScoreTile - 1]);
-      m = fmaxf(m, p[kScoreTile]);
-      m = fmaxf(m, p[kScoreTile + 1]);
-      v = s > m ? s : 0.0f;
+    if (live && y < L.h && x < L.w) {
+      score[L.off + y * L.w + x] = mid;
+      const float m = fmaxf(fmaxf(above, below), fmaxf(left, right));
+      v = mid > m ? mid : 0.0f;
       float acc = 0.0f;
-      const float* row = vb + r * kBlurCols + q;
+      const float* h = vb + r * kBlurW + sq;
 #pragma unroll
-      for (int i = 0; i < 7; ++i) acc = acc + t.gauss[i] * row[i];
+      for (int i = 0; i < 7; ++i) acc = acc + t.gauss[i] * h[i];
       blurred[L.off + y * L.w + x] = rintf(acc);
     }
     nv[j] = v;
     cmax = fmaxf(cmax, v);
+    above = fmaxf(fmaxf(left, mid), right);
+    left = bl;
+    mid = bm;
+    right = br;
   }
   cmax = warp_max(cmax);
-  if (lane == 0) fred[warp] = cmax;
-  __syncthreads();
-  cmax = fred[0];
+  if (kWarpsPerCell > 1) {  // the cell's maximum over its warps
+    if (lane == 0) fred[warp] = cmax;
+    __syncthreads();
 #pragma unroll
-  for (int i = 1; i < kCellWarps; ++i) cmax = fmaxf(cmax, fred[i]);
+    for (int i = 0; i < kWarpsPerCell; ++i)
+      cmax = fmaxf(cmax, fred[ci * kWarpsPerCell + i]);
+  }
   const float th = cmax > t.th_high ? t.th_high : t.th_low;
 
-  // the top 8 of the kept values: key = value bits (nonnegative, so they
-  // order as the values) above 1024 - index (the lower index wins a tie);
-  // a taken key becomes 0, below every live one
-  unsigned long long key[4];
+  // the top 8 by key = value bits (nonnegative, so they order as the
+  // values) above 1024 - in-cell index (the lower index wins a tie). A
+  // warp lists its kept values above 0 in shared memory (strict 3x3 maxima:
+  // at most one in each 2x2 pixels, kListCap), and each listed key's rank
+  // is the count of listed keys above it; the ranks after the list are the
+  // zero values in index order, by ballots row by row. The warps' 8s of a
+  // cell then meet the same way: no rounds, no atomics.
+  const int k0 = part * kRowsPerWarp * kCell + lane;  // in-cell index, row 0
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  unsigned long long* list = lists[warp];
+  int n = 0;  // the same in every lane
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kRowsPerWarp; ++j) {
     const float kv = nv[j] > th ? nv[j] : 0.0f;
-    key[j] = ((unsigned long long)__float_as_uint(kv) << 32) |
-             (unsigned long long)(1024 - (tid + kCellThreads * j));
+    const unsigned kept = __ballot_sync(0xffffffffu, kv > 0.0f);
+    if (kv > 0.0f)
+      list[n + __popc(kept & below)] =
+          ((unsigned long long)__float_as_uint(kv) << 32) |
+          (unsigned)(1024 - (k0 + kCell * j));
+    nv[j] = kv;
+    n += __popc(kept);
   }
-  for (int rank = 0; rank < kPerCell; ++rank) {
-    unsigned long long best = key[0];
+  __syncwarp();
 #pragma unroll
-    for (int j = 1; j < 4; ++j) best = key[j] > best ? key[j] : best;
-    best = warp_max_u64(best);
-    if (lane == 0) kred[rank & 1][warp] = best;
-    __syncthreads();
-    best = kred[rank & 1][0];
-#pragma unroll
-    for (int i = 1; i < kCellWarps; ++i) {
-      const unsigned long long u = kred[rank & 1][i];
-      best = u > best ? u : best;
+  for (int m = 0; m < kListCap / 32; ++m) {
+    const int i = lane + 32 * m;
+    if (i < n) {
+      const unsigned long long key = list[i];
+      int r = 0;
+      for (int o = 0; o < n; ++o) r += list[o] > key;
+      if (r < kPerCell) tops[warp][r] = key;
     }
+  }
+  int rank = n;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (key[j] == best) key[j] = 0ull;
-    if (tid == 0) {
-      cand_v[c * kPerCell + rank] = __uint_as_float((unsigned)(best >> 32));
-      cand_i[c * kPerCell + rank] = 1024 - (int)(best & 0xffffffffu);
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    if (rank >= kPerCell) break;
+    const unsigned zero = __ballot_sync(0xffffffffu, nv[j] == 0.0f);
+    if (lane >= rank && lane < min(rank + __popc(zero), kPerCell)) {
+      unsigned z = zero;  // this lane's rank: the (lane - rank)-th zero
+      for (int i = rank; i < lane; ++i) z &= z - 1;
+      tops[warp][lane] =
+          (unsigned)(1024 - (k0 - lane + kCell * j + __ffs(z) - 1));
+    }
+    rank += __popc(zero);
+  }
+  __syncthreads();
+  if (live && part == 0) {  // the cell's 8 of its warps' 8s
+    constexpr int kKeys = kPerCell * kWarpsPerCell;
+    const unsigned long long* cell_tops = tops[ci * kWarpsPerCell];
+    const int c = L.cell + row * L.cx + cx0 + ci;
+#pragma unroll
+    for (int m = 0; m < (kKeys + 31) / 32; ++m) {
+      const int i = lane + 32 * m;
+      if (i < kKeys) {
+        const unsigned long long key = cell_tops[i];
+        int r = 0;
+#pragma unroll 8
+        for (int o = 0; o < kKeys; ++o) r += cell_tops[o] > key;
+        if (r < kPerCell) {
+          cand_v[c * kPerCell + r] = __uint_as_float((unsigned)(key >> 32));
+          cand_i[c * kPerCell + r] = 1024 - (int)(key & 0xffffffffu);
+        }
+      }
     }
   }
 }
@@ -471,65 +644,85 @@ __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kDescribeWarps * 32) orb_describe_kernel(
+// One block per slot. Every load that does not wait on the angle is
+// issued first: the thread's BRIEF pairs, its circle terms (warp w sums
+// rows v = w - 15 + kDescribeWarps i, lane u + 15 column u, kRowSteps
+// terms a thread at most) and thread 32's five parabola scores. The
+// moments: each thread's terms in row order, a shuffle butterfly per warp,
+// then the warps' sums in warp order by thread 0, which takes atan2f, sinf
+// and cosf and broadcasts them. Warp w ballots the BRIEF words
+// kWordsPerWarp w + h, lane l comparison 32 (kWordsPerWarp w + h) + l.
+__global__ void __launch_bounds__(kDescribeThreads, kDescribeBlocks)
+orb_describe_kernel(
     const float* __restrict__ pyr, const float* __restrict__ score,
     const float* __restrict__ blurred, const int* __restrict__ yx,
     const float4* __restrict__ pattern, float* __restrict__ xy,
     int* __restrict__ octave, float* __restrict__ angle,
     int* __restrict__ desc, OrbTable t) {
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kDescribeWarps + (threadIdx.x >> 5);
-  if (s >= t.n_slots) return;  // the whole warp
+  __shared__ float part[2][kDescribeWarps];
+  __shared__ float trig[2];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const LevelDesc L = t.lv[level_of_slot(t, s)];
   const int y = yx[2 * s], x = yx[2 * s + 1];
+  const float* img = pyr + L.off;
+  float4 p[kWordsPerWarp];  // (ax, ay, bx, by)
+#pragma unroll
+  for (int h = 0; h < kWordsPerWarp; ++h)
+    p[h] = __ldg(pattern + 32 * (kWordsPerWarp * warp + h) + lane);
 
-  // IC moments over the circle, lane v + 15 summing row v, the image read
-  // clamped to the level's edge
-  float m10 = 0.0f, m01 = 0.0f;
-  if (lane < 2 * kHalfPatch + 1) {
-    const int v = lane - kHalfPatch;
-    const int half = t.umax[v < 0 ? -v : v];
-    const float* row = pyr + L.off + clampi(y + v, 0, L.h - 1) * L.w;
-    const float fv = (float)v;
-    for (int u = -half; u <= half; ++u) {
-      const float p = row[clampi(x + u, 0, L.w - 1)];
-      m10 = m10 + (float)u * p;
-      m01 = m01 + fv * p;
-    }
+  const int u = lane - kHalfPatch;
+  const int au = u < 0 ? -u : u;
+  const int xu = clampi(x + u, 0, L.w - 1);
+  float px[kRowSteps];
+  bool in[kRowSteps];
+#pragma unroll
+  for (int i = 0; i < kRowSteps; ++i) {
+    const int v = warp - kHalfPatch + kDescribeWarps * i;
+    const int av = v < 0 ? -v : v;
+    in[i] = lane < 2 * kHalfPatch + 1 && av <= kHalfPatch &&
+            au <= t.umax[av < kHalfPatch ? av : kHalfPatch];
+    px[i] = in[i] ? img[clampi(y + v, 0, L.h - 1) * L.w + xu] : 0.0f;
   }
-  m10 = warp_sum(m10);
-  m01 = warp_sum(m01);
-  const float ang = atan2f(m01, m10);
-
-  // rotated BRIEF at the exact angle: lane l decides comparison 32 w + l
-  const float sa = sinf(ang), ca = cosf(ang);
-  const float* bl = blurred + L.off;
-  for (int w = 0; w < 8; ++w) {
-    const float4 p = pattern[32 * w + lane];  // (ax, ay, bx, by)
-    const int ra = clampi((int)rintf(p.x * sa + p.y * ca), -kBriefRadius,
-                          kBriefRadius);
-    const int ca_ = clampi((int)rintf(p.x * ca - p.y * sa), -kBriefRadius,
-                           kBriefRadius);
-    const int rb = clampi((int)rintf(p.z * sa + p.w * ca), -kBriefRadius,
-                          kBriefRadius);
-    const int cb = clampi((int)rintf(p.z * ca - p.w * sa), -kBriefRadius,
-                          kBriefRadius);
-    const float va = bl[clampi(y + ra, 0, L.h - 1) * L.w +
-                        clampi(x + ca_, 0, L.w - 1)];
-    const float vb = bl[clampi(y + rb, 0, L.h - 1) * L.w +
-                        clampi(x + cb, 0, L.w - 1)];
-    const unsigned bits = __ballot_sync(0xffffffffu, va < vb);
-    if (lane == 0) desc[8 * s + w] = (int)bits;
-  }
-
-  if (lane == 0) {
-    // the subpixel parabola on the masked score, read clamped
+  float c = 0.0f, up = 0.0f, dn = 0.0f, lf = 0.0f, rt = 0.0f;
+  if (tid == 32) {  // the subpixel parabola on the masked score, clamped
     const float* sm = score + L.off;
     const int yu = clampi(y - 1, 0, L.h - 1), yd = clampi(y + 1, 0, L.h - 1);
     const int xl = clampi(x - 1, 0, L.w - 1), xr = clampi(x + 1, 0, L.w - 1);
-    const float c = sm[y * L.w + x];
-    const float up = sm[yu * L.w + x], dn = sm[yd * L.w + x];
-    const float lf = sm[y * L.w + xl], rt = sm[y * L.w + xr];
+    c = sm[y * L.w + x];
+    up = sm[yu * L.w + x];
+    dn = sm[yd * L.w + x];
+    lf = sm[y * L.w + xl];
+    rt = sm[y * L.w + xr];
+  }
+
+  float m10 = 0.0f, m01 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRowSteps; ++i)
+    if (in[i]) {
+      m10 = m10 + (float)u * px[i];
+      m01 = m01 + (float)(warp - kHalfPatch + kDescribeWarps * i) * px[i];
+    }
+  m10 = warp_sum(m10);
+  m01 = warp_sum(m01);
+  if (lane == 0) {
+    part[0][warp] = m10;
+    part[1][warp] = m01;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a = part[0][0], b = part[1][0];
+#pragma unroll
+    for (int w = 1; w < kDescribeWarps; ++w) {
+      a = a + part[0][w];
+      b = b + part[1][w];
+    }
+    const float ang = atan2f(b, a);
+    angle[s] = ang;
+    trig[0] = sinf(ang);
+    trig[1] = cosf(ang);
+  }
+  if (tid == 32) {
     const float den_y = (up - 2.0f * c) + dn;
     const float den_x = (lf - 2.0f * c) + rt;
     float dy = 0.5f * (up - dn) / (fabsf(den_y) < 1e-6f ? 1e-6f : den_y);
@@ -539,7 +732,28 @@ __global__ void __launch_bounds__(kDescribeWarps * 32) orb_describe_kernel(
     xy[2 * s] = ((float)x + dx) * L.scale;
     xy[2 * s + 1] = ((float)y + dy) * L.scale;
     octave[s] = L.lvl;
-    angle[s] = ang;
+  }
+  __syncthreads();
+
+  // rotated BRIEF at the exact angle
+  const float sa = trig[0], ca = trig[1];
+  const float* bl = blurred + L.off;
+#pragma unroll
+  for (int h = 0; h < kWordsPerWarp; ++h) {
+    const int ra = clampi((int)rintf(p[h].x * sa + p[h].y * ca),
+                          -kBriefRadius, kBriefRadius);
+    const int ca_ = clampi((int)rintf(p[h].x * ca - p[h].y * sa),
+                           -kBriefRadius, kBriefRadius);
+    const int rb = clampi((int)rintf(p[h].z * sa + p[h].w * ca),
+                          -kBriefRadius, kBriefRadius);
+    const int cb = clampi((int)rintf(p[h].z * ca - p[h].w * sa),
+                          -kBriefRadius, kBriefRadius);
+    const float va = bl[clampi(y + ra, 0, L.h - 1) * L.w +
+                        clampi(x + ca_, 0, L.w - 1)];
+    const float vb = bl[clampi(y + rb, 0, L.h - 1) * L.w +
+                        clampi(x + cb, 0, L.w - 1)];
+    const unsigned bits = __ballot_sync(0xffffffffu, va < vb);
+    if (lane == 0) desc[8 * s + kWordsPerWarp * warp + h] = (int)bits;
   }
 }
 
@@ -561,12 +775,25 @@ extern "C" {
 
 int orb_table_bytes() { return (int)sizeof(OrbTable); }
 
+// blocks of orb_cells and orb_describe resident on one SM at their launch
+// shapes, written to out[0] and out[1]
+int orb_resident_blocks(void* out) {
+  int* o = static_cast<int*>(out);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &o[0], orb_cells_kernel, kCellThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &o[1], orb_describe_kernel, kDescribeThreads, 0);
+}
+
 int orb_cells(const void* pyr, void* score, void* blurred, void* cand_v,
               void* cand_i, const void* table, void* stream) {
   const OrbTable* t = static_cast<const OrbTable*>(table);
   if (!valid_table(t)) return (int)cudaErrorInvalidValue;
   if (t->n_cells == 0) return 0;
-  orb_cells_kernel<<<t->n_cells, kCellThreads, 0,
+  int blocks = 0;
+  for (int l = 0; l < t->n_levels; ++l) blocks += strips(t->lv[l]);
+  orb_cells_kernel<<<blocks, kCellThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), static_cast<float*>(score),
       static_cast<float*>(blurred), static_cast<float*>(cand_v),
@@ -607,8 +834,7 @@ int orb_describe(const void* pyr, const void* score, const void* blurred,
   const OrbTable* t = static_cast<const OrbTable*>(table);
   if (!valid_table(t)) return (int)cudaErrorInvalidValue;
   if (t->n_slots == 0) return 0;
-  const int blocks = (t->n_slots + kDescribeWarps - 1) / kDescribeWarps;
-  orb_describe_kernel<<<blocks, kDescribeWarps * 32, 0,
+  orb_describe_kernel<<<t->n_slots, kDescribeThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), static_cast<const float*>(score),
       static_cast<const float*>(blurred), static_cast<const int*>(yx),

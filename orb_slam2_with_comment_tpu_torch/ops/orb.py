@@ -6,12 +6,16 @@ ops/image.py, ops/orientation.py and ops/brief.py): XLA ops there, not a
 Pallas kernel. Here the per-level work of all levels runs as three
 hand-written kernels of ``csrc/orb.cu``, one launch each per view:
 
-- ``cells``: per 32x32 cell of every level, the masked FAST score, 3x3 NMS,
-  the cell's 20 -> 7 threshold and its top 8 corners, and the rounded 7x7
-  blur;
+- ``cells``: per strip of 32x32 cells along a row of every level (one
+  block each), the masked FAST score (arcs on the pixels' bits with
+  Hopper's three-input integer minima where the tile holds no negative
+  value), 3x3 NMS, each cell's 20 -> 7 threshold and its top 8 corners
+  (each warp ranks its list of kept values, one warp a cell its warps'
+  8s), and the rounded 7x7 blur;
 - ``select``: per level, the spatial round-robin top-``budget`` of the
   cells' candidates;
-- ``describe``: per output slot, the IC angle, the rotated BRIEF
+- ``describe``: per output slot (one block each, every load that does not
+  wait on the angle issued first), the IC angle, the rotated BRIEF
   descriptor, the subpixel position and the octave.
 
 The levels are packed into one flat float32 buffer (each level's pixels
@@ -25,6 +29,9 @@ port's per-level functions, and ``extract_levels_plain`` chains them: it
 equals frontend/extractor.py's per-level loop bit for bit. The wrappers
 take the plain versions only for tensors on the CPU; for CUDA tensors they
 launch the kernels or raise. ``LAUNCHES`` counts the launches.
+``launch_cells`` and ``launch_describe`` launch a given library's kernels
+(the package's, or chip_smoke.py's PR 10 baseline, csrc/orb_v1.cu);
+``resident_blocks`` asks the runtime how many blocks of each fit an SM.
 """
 from __future__ import annotations
 
@@ -254,16 +261,18 @@ def _table(levels: tuple, margin: int = 16, th_high: float = 20.0,
     return t
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.orb_table_bytes.argtypes = []
-    lib.orb_table_bytes.restype = i
-    lib.orb_cells.argtypes = [p, p, p, p, p, p, p]
-    lib.orb_cells.restype = i
-    lib.orb_select.argtypes = [p, p, p, p, p, p, p]
-    lib.orb_select.restype = i
-    lib.orb_describe.argtypes = [p, p, p, p, p, p, p, p, p, p, p]
-    lib.orb_describe.restype = i
+# csrc/orb.cu's extern "C" functions: the number of pointer arguments each
+# takes (csrc/orb_v1.cu has orb_table_bytes, orb_resident_blocks, orb_cells
+# and orb_describe of them)
+SIGNATURES = {"orb_table_bytes": 0, "orb_resident_blocks": 1, "orb_cells": 7,
+              "orb_select": 7, "orb_describe": 11}
+
+
+def _bind(lib: ctypes.CDLL, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * SIGNATURES[name]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -321,22 +330,33 @@ def cells(pyr: torch.Tensor, levels, margin: int = 16,
     if pyr.dim() != 1 or pyr.shape[0] < _packed_size(levels):
         raise ValueError(f"pyr must be the packed levels, [>= "
                          f"{_packed_size(levels)}], got {tuple(pyr.shape)}")
-    on_cpu, dev = _check(pyr)
+    on_cpu, _ = _check(pyr)
     if on_cpu:
         return cells_plain(pyr, levels, margin, th_high, th_low)
+    out = launch_cells(_kernel_lib(), pyr, levels, margin, th_high, th_low)
+    if n_cells(levels):
+        LAUNCHES["orb_cells"] += 1
+    return out
+
+
+def launch_cells(lib: ctypes.CDLL, pyr: torch.Tensor, levels,
+                 margin: int = 16, th_high: float = 20.0,
+                 th_low: float = 7.0):
+    """orb_cells of ``lib`` on a checked CUDA tensor: allocates the outputs,
+    launches on the current stream, raises on a launch error. cells' one
+    launch; chip_smoke.py also gives it csrc/orb_v1.cu's library."""
+    dev = pyr.device
     t = _table(levels, margin, th_high, th_low)
     score = torch.empty_like(pyr)
     blurred = torch.empty_like(pyr)
     cand = torch.empty((2, t.n_cells, PER_CELL), dtype=torch.float32,
                        device=dev)  # one allocation: values, indices
     cand_v, cand_i = cand[0], cand[1].view(torch.int32)
-    err = _kernel_lib().orb_cells(
+    err = lib.orb_cells(
         pyr.data_ptr(), score.data_ptr(), blurred.data_ptr(),
         cand_v.data_ptr(), cand_i.data_ptr(), ctypes.addressof(t),
         _stream(dev))
     _raise_on(err, "orb_cells")
-    if t.n_cells:
-        LAUNCHES["orb_cells"] += 1
     return score, blurred, cand_v, cand_i
 
 
@@ -379,9 +399,19 @@ def describe(pyr: torch.Tensor, score: torch.Tensor, blurred: torch.Tensor,
     if tuple(yx.shape) != (n_slots(levels), 2):
         raise ValueError(f"yx must be int32 [{n_slots(levels)}, 2], got "
                          f"{tuple(yx.shape)}")
-    on_cpu, dev = _check(pyr, score, blurred, yx)
+    on_cpu, _ = _check(pyr, score, blurred, yx)
     if on_cpu:
         return describe_plain(pyr, score, blurred, yx, levels)
+    out = launch_describe(_kernel_lib(), pyr, score, blurred, yx, levels)
+    if n_slots(levels):
+        LAUNCHES["orb_describe"] += 1
+    return out
+
+
+def launch_describe(lib: ctypes.CDLL, pyr: torch.Tensor, score: torch.Tensor,
+                    blurred: torch.Tensor, yx: torch.Tensor, levels):
+    """orb_describe of ``lib`` on checked CUDA tensors, as launch_cells."""
+    dev = pyr.device
     t = _table(levels)  # describing reads no threshold
     n = t.n_slots
     xy = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -389,14 +419,22 @@ def describe(pyr: torch.Tensor, score: torch.Tensor, blurred: torch.Tensor,
     ang = torch.empty(n, dtype=torch.float32, device=dev)
     desc = torch.empty((n, 8), dtype=torch.int32, device=dev)
     pattern = consts.on_device("brief.PATTERN", brief.PATTERN, dev)
-    err = _kernel_lib().orb_describe(
+    err = lib.orb_describe(
         pyr.data_ptr(), score.data_ptr(), blurred.data_ptr(), yx.data_ptr(),
         pattern.data_ptr(), xy.data_ptr(), octv.data_ptr(), ang.data_ptr(),
         desc.data_ptr(), ctypes.addressof(t), _stream(dev))
     _raise_on(err, "orb_describe")
-    if n:
-        LAUNCHES["orb_describe"] += 1
     return xy, octv, ang, desc
+
+
+def resident_blocks(lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(orb_cells, orb_describe) blocks resident on one SM of the current
+    CUDA device at their launch shapes (cudaOccupancyMaxActiveBlocksPer-
+    Multiprocessor), for ``lib`` or the package's kernels."""
+    out = (ctypes.c_int * 2)()
+    _raise_on((lib or _kernel_lib()).orb_resident_blocks(ctypes.addressof(out)),
+              "orb_resident_blocks")
+    return out[0], out[1]
 
 
 def extract_levels(pyr: list, budgets, scales, margin: int = 16,

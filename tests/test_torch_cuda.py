@@ -4,7 +4,10 @@ against its plain version and against the baseline kernel (csrc/pose_lm_v1.cu),
 one launch per solve, and two of its launches bit for bit; the ORB
 kernels against their plain chain on rendered frames up to 2560x1440,
 two of their launches bit for bit, three launches per extracted view and
-no host wait;
+no host wait; the redesigned orb_cells against its plain version and
+PR 10's kernel (csrc/orb_v1.cu) bit for bit where ties and ragged cells
+live, orb_describe's gates at 2000 slots and at 1921x1081, and both
+kernels' resident blocks per SM;
 the host tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
@@ -20,6 +23,8 @@ has only PyTorch:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
 import ctypes
+import os
+import re
 
 import numpy as np
 import pytest
@@ -269,6 +274,101 @@ def test_orb_launches_are_bit_identical_and_checked(dev):
     with pytest.raises(ValueError):
         orb.extract_levels([pyr[0], *(p.cpu() for p in pyr[1:])],
                            ext.budgets, ext.scales)
+
+
+def _v1_orb():
+    """PR 10's orb_cells and orb_describe (csrc/orb_v1.cu)."""
+    return orb._bind(ctypes.CDLL(cuda_lib.build("orb_v1")),
+                     ("orb_table_bytes", "orb_resident_blocks", "orb_cells",
+                      "orb_describe"))
+
+
+def _checker_frame():
+    yy, xx = np.mgrid[:480, :640]
+    return torch.as_tensor((((yy // 16) + (xx // 16)) % 2 * 180
+                            + 40).astype(np.uint8))
+
+
+@pytest.mark.parametrize("frame", ["checkerboard", "flat", "641x479"])
+def test_orb_cells_is_bit_for_bit_with_plain_and_v1(dev, frame):
+    """Where ties and ragged cells live (a checkerboard's equal scores, a
+    flat frame's zeros, a frame whose every level has ragged cells): the
+    redesigned orb_cells gives cells_plain's score and blurred buffers and
+    candidates, and PR 10's kernel's (csrc/orb_v1.cu) bit for bit, a zero
+    score's sign too; one launch."""
+    if frame == "checkerboard":
+        img, ext = _checker_frame(), OrbExtractor(n_features=1000)
+    elif frame == "flat":
+        img = torch.full((480, 640), 128, dtype=torch.uint8)
+        ext = OrbExtractor(n_features=1000)
+    else:
+        img, ext = _orb_frame(641, 479, 1000)
+    pyr = ext._pyramid(img.to(dev))
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales))
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    before = orb.LAUNCHES["orb_cells"]
+    got = orb.cells(flat, levels)
+    assert orb.LAUNCHES["orb_cells"] == before + 1
+    want = orb.cells_plain(flat, levels)
+    prev = orb.launch_cells(_v1_orb(), flat, levels)
+    for i, part in enumerate(("score", "blurred")):
+        for lv in levels:
+            a, b, c = (orb._view(x[i], lv) for x in (got, want, prev))
+            assert torch.equal(a, b), (part, lv.lvl)
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32)), \
+                (part, lv.lvl)
+    for a, b, c in zip(got[2:], want[2:], prev[2:]):
+        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("size", [(640, 480, 2000), (1921, 1081, 1000)])
+def test_orb_describe_holds_its_gates(dev, size):
+    """orb_describe on the plain chain's keypoints against describe_plain:
+    positions and octaves identical, angles identical on level 0 and
+    within 1e-4 on coarser levels where the IC moments keep 1/1000 of
+    their terms (their sums run in another order), descriptors identical
+    wherever the angles are, at most 1% of the valid rows differing, by at
+    most 8 bits; one launch; two launches bit for bit."""
+    img, ext = _orb_frame(*size)
+    pyr = ext._pyramid(img.to(dev))
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales))
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    score, blurred, cand_v, cand_i = orb.cells_plain(flat, levels)
+    yx, _, valid = orb.select_plain(cand_v, cand_i, levels)
+    before = orb.LAUNCHES["orb_describe"]
+    got = orb.describe(flat, score, blurred, yx, levels)
+    assert orb.LAUNCHES["orb_describe"] == before + 1
+    again = orb.describe(flat, score, blurred, yx, levels)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    xy, octv, ang, desc = got
+    want = orb.describe_plain(flat, score, blurred, yx, levels)
+    assert torch.equal(xy, want[0]) and torch.equal(octv, want[1])
+    level0 = octv == 0
+    assert torch.equal(ang[level0], want[2][level0])
+    kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
+    assert (ang - want[2]).abs()[kept].max() <= 1e-4
+    rows = (desc != want[3]).any(1)
+    assert not rows[ang == want[2]].any()
+    assert int((rows & valid).sum()) <= 0.01 * int(valid.sum())
+    bits = hamming.popcount32(desc ^ want[3]).sum(1)
+    assert int(bits[valid].max()) <= 8
+
+
+def test_orb_kernels_are_as_resident_as_designed(dev):
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor gives orb_cells and
+    orb_describe at least the blocks per SM their launch bounds ask for
+    (kCellBlocks and kDescribeBlocks in csrc/orb.cu)."""
+    with open(os.path.join(cuda_lib.CSRC_DIR, "orb.cu")) as f:
+        src = f.read()
+    designed = [int(re.search(rf"{c} = (\d+);", src).group(1))
+                for c in ("kCellBlocks", "kDescribeBlocks")]
+    cells, describe = orb.resident_blocks()
+    assert cells >= designed[0] and describe >= designed[1]
+    assert min(orb.resident_blocks(_v1_orb())) >= 1
 
 
 def test_extraction_is_three_launches_a_view(dev):

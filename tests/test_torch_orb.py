@@ -40,6 +40,7 @@ from orb_slam2_with_comment_tpu.dataio.synthetic import (
     SyntheticWorld, orbit_trajectory)
 from orb_slam2_with_comment_tpu.frontend import OrbExtractor as JaxExtractor
 from orb_slam2_with_comment_tpu.ops import image as jimage
+from orb_slam2_with_comment_tpu.ops import orientation as jorientation
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.ops import (
     cuda_lib, fast, image, orb, orientation)
@@ -124,6 +125,89 @@ def test_plain_chain_matches_jax_per_level(name):
     level0 = octv == 0
     assert dang[level0 & kept].max(initial=0) <= 1e-5
     assert dang[kept].max(initial=0) <= 1e-4
+
+
+def _describe_warps() -> int:
+    """orb_describe's warps a slot, from csrc/orb.cu."""
+    src = _source()
+    return int(re.search(r"kDescribeThreads = (\d+);", src).group(1)) // 32
+
+
+def _tree_moments(patches: torch.Tensor, warps: int):
+    """csrc/orb.cu orb_describe's IC moments of [N, 31, 31] patches (rows
+    v = -15..15, columns u = -15..15) with ``warps`` warps a slot,
+    emulated in float32: thread (warp w, lane l) adds its circle terms
+    u * p and v * p of rows v = w - 15 + warps i, i = 0, 1, ..., column
+    u = l - 15, in that order; each warp's 32 sums meet in a shuffle
+    butterfly (lane l adds lane l ^ h for h = 16, 8, 4, 2, 1); thread 0
+    adds the warps' sums in warp order."""
+    n = patches.shape[0]
+    lane = torch.arange(32)
+    u = lane - orientation.HALF_PATCH
+    umax = torch.as_tensor(orientation.UMAX, dtype=torch.int64)
+    acc = torch.zeros(2, n, warps, 32)
+    for i in range(-(-31 // warps)):
+        v = torch.arange(warps) - orientation.HALF_PATCH + warps * i
+        inside = ((lane < 31)[None, :] & (v <= 15)[:, None]
+                  & (u.abs()[None, :] <= umax[v.abs().clamp(max=15)][:, None]))
+        p = patches[:, (v + 15).clamp(max=30)][:, :, lane.clamp(max=30)]
+        terms = torch.stack([u.float()[None, None, :] * p,
+                             v.float()[None, :, None] * p])
+        acc = torch.where(inside, acc + terms, acc)
+    for h in (16, 8, 4, 2, 1):
+        acc = acc[..., :h] + acc[..., h:2 * h]
+    m = acc[:, :, 0, 0]
+    for w in range(1, warps):
+        m = m + acc[:, :, w, 0]
+    return m[0], m[1]
+
+
+@pytest.mark.parametrize("name", ["640x480-1000", "1241x376-2000"])
+def test_describe_moment_order_meets_the_angle_gate(name):
+    """The order in which orb_describe sums the IC moments (emulated in
+    float32 by _tree_moments) on the plain chain's valid keypoints of the
+    JAX package's level images, against the JAX package's
+    ops/orientation on the same levels: on level 0 the moments equal the
+    JAX moment maps' at the keypoints (exact integers in any order), so a
+    card's atan2f gives the plain version's angle; the angles are within
+    this file's 1e-5 of JAX's angles_at (the two packages' CPU atan2 differ
+    in the last place). On coarser levels the angles are within 1e-4 rad of
+    angles_at wherever the moments keep 1/1000 of their terms' magnitude:
+    the gate the card holds the kernel to."""
+    img = _image(name)
+    n = CASES[name][1]
+    jpyr = [np.asarray(a) for a in jax.jit(jimage.build_pyramid)(
+        jnp.asarray(img, jnp.float32))]
+    ext = OrbExtractor(n_features=n)
+    tpyr = [torch.as_tensor(a.copy()) for a in jpyr]
+    levels = _levels(tpyr, ext)
+    flat = torch.cat([p.reshape(-1) for p in tpyr])
+    yx, _, valid = orb.select_plain(*orb.cells_plain(flat, levels)[2:],
+                                    levels)
+    kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
+    angles = jax.jit(jorientation.angles_at)
+    maps = jax.jit(jorientation.orientation_maps)
+    held_rows = 0
+    for lv in levels:
+        cut = slice(lv.slot, lv.slot + lv.budget)
+        k = yx[cut][valid[cut]]
+        patches = orientation.gather_patches(tpyr[lv.lvl], k,
+                                             orientation.HALF_PATCH)
+        m10, m01 = _tree_moments(patches, _describe_warps())
+        got = torch.atan2(m01, m10).numpy()
+        want = np.asarray(angles(jnp.asarray(jpyr[lv.lvl]),
+                                 jnp.asarray(k.numpy())))
+        held = kept[cut][valid[cut]].numpy()
+        held_rows += int(held.sum())
+        if lv.lvl == 0:
+            j10, j01 = (np.asarray(m)[k[:, 0].numpy(), k[:, 1].numpy()]
+                        for m in maps(jnp.asarray(jpyr[0])))
+            np.testing.assert_array_equal(m10.numpy(), j10)
+            np.testing.assert_array_equal(m01.numpy(), j01)
+            assert np.abs(got - want)[held].max(initial=0) <= 1e-5
+        else:
+            assert np.abs(got - want)[held].max(initial=0) <= 1e-4, lv.lvl
+    assert held_rows > 0.9 * int(valid.sum())
 
 
 # configurations beyond the kernels' old or current limits: name ->
@@ -337,32 +421,41 @@ class _FakeFn:
     """Takes the argtypes and restype a ctypes function would."""
 
 
-def _source():
-    with open(os.path.join(cuda_lib.CSRC_DIR, "orb.cu")) as f:
+def _source(name="orb.cu"):
+    with open(os.path.join(cuda_lib.CSRC_DIR, name)) as f:
         return f.read()
 
 
-def test_binding_matches_the_extern_c_interface():
-    """The symbols the wrapper binds are orb.cu's extern "C" functions with
-    the same parameter types in the same order."""
-    src = _source()
+# each kernel source and the extern "C" functions the package or
+# chip_smoke.py binds of it (csrc/orb_v1.cu: PR 10's orb_cells and
+# orb_describe, the timing baseline)
+SOURCES = {"orb.cu": tuple(orb.SIGNATURES),
+           "orb_v1.cu": ("orb_table_bytes", "orb_resident_blocks",
+                         "orb_cells", "orb_describe")}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_binding_matches_the_extern_c_interface(name):
+    """The symbols the wrapper binds are the source's extern "C" functions
+    with the same parameter types in the same order."""
+    src = _source(name)
     extern = src[src.index('extern "C" {'):]
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p}
 
     class Lib:
-        orb_table_bytes = _FakeFn()
-        orb_cells = _FakeFn()
-        orb_select = _FakeFn()
-        orb_describe = _FakeFn()
+        pass
 
-    lib = orb._bind(Lib())
-    for fn in ("orb_cells", "orb_select", "orb_describe"):
-        m = re.search(rf"int {fn}\(([^)]*)\)", extern)
+    for fn in SOURCES[name]:
+        setattr(Lib, fn, _FakeFn())
+    lib = orb._bind(Lib(), SOURCES[name])
+    for fn in SOURCES[name]:
+        m = re.search(rf"\nint {fn}\(([^)]*)\)", extern)
         assert m, fn
-        params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+        params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")
+                  if p.strip()]
         assert getattr(lib, fn).argtypes == [c_types[p] for p in params], fn
         assert getattr(lib, fn).restype is ctypes.c_int
-    assert re.search(r"int orb_table_bytes\(\)", extern)
+    assert set(re.findall(r"\nint (\w+)\(", extern)) == set(SOURCES[name])
 
 
 def _c_fields(src, struct):
@@ -381,10 +474,11 @@ def _c_fields(src, struct):
     return out
 
 
-def test_table_layout_matches_the_source():
-    """_LevelDesc and _OrbTable have orb.cu's fields in its order, and the
-    source's limits and FAST ring are the wrapper's."""
-    src = _source()
+@pytest.mark.parametrize("name", sorted(SOURCES))
+def test_table_layout_matches_the_source(name):
+    """_LevelDesc and _OrbTable have the source's fields in its order, and
+    the source's limits and FAST ring are the wrapper's."""
+    src = _source(name)
     kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
     for struct, mirror in (("LevelDesc", orb._LevelDesc),
                            ("OrbTable", orb._OrbTable)):
@@ -401,8 +495,8 @@ def test_table_layout_matches_the_source():
                          ("kHalfPatch", orientation.HALF_PATCH)):
         assert int(re.search(rf"{const} = (\d+);", src).group(1)) == value
     ring = [[int(v) for v in re.search(
-        rf"{name}\[16\] = \{{([^}}]*)\}}", src).group(1).split(",")]
-        for name in ("kRingDy", "kRingDx")]
+        rf"{arr}\[16\] = \{{([^}}]*)\}}", src).group(1).split(",")]
+        for arr in ("kRingDy", "kRingDx")]
     assert list(zip(*ring)) == list(fast.CIRCLE)
     table = orb._table(_levels(_pyr(OrbExtractor(n_features=1000)),
                                OrbExtractor(n_features=1000)))
