@@ -16,10 +16,11 @@ Phases (any failure raises and the script exits nonzero without the final
    timing baseline, ``pose_lm.cu``, the first pose kernel
    ``pose_lm_v1.cu`` as its timing baseline, ``orb.cu``, and PR 10's
    ``orb_cells`` and ``orb_describe`` as ``orb_v1.cu``, their timing
-   baseline; one nvcc each, started together) and print the build time,
-   ptxas' register report and the blocks of ``orb_cells`` and
-   ``orb_describe`` resident on one SM, current and baseline
-   (cudaOccupancyMaxActiveBlocksPerMultiprocessor). From
+   baseline, ``stereo_sad.cu`` and ``ba.cu``; one nvcc each, started
+   together) and print the build time, ptxas' register report, the
+   blocks of ``orb_cells`` and ``orb_describe`` resident on one SM,
+   current and baseline (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+   From
    here on every feature extraction counts one frame and every view
    extracted on the card one view (count_frames): the launches per frame
    of each path.
@@ -78,6 +79,33 @@ Phases (any failure raises and the script exits nonzero without the final
    ops/orb.launch_cells and launch_describe, so that the two times differ
    only by the kernel), and the chain per
    view beside the plain chain and the pyramid before it.
+   Then K5, the stereo SAD refinement (csrc/stereo_sad.cu), against
+   sad_refine_plain (hold_sad) on the main path's inputs (the stereo
+   association's coarse right u): the rendered bench pair (640x480, 1000
+   features), the KITTI-camera pair (1241x376, 2000), an odd size
+   (641x479), 5 features (levels of budget 0), and the bench pair with a
+   fifth of the keypoints on the image border and a fifth of the coarse u
+   off either side. The best shift and ok identical except at near-ties
+   (the two lowest SADs within 1e-5 relative; counted on the valid
+   keypoints and under 0.5% of them), u within 1e-4 px, two launches bit
+   for bit, and the outputs that are not the plain version's bits
+   counted; timed the same two ways beside its bound and the plain
+   version.
+   Then K4, the dense BA (csrc/ba.cu: ba_assemble and ba_update), against
+   ba_solve_plain (hold_ba) on random local-BA problems
+   (dataio.synthetic.ba_problem) at P = 24 / L = 8192, P = 64 / L =
+   10,000, P = 8 with accept_all, P = 2 over 20 iterations: the first S
+   and b_s within 1e-5 of max |S| (or twice the plain float32 system's
+   distance from float64), the accept sequence identical wherever
+   |chi2_new / chi2_old - 1| > 1e-5 and R, t and X within 1e-4 where
+   float32 resolves the problem (the plain float32 solve within 1e-4 of a
+   float64 one; elsewhere reported), the final damping equal where the
+   sequences are (else the one the kernel's sequence leads to), chi2
+   within 1e-3 relative, two solves bit for bit; each
+   kernel timed the same two ways beside its bound and its plain half,
+   and the solve beside ba_solve_plain. The dense BA problems phases 4
+   and 9-11 give the solver (captured_problems) join them after those
+   phases.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -283,6 +311,11 @@ Phases (any failure raises and the script exits nonzero without the final
    e. examples.run_fixture_eval --skip-run over phase 14's run
       directories: its ATE and RPE equal phase 14's scores within 1e-6
       and its ATE cells read the same.
+   Every stereo path refined each pair it extracted on the card with one
+   K5 launch (check_k5_per_pair), and every dense BA solve on the card
+   launched ba_assemble once an LM iteration and ba_update at least as
+   often; the paths that keep a map (4, 6, 9, 11, 13a, 16c) ran solves
+   (check_k4_per_iteration).
    Every (calling function, shape) phases 4, 9-10, 13a, 13c and 14-16 gave
    the kernels (the local-map window at [min(4096, l_max), n_feat] before
    and after growth among them) is then held bit-exact against the plain
@@ -340,7 +373,7 @@ from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import (
-    cuda_lib, hamming, orb, orientation)
+    cuda_lib, hamming, image, orb, orientation, sad)
 from orb_slam2_with_comment_tpu_torch.optim import ba, pose_graph, pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.parallel import (
@@ -965,7 +998,7 @@ def hold_orb(name, pyr, ext, rendered):
     descriptor rows)."""
     levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
                              tuple(ext.budgets), tuple(ext.scales))
-    flat = torch.cat([p.reshape(-1) for p in pyr])
+    flat = orb.pack(pyr)
     want = orb.cells_plain(flat, levels)
     got = orb.cells(flat, levels)
     prev = base_orb().cells(flat, levels)
@@ -1041,7 +1074,7 @@ def check_orb_kernels(dev) -> list:
     for name, pyr, ext, _ in (c for c in cases if c[0] in ORB_TIMED):
         levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
                                  tuple(ext.budgets), tuple(ext.scales))
-        flat = torch.cat([p.reshape(-1) for p in pyr])
+        flat = orb.pack(pyr)
         score, blurred, cand_v, cand_i = orb.cells_plain(flat, levels)
         yx = orb.select_plain(cand_v, cand_i, levels)[0]
         runs = {
@@ -1104,6 +1137,375 @@ def check_orb_kernels(dev) -> list:
             for k, rows in timed.items()]
 
 
+
+# ---------------------------------------------------------------------------
+# phase 3, K5 (csrc/stereo_sad.cu) and K4 (csrc/ba.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/stereo_sad.cu's float32 operations per keypoint, counted from its
+# code: each of the 11 x 121 window elements two subtractions of a centre,
+# the difference, its absolute value and the sum's add; the parabola, the
+# rounding and the position about 20
+SAD_OPS_KEY = 11 * 121 * 5 + 20
+# the pixels a keypoint needs: its 11x11 window and 11x21 strip
+SAD_PIXELS_KEY = 121 + 231
+
+
+def bound_sad(n: int):
+    """(bound_ms, bound_by) of one stereo_sad call on n keypoints: the
+    pixels each keypoint needs and its xy and coarse u read once, the u,
+    SAD and ok written once, against the float32 operations."""
+    return bound_of(n * (4 * SAD_PIXELS_KEY + 12 + 9), n * SAD_OPS_KEY)
+
+
+def sad_cases(dev):
+    """Phase 3's K5 problems: (name, left and right views on the card,
+    features, bf, fx, edges): the rendered bench pair (orbit frame 0 and
+    its right view at the 8 cm baseline), the KITTI-camera pair, an odd
+    size (641x479), the bench pair with 5 features (levels of budget 0),
+    and the bench pair with a fifth of the keypoints on the image border
+    and a fifth of the coarse right u off either side."""
+    left = first_frames("orbit60", 1)[0][0]
+    right = first_frames("orbit60_right", 1)[0]
+    kl, kr = (first_frames(s, 1)[0] for s in ("kitti30_left",
+                                              "kitti30_right"))
+    pose = orbit_trajectory(n_frames=60)[7]
+    odd = render_job((0.0, [pose] + right_view([pose], BENCH_BASELINE),
+                      dict(fx=500.0, fy=500.0, cx=320.5, cy=239.5,
+                           width=641, height=479), "image"), dev)
+    return [("bench pair, 640x480, 1000", left, right, 1000, 40.0, 500.0,
+             False),
+            ("KITTI camera, 1241x376, 2000", kl, kr, 2000, KITTI_BF,
+             KITTI_CAM["fx"], False),
+            ("odd size, 641x479, 1000", odd[0], odd[1], 1000, 40.0, 500.0,
+             False),
+            ("bench pair, 5 (levels of budget 0)", left, right, 5, 40.0,
+             500.0, False),
+            ("bench pair, 1000, window and strip at the edges", left, right,
+             1000, 40.0, 500.0, True)]
+
+
+def sad_inputs(dev, left, right, n, fx, edges):
+    """The SAD kernel's inputs on the main path: the packed pyramids, the
+    level table, the left keypoints and the coarse right u of the stereo
+    association, the valid flags."""
+    ext = OrbExtractor(n_features=n)
+    pyr = [ext._pyramid(torch.as_tensor(im, device=dev))
+           for im in (left, right)]
+    fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
+    scales = image.level_scales(len(pyr[0]))
+    mask = stereo.association_mask(fl, fr, scales, float(np.float32(fx)))
+    _, best_j, _, _ = hamming.masked_best_two(fl.desc, fr.desc, mask)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(ext.budgets), tuple(scales))
+    xy, u0 = fl.xy.clone(), fr.xy[best_j.long(), 0]
+    if edges:
+        h, w = pyr[0][0].shape
+        k = n // 5
+        xy[:k:2, 0] = 0.0
+        xy[1:k:2, 1] = h - 1.0
+        u0[k:2 * k:2] = -2.0
+        u0[k + 1:2 * k:2] = w + 10.0
+    return orb.pack(pyr[0]), orb.pack(pyr[1]), levels, xy, u0, fl.valid
+
+
+def hold_sad(where, flat_l, flat_r, levels, xy, u0, valid):
+    """K5 against sad_refine_plain on the same card: the best shift and ok
+    identical except at near-ties (the two lowest SADs within 1e-5
+    relative of each other: the 121-term float32 sums run in another
+    order; on level 0, whose pixels are integers, every order gives the
+    same sums, and ties there are exact), which are counted on the valid
+    keypoints and stay under 0.5% of them;
+    u within 1e-4 px where both are ok at the same shift, the best SAD
+    within 1e-5 relative where both pick the same shift; two launches bit
+    for bit. Then timed per call (CUDA events) and per launch in a
+    replayed CUDA graph beside the bound and the plain version. Returns
+    (row, largest |u| difference)."""
+    got = sad.sad_refine(flat_l, flat_r, levels, xy, u0)
+    u, s, ok, best = sad.launch(sad._kernel_lib(), flat_l, flat_r, levels,
+                                xy, u0)
+    for part, a, b in zip(("u", "sad", "ok"), got, (u, s, ok)):
+        assert torch.equal(a, b), f"stereo_sad: two launches differ in " \
+            f"{part} at {where}"
+    want = sad.sad_refine_plain(flat_l, flat_r, levels, xy, u0)
+    curves = sad.sad_curves_plain(flat_l, flat_r, levels, xy, u0)
+    two = curves.topk(2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs()
+    same = best.long() == curves.argmin(1)
+    n_valid = int(valid.sum())
+    assert bool((same | near).all()), f"stereo_sad best shift at {where}"
+    assert bool(((ok == want[2]) | near).all()), f"stereo_sad ok at {where}"
+    n_near = int((near & valid).sum())
+    assert n_near < 0.005 * n_valid, \
+        f"stereo_sad: {n_near} near-ties of {n_valid} valid at {where}"
+    both = same & ok & want[2]
+    err = float((u - want[0]).abs()[both].max()) if bool(both.any()) else 0.0
+    assert err <= 1e-4, f"stereo_sad u differs at {where}: {err}"
+    assert torch.allclose(s[same], want[1][same], rtol=1e-5, atol=0), where
+    n = xy.shape[0]
+
+    def run():
+        sad.sad_refine(flat_l, flat_r, levels, xy, u0)
+    bits = sum(int((a != b).sum()) for a, b in zip((u, s, ok), want))
+    row = {"problem": where, "N": n, "n_valid": n_valid, "n_ok": int(
+        ok.sum()), "near_ties": n_near, "differing_where_near": int(
+            ((~same) | (ok != want[2])).sum()), "differing_bits": bits,
+           "max_abs_err": err,
+           "ms": cuda_ms(run, 50), "device_ms": graph_ms(run),
+           "plain_ms": cuda_ms(lambda: sad.sad_refine_plain(
+               flat_l, flat_r, levels, xy, u0), 10)}
+    row["bound_ms"], row["bound_by"] = bound_sad(n)
+    log(f"stereo_sad {where} [{n} keypoints, {n_valid} valid, "
+        f"{row['n_ok']} ok]: same as plain but {row['differing_where_near']}"
+        f" at near-ties ({n_near} on valid keypoints; max |du| {err:.2e}; "
+        f"{bits} outputs not the plain version's bits), bit-identical twice;"
+        f" kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms on"
+        f" the device; plain {row['plain_ms']:.4f}; bound "
+        f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
+    return row, err
+
+
+def check_sad_kernel(dev) -> dict:
+    """Phase 3, K5: the stereo SAD kernel held against its plain version
+    and timed on every case of sad_cases. Returns the kernel's row."""
+    timed, err = [], 0.0
+    for name, left, right, n, _, fx, edges in sad_cases(dev):
+        row, e = hold_sad(name, *sad_inputs(dev, left, right, n, fx, edges))
+        timed.append(row)
+        err = max(err, e)
+    return dict(timed[0], name="stereo_sad", route="cuda",
+                source="orb_slam2_with_comment_tpu_torch/csrc/stereo_sad.cu",
+                replaces="orb_slam2_with_comment_tpu/frontend/stereo.py:34 "
+                         "(_sad_refine_block, an XLA program a level, called"
+                         " at :135; not a Pallas kernel)",
+                max_abs_err=err, library_ms=None, other_problems=timed[1:])
+
+
+# csrc/ba.cu's float32 operations, counted from its code: ba_assemble per
+# active observation (the projection and residual 20, the Huber weight 6,
+# the Jacobians 60, Hll and bl 72, Y 90, Y Hll^-1 90), per landmark (the
+# damping and the 3x3 inverse 50), per pair of observations of one landmark
+# by free poses p <= q (a 6x6 block of 3-term sums, 216), per active
+# observation of a free pose once more (Hpp, bp and the b correction, 288);
+# ba_update per active observation of a free pose (Y^T dxi, 36), per
+# landmark (dX and X, 21), per active observation (the candidate's chi2,
+# 30), per pose (the retract, about 200)
+BA_OPS_OBS, BA_OPS_LM, BA_OPS_PAIR, BA_OPS_DIAG = 338, 50, 216, 288
+BA_OPS_UPD_FREE, BA_OPS_UPD_LM, BA_OPS_UPD_OBS, BA_OPS_POSE = 36, 21, 30, 200
+
+
+def ba_counts(prob) -> dict:
+    """What this problem's data gives the kernels to do: active
+    observations, those of free poses, and the pairs (p <= q) of one
+    landmark's observations by free poses."""
+    act = (prob.obs_w > 0) & prob.point_valid[:, None]
+    free = act & ~prob.pose_fixed[prob.obs_pose]
+    pose = torch.where(free, prob.obs_pose, -1)
+    pairs = ((pose[:, :, None] <= pose[:, None, :]) & free[:, :, None]
+             & free[:, None, :]).sum()
+    return {"active": int(act.sum()), "free": int(free.sum()),
+            "pairs": int(pairs)}
+
+
+def bound_ba(prob, kernel: str):
+    """(bound_ms, bound_by) of one ba_assemble or ba_update launch: the
+    problem read once (12 + 4 + 8 bytes an observation slot, 12 + 1 a
+    landmark, 48 + 1 a pose) and its outputs written once (S and b_s; the
+    landmarks, poses and damping), against the float32 operations this
+    problem's data needs."""
+    P, L = prob.R.shape[0], prob.X.shape[0]
+    D = prob.obs_w.shape[1]
+    c = ba_counts(prob)
+    read = 24 * L * D + 13 * L + 49 * P
+    if kernel == "ba_assemble":
+        return bound_of(read + 4 * 36 * P * P + 24 * P,
+                        BA_OPS_OBS * c["active"] + BA_OPS_LM * L
+                        + BA_OPS_PAIR * c["pairs"] + BA_OPS_DIAG * c["free"])
+    return bound_of(read + 24 * P + 12 * L + 48 * P + 16,
+                    BA_OPS_UPD_FREE * c["free"] + BA_OPS_UPD_LM * L
+                    + BA_OPS_UPD_OBS * c["active"] + BA_OPS_POSE * P)
+
+
+def damping_after(accepted, lam, accept_all: bool) -> float:
+    """The damping an accept sequence leads to, as ba_update computes it."""
+    lam = np.float32(lam)
+    for ok in ([] if accept_all else accepted):
+        lam = np.float32(lam * np.float32(0.5 if ok else 5.0))
+        lam = min(max(lam, np.float32(1e-9)), np.float32(1e8))
+    return float(lam)
+
+
+def hold_ba(where: str, args, plain_reps: int = 3):
+    """K4 on ``args`` (cam, problem, iterations, robust, initial damping,
+    accept_all) against ba_solve_plain on the same card: the first reduced
+    camera system S and b_s within 1e-5 of max |S|, or within twice the
+    plain float32 system's own distance from the float64 one where that is
+    larger (S sums thousands of terms and cancels Hpp against the Schur
+    term: its float32 rounding grows with the map); the accept sequence
+    identical wherever |chi2_new / chi2_old - 1| > 1e-5 (nearer to
+    convergence the test's two sums are equal within their float32
+    rounding, and either version may decide either way) and R, t and X
+    within 1e-4, where float32 resolves the problem: where the plain
+    float32 solve ends within 1e-4 of a float64 solve of it (the monocular
+    bootstrap's two-view map has a free scale, along which any two
+    float32 solves part by about 1e-3: there the sequences and distances
+    are reported); the final damping equal where the sequences are, else
+    the one the kernel's own sequence leads to; chi2 within 1e-3 relative;
+    two solves bit for bit. Then ba_assemble and ba_update timed per call
+    (CUDA events) and per launch in a replayed CUDA graph beside their
+    bounds and their plain versions, and the whole solve beside
+    ba_solve_plain. Returns ({kernel: row}, largest |R|, |t|, |X|
+    difference)."""
+    cam, prob, iters, robust, lam0, accept_all = args
+    p64 = prob._replace(**{f: getattr(prob, f).double() for f in (
+        "R", "t", "X", "obs_uvr", "obs_w")})
+
+    def system_dist(S1, b1, S2, b2):
+        return max(float((S1.double() - S2.double()).abs().max()),
+                   float((b1.double() - b2.double()).abs().max()))
+    S, b_s, _ = ba.first_system_plain(cam, prob, robust, lam0)
+    S_floor = system_dist(S, b_s, *ba.first_system_plain(cam, p64, robust,
+                                                         lam0)[:2])
+    first = ba.KernelSolve(cam, prob, 1, robust, lam0, accept_all)
+    S_k, b_k = first.assemble()
+    scale = float(S.abs().max())
+    e_S = system_dist(S_k, b_k, S, b_s)
+    assert e_S <= max(1e-5 * scale, 2 * S_floor), \
+        f"ba_assemble: S or b_s differs by {e_S} (max |S| {scale}; the " \
+        f"plain float32 system is {S_floor} from float64) at {where}"
+    got = ba.ba_solve(cam, prob, iters, robust, lam0, accept_all)
+    ks = ba.KernelSolve(cam, prob, iters, robust, lam0, accept_all)
+    again = ks.run(iters)
+    for part, a, b in zip(got._fields, got, again):
+        assert torch.equal(a, b), f"K4: two solves differ in {part} at {where}"
+    trace = []
+    want = ba.ba_solve_plain(cam, prob, iters, robust, lam0, accept_all,
+                             trace)
+    def dist(a, b):
+        return max(float((getattr(a, f).double() - getattr(b, f).double())
+                         .abs().max()) for f in ("R", "t", "X"))
+    exact = ba.ba_solve_plain(cam, p64, iters, robust, lam0, accept_all)
+    floor = dist(want, exact)
+    mine = ks.trace[:iters].cpu()
+    plain = torch.stack(trace).cpu() if trace else mine
+    moved = (plain[:, 1] / plain[:, 0] - 1).abs() > 1e-5
+    # float32 resolves this problem: the plain float32 solve ends within
+    # 1e-4 of the float64 one
+    resolved = floor <= 1e-4
+    if resolved:
+        assert torch.equal(mine[:, 2][moved], plain[:, 2][moved]), \
+            f"K4 accept sequence {mine[:, 2].tolist()} against " \
+            f"{plain[:, 2].tolist()} at {where}"
+    flips = int((mine[:, 2] != plain[:, 2]).sum())
+    lam_f = float(torch.as_tensor(lam0))
+    assert float(got.final_lambda) == damping_after(
+        mine[:, 2].tolist(), lam_f, accept_all), where
+    if not flips:
+        assert float(got.final_lambda) == float(want.final_lambda), where
+    err, err64 = dist(got, want), dist(got, exact)
+    assert err <= 1e-4 or not resolved, \
+        f"K4 R, t or X differs by {err} at {where}, {err64} from float64 " \
+        f"(the plain float32 solve is {floor} from float64)"
+    assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6), \
+        f"K4 chi2 {float(got.chi2)} against {float(want.chi2)} at {where}"
+    P, L = prob.R.shape[0], prob.X.shape[0]
+    D = prob.obs_w.shape[1]
+    counts = ba_counts(prob)
+    # the plain version's two halves: the linearization with the dense
+    # system, and the step from a solve's dxi
+    k = ba._fixed(prob)
+    lam = ba._init_lambda(lam0, prob.X)
+    lin = ba._linearize(cam, prob, k, prob.R, prob.t, prob.X, lam, robust)
+    dxi = -torch.linalg.solve_ex(S, b_s[:, None])[0].reshape(P, 6)
+    sol = -dxi.reshape(-1, 1)
+    system = ba._dense_system(prob)
+    timing = ba.KernelSolve(cam, prob, 1, robust, lam0, accept_all)
+    timing.assemble()
+    def plain_assemble():
+        li = ba._linearize(cam, prob, k, prob.R, prob.t, prob.X, lam, robust)
+        return system(li.wJp, li.Jp, li.e, li.Y, li.Hll_inv, li.bl, lam)
+
+    runs = {
+        "ba_assemble": (timing.assemble, plain_assemble),
+        "ba_update": (lambda: timing.update(sol, 0, False),
+                      lambda: ba._step(cam, prob, k, lin, dxi, prob.R,
+                                       prob.t, prob.X, lam, accept_all,
+                                       None))}
+    rows = {}
+    for kernel, (fn, plain_fn) in runs.items():
+        row = {"problem": where, "P": P, "L": L, "D": D, **counts,
+               "iters": iters, "accept_flips": flips,
+               "vs_f64": err64, "plain_f32_vs_f64": floor,
+               "resolved_by_float32": resolved,
+               "S_plain_f32_vs_f64": S_floor,
+               "max_abs_err": err if kernel == "ba_update" else e_S,
+               "ms": cuda_ms(fn, 20), "device_ms": graph_ms(fn),
+               "plain_ms": cuda_ms(plain_fn, plain_reps)}
+        row["bound_ms"], row["bound_by"] = bound_ba(prob, kernel)
+        rows[kernel] = row
+    solve = cuda_ms(lambda: ba.ba_solve(cam, prob, iters, robust, lam0,
+                                        accept_all), 5)
+    solve_plain = cuda_ms(lambda: ba.ba_solve_plain(
+        cam, prob, iters, robust, lam0, accept_all), plain_reps)
+    for row in rows.values():
+        row["solve_ms"], row["solve_plain_ms"] = solve, solve_plain
+    a, u = rows["ba_assemble"], rows["ba_update"]
+    log(f"K4 {where} [P {P}, L {L}, D {D}, {counts['active']} active "
+        f"observations, {counts['pairs']} free pairs, {iters} iterations"
+        f"{', accept_all' if accept_all else ''}]: first S within "
+        f"{e_S / scale:.2e} of max |S| (the plain float32 system "
+        f"{S_floor / scale:.2e}); accepted {mine[:, 2].tolist()} "
+        f"({flips} flips); max |dR|,|dt|,|dX| {err:.2e}, {err64:.2e} "
+        f"from float64 (the plain float32 solve {floor:.2e}); "
+        f"bit-identical twice; ba_assemble {a['ms']:.4f} ms per call, "
+        f"{a['device_ms']:.4f} on the device, plain {a['plain_ms']:.4f}, "
+        f"bound {a['bound_ms']:.6f} by {a['bound_by']}; ba_update "
+        f"{u['ms']:.4f}, {u['device_ms']:.4f}, plain {u['plain_ms']:.4f}, "
+        f"bound {u['bound_ms']:.6f} by {u['bound_by']}; the solve "
+        f"{solve:.4f} ms, plain {solve_plain:.4f}")
+    return rows, err
+
+
+BA_REPLACES = ("orb_slam2_with_comment_tpu/optim/ba.py:208 (ba_solve's "
+               "lax.scan body, :246-335, an XLA program; not a Pallas "
+               "kernel)")
+
+
+def check_ba_kernels(dev) -> list:
+    """Phase 3, K4: the two BA kernels held against the plain solver and
+    timed (hold_ba) on random local-BA problems (dataio.synthetic
+    ba_problem): 24 poses (8 fixed) and 8192 landmarks, 64 poses and
+    10,000 landmarks, 8 poses with every step taken (accept_all, the
+    distributed schedule), and 2 poses over 20 iterations (no outliers: a
+    landmark that an outlier contradicts runs off toward infinity over 20
+    iterations, where float32 and float64 solves of the plain version
+    already part by metres). Returns the two kernels' rows."""
+    rows = {"ba_assemble": [], "ba_update": []}
+    err = 0.0
+    for where, case, seed, kw, iters, accept_all in (
+            ("random, 24 poses, 8192 landmarks", "mixed", 0,
+             dict(P=24, L=8192), 5, False),
+            ("random, 64 poses, 10000 landmarks", "mixed", 1,
+             dict(P=64, L=10000), 5, False),
+            ("random, 8 poses, accept_all", "mixed", 2,
+             dict(P=8, L=4096, n_fixed=1), 8, True),
+            ("random, 2 poses, 20 iterations", "mixed", 3,
+             dict(P=2, L=500, n_fixed=1, outliers=0.0), 20, False)):
+        p = synthetic.ba_problem(case, seed, **kw)
+        prob = ba.BAProblem(*(torch.as_tensor(p[f]).to(dev)
+                              for f in ba.BAProblem._fields))
+        got, e = hold_ba(where, (POSE_CAM, prob, iters, True, 1e-4,
+                                 accept_all))
+        for k, row in got.items():
+            rows[k].append(row)
+        err = max(err, e)
+    src = "orb_slam2_with_comment_tpu_torch/csrc/ba.cu"
+    return [dict(r[0], name=k, route="cuda", source=src,
+                 replaces=BA_REPLACES, library_ms=None,
+                 max_abs_err=max(x["max_abs_err"] for x in r),
+                 other_problems=r[1:]) for k, r in rows.items()]
+
+
 def fmt_times(row: dict) -> str:
     return (f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms "
             f"on the device; baseline kernel {row['prev_ms']:.4f} and "
@@ -1111,21 +1513,27 @@ def fmt_times(row: dict) -> str:
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
 
 
-# feature extractions, one per frame, and the views on the card they
-# extracted, one per frame or two per stereo frame (count_frames)
-FRAMES = {"frames": 0, "views": 0}
+# feature extractions, one per frame, the views on the card they
+# extracted, one per frame or two per stereo frame, the stereo pairs
+# extracted on the card, and the dense BA solves on the card with their
+# iterations (count_frames)
+FRAMES = {"frames": 0, "views": 0, "pairs": 0, "ba_solves": 0,
+          "ba_iters": 0}
 
 
 def launch_counts() -> dict:
     """Each kernel entry point's launches since reset_launches(), "frames":
-    the frames whose features were extracted meanwhile, and "views": the
-    views extracted on the card."""
+    the frames whose features were extracted meanwhile, "views": the
+    views extracted on the card, "pairs": the stereo pairs among them,
+    "ba_solves" and "ba_iters": the dense BA solves on the card and their
+    LM iterations."""
     return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **orb.LAUNCHES,
-            **FRAMES}
+            **sad.LAUNCHES, **ba.LAUNCHES, **FRAMES}
 
 
 def set_launches(counts: dict):
-    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, orb.LAUNCHES, FRAMES):
+    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, orb.LAUNCHES,
+              sad.LAUNCHES, ba.LAUNCHES, FRAMES):
         for k in c:
             c[k] = counts[k]
 
@@ -1137,9 +1545,12 @@ def reset_launches():
 def count_frames():
     """Every frame of every path goes through OrbExtractor._extract (RGB-D,
     mono) or OrbExtractor.stereo (a rectified pair) once: each call adds
-    one to FRAMES["frames"] for the rest of the run. Every view goes
-    through OrbExtractor._extract_from_pyramid once: one on the card adds
-    one to FRAMES["views"]."""
+    one to FRAMES["frames"] for the rest of the run, and a pair on the
+    card one to FRAMES["pairs"]. Every view goes through
+    OrbExtractor._extract_from_pyramid once: one on the card adds one to
+    FRAMES["views"]. Every dense BA solve goes through ba.ba_solve: one on
+    the card adds one to FRAMES["ba_solves"] and its iterations to
+    FRAMES["ba_iters"]."""
     def counted(fn):
         def run(*a, **kw):
             FRAMES["frames"] += 1
@@ -1147,13 +1558,27 @@ def count_frames():
         return run
 
     extract_view = OrbExtractor._extract_from_pyramid
+    extract_pair = OrbExtractor.stereo
+    solve = ba.ba_solve
 
-    def counted_view(self, pyr):
+    def counted_view(self, pyr, *a):
         FRAMES["views"] += pyr[0].is_cuda
-        return extract_view(self, pyr)
+        return extract_view(self, pyr, *a)
+
+    def counted_pair(self, img_l, *a, **kw):
+        FRAMES["frames"] += 1
+        FRAMES["pairs"] += img_l.is_cuda
+        return extract_pair(self, img_l, *a, **kw)
+
+    def counted_solve(cam, prob, iters=10, *a, **kw):
+        if prob.X.is_cuda:
+            FRAMES["ba_solves"] += 1
+            FRAMES["ba_iters"] += iters
+        return solve(cam, prob, iters, *a, **kw)
     OrbExtractor._extract = counted(OrbExtractor._extract)
-    OrbExtractor.stereo = counted(OrbExtractor.stereo)
+    OrbExtractor.stereo = counted_pair
     OrbExtractor._extract_from_pyramid = counted_view
+    ba.ba_solve = counted_solve
 
 
 def check_k2_per_view(by_phase: dict):
@@ -1166,6 +1591,49 @@ def check_k2_per_view(by_phase: dict):
                 f"{phase}: {c[k]} {k} launches for {c['views']} views"
     log("K2 launches per frame by phase (3 kernels each): "
         f"{ {p: per_frame(c, 'orb_cells') for p, c in by_phase.items()} }")
+
+
+def check_k5_per_pair(by_phase: dict):
+    """Every path refined each stereo pair it extracted on the card with
+    one stereo_sad launch, and no other path launched it."""
+    for phase, c in by_phase.items():
+        assert c["stereo_sad"] == c["pairs"], \
+            f"{phase}: {c['stereo_sad']} stereo_sad launches for " \
+            f"{c['pairs']} stereo pairs"
+    log("K5 launches per frame by phase: "
+        f"{ {p: per_frame(c, 'stereo_sad') for p, c in by_phase.items()} }")
+
+
+# the paths whose keyframe maintenance surely runs a local BA: each
+# inserts keyframes that share landmarks
+K4_PATHS = ("4 rgbd slice", "6 default rgbd", "9 stereo bench",
+            "11 mono bench", "13a system rgbd", "16c street")
+
+
+def check_k4_per_iteration(by_phase: dict):
+    """Every dense BA solve on the card launched ba_assemble once an LM
+    iteration and ba_update at least as often; the paths of K4_PATHS ran
+    solves."""
+    for phase, c in by_phase.items():
+        assert c["ba_assemble"] == c["ba_iters"], \
+            f"{phase}: {c['ba_assemble']} ba_assemble launches for " \
+            f"{c['ba_iters']} LM iterations"
+        assert c["ba_update"] >= c["ba_iters"], phase
+        assert c["ba_solves"] == 0 or c["ba_update"] > 0, phase
+    for phase in K4_PATHS:
+        assert by_phase[phase]["ba_solves"] > 0, \
+            f"{phase}: no dense BA solve on the card"
+    log("K4 launches (ba_assemble, ba_update) and solves by phase: "
+        + str({p: (c["ba_assemble"], c["ba_update"], c["ba_solves"])
+               for p, c in by_phase.items()}))
+
+
+def missing(launches: dict, stereo: bool = False) -> list:
+    """The kernels of K1-K3, and K5 on a stereo path, that ``launches``
+    does not count; K4 is held per solve by check_k4_per_iteration."""
+    names = [*hamming.LAUNCHES, *pose_opt.LAUNCHES, *orb.LAUNCHES]
+    return [k for k in names + ([*sad.LAUNCHES] if stereo else [])
+            if launches[k] == 0]
 
 
 def k1_launches(counts: dict) -> int:
@@ -1371,8 +1839,8 @@ def run_slice(dev):
         log(f"pass {p + 1}: median t err {t_med:.5f} m, rot err "
             f"{r_med:.4f} deg")
         assert t_med < 0.02 and r_med < 1.0, "pose error gate"
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the main path"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched on the main path"
     # every frame but the first (the initialization) tracks: the batched
     # B = 3 solve (or the reference-keyframe solve) and the local-map solve
     tracked = int(out["valid"].sum()) - 1
@@ -1472,8 +1940,8 @@ def run_default(dev):
     assert out["n_loops_closed"] == 0, "the JAX package closes no loop here"
     assert loop_ms, "no frame ran the loop-closing phase"
     assert reloc_launches["masked_best_two"] > 0
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the main path"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched on the main path"
     return launches, build_launches, tracker
 
 
@@ -1804,8 +2272,8 @@ def run_stereo_bench(dev, rgbd_build_launches):
     assert out["n_keyframes"] >= 3, out["n_keyframes"]
     assert t_med < 0.03, "pose error gate (tests/test_auto.py:183-185)"
     assert n_depth0 > 200, "too few features with depth on frame 0"
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the stereo path"
+    assert not missing(launches, stereo=True), \
+        f"kernels {missing(launches, True)} never launched on the stereo path"
     more = launches["masked_best_two"] - rgbd_build_launches["masked_best_two"]
     log(f"stereo (bench): {more} more masked_best_two launches than the "
         f"default RGB-D tracker over the same {len(pairs)} poses")
@@ -1881,10 +2349,13 @@ def captured_problems():
     function, shape): the problems this path really gives the kernels, to
     be held against the plain versions after the run. The pose LM's shape
     is (B, N), its calling function the first outside POSE_RELAYS, and its
-    inputs (cam, R0, t0, Xw, obs_uvr, inv_sigma2, valid)."""
+    inputs (cam, R0, t0, Xw, obs_uvr, inv_sigma2, valid); the dense BA's
+    ("ba") shape is (P, L, iterations) and its inputs (cam, problem,
+    iterations, robust, initial damping, accept_all)."""
     out = {}
     saved = hamming.masked_best_two, hamming.distance_matrix
     saved_pose = pose_opt.optimize_pose
+    saved_ba = ba.ba_solve
 
     def keep(kernel, fn):
         def run(*tensors):
@@ -1905,14 +2376,27 @@ def captured_problems():
                                                     for t in tensors))
         return saved_pose(cam, *tensors, **kw)
 
+    def keep_ba(cam, prob, iters=10, robust=True, init_lambda=1e-4,
+                accept_all=False):
+        if prob.X.is_cuda and iters:
+            caller = sys._getframe(1).f_code.co_name
+            lam = (init_lambda.clone() if isinstance(init_lambda, torch.Tensor)
+                   else init_lambda)
+            out["ba", caller, (prob.R.shape[0], prob.X.shape[0], iters)] = (
+                cam, ba.BAProblem(*(t.clone() for t in prob)), iters, robust,
+                lam, accept_all)
+        return saved_ba(cam, prob, iters, robust, init_lambda, accept_all)
+
     hamming.masked_best_two = keep("masked_best_two", saved[0])
     hamming.distance_matrix = keep("distance_matrix", saved[1])
     pose_opt.optimize_pose = keep_pose
+    ba.ba_solve = keep_ba
     try:
         yield out
     finally:
         hamming.masked_best_two, hamming.distance_matrix = saved
         pose_opt.optimize_pose = saved_pose
+        ba.ba_solve = saved_ba
 
 
 def sim_ate(out, poses, offset=0):
@@ -2008,8 +2492,8 @@ def run_mono(dev):
         assert rmse < 0.03, "ATE gate (tests/test_auto.py:310-311)"
     assert by_fn["search_for_initialization"] > 0
     assert by_fn["search_for_triangulation"] > 0
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the mono path"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched on the mono path"
     return launches, tracker, problems
 
 
@@ -2089,8 +2573,9 @@ def check_mono_problems(dev, tracker, problems, rows):
 
 def captured_todo(label, problems):
     """captured_problems' dict as (where, kernel, tensors) rows."""
-    return [(f"{label}, {caller} [{q},{n}]", kernel, tensors)
-            for (kernel, caller, (q, n)), tensors in sorted(
+    return [(f"{label}, {caller} [{','.join(map(str, shape))}]", kernel,
+             tensors)
+            for (kernel, caller, shape), tensors in sorted(
                 problems.items(), key=lambda kv: kv[0])]
 
 
@@ -2100,7 +2585,15 @@ def hold_problems(todo, rows):
     rows join the kernels' ``other_problems``."""
     base = BaselineKernels()
     popc_rate = popc_per_s()
+    k4 = {r["name"]: r for r in rows if r["name"].startswith("ba_")}
     for where, kernel, tensors in todo:
+        if kernel == "ba":
+            got, err = hold_ba(where, tensors, plain_reps=1)
+            for name, row in got.items():
+                k4[name]["other_problems"].append(row)
+            k4["ba_update"]["max_abs_err"] = max(
+                k4["ba_update"]["max_abs_err"], err)
+            continue
         if kernel == "pose_lm":
             # the baseline kernel is held to the gates, timed in phase 3
             row, err = hold_pose(where, tensors, plain_reps=1,
@@ -2295,8 +2788,8 @@ def run_system_rgbd(dev):
         f"{fresh.tracker.rel_log[-1][0] == f_next}, error {err:.5f} m")
     assert pose is not None and fresh.get_tracking_state() == TrackState.OK
     assert fresh.tracker.rel_log[-1][0] == f_next and err < 0.05
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the System path"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched on the System path"
     return launches, problems
 
 
@@ -2821,8 +3314,8 @@ def run_multi_seq(dev):
     assert np.array_equal(outs[0]["valid"], ref["valid"])
     assert outs[0]["n_keyframes"] == ref["n_keyframes"]
     assert dt < 1e-4 and dR < 1e-4, "sequence 0 left its solo run"
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched by MultiSeqTracker"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched by MultiSeqTracker"
     return launches, problems, mt.states[0].map
 
 
@@ -3190,8 +3683,8 @@ def run_street(dev, root, workers):
         "the map did not fill its keyframe slots"
     assert out["n_compact_kf"] == STREET_REF["n_compact_kf"]
     assert sc["ate_m"] <= 2 * STREET_REF["ate"], "ATE gate"
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the street"
+    assert not missing(launches, stereo=True), \
+        f"kernels {missing(launches, True)} never launched on the street"
     return launches, problems
 
 
@@ -3320,11 +3813,12 @@ def main():
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
     libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb",
-            "orb_v1"]
+            "orb_v1", "stereo_sad", "ba"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
     orb._kernel_lib()
+    sad._kernel_lib()
     log(f"built csrc/{', csrc/'.join(libs)} (.cu) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
@@ -3332,6 +3826,7 @@ def main():
     for name, lib in (("orb", None), ("orb_v1", base_orb().lib)):
         log(f"csrc/{name}.cu resident blocks per SM (orb_cells, "
             f"orb_describe): {orb.resident_blocks(lib)}")
+    ba._kernel_lib()
     count_frames()
     workers = max(1, min(7, (os.cpu_count() or 2) - 1))
     if not kernels_only:
@@ -3342,7 +3837,8 @@ def main():
             f"{time.perf_counter() - t0:.2f} s")
     t3 = time.perf_counter()
     rows = (check_kernels(dev) + [check_pose_kernel(dev)]
-            + check_orb_kernels(dev))
+            + check_orb_kernels(dev) + [check_sad_kernel(dev)]
+            + check_ba_kernels(dev))
     log(f"phase 3 in {time.perf_counter() - t3:.1f} s")
     if kernels_only:
         log(json.dumps({"kernels": rows}))
@@ -3400,16 +3896,22 @@ def main():
             run_vocab_eval(dev, renders)
         check_results_table(root, outcomes)
         log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+    # K4 on the dense BA problems of phases 4 and 9-11 (phase 11's in
+    # check_mono_problems); the later paths give it the same shapes
+    later = [row for row in (
+        captured_todo("system rgbd", system_problems)
+        + captured_todo("lifecycle", life_problems)
+        + captured_todo("drivers", driver_problems)
+        + captured_todo("multi seq", multi_problems)
+        + captured_todo("localization", loc_problems)
+        + captured_todo("street", street_problems)) if row[1] != "ba"]
     hold_problems(captured_todo("rgbd slice", slice_problems)
                   + captured_todo("stereo bench", stereo_problems)
-                  + captured_todo("stereo kitti", kitti_problems)
-                  + captured_todo("system rgbd", system_problems)
-                  + captured_todo("lifecycle", life_problems)
-                  + captured_todo("drivers", driver_problems)
-                  + captured_todo("multi seq", multi_problems)
-                  + captured_todo("localization", loc_problems)
-                  + captured_todo("street", street_problems), rows)
+                  + captured_todo("stereo kitti", kitti_problems) + later,
+                  rows)
     check_k2_per_view(by_phase)
+    check_k5_per_pair(by_phase)
+    check_k4_per_iteration(by_phase)
     for row in rows:
         # the newest slice's main path is phase 16c's street circuit;
         # every other path's count is listed beside it. Each phase has

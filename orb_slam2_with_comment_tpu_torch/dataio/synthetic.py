@@ -548,3 +548,78 @@ def pose_problem(case: str, seed: int, B: int = 3, N: int = 1000,
     s2 = inv_s2 if rows > 1 else inv_s2[0]
     return dict(R0=f32(np.stack(R0)), t0=f32(np.stack(t0)), Xw=f32(Xw),
                 obs_uvr=f32(obs), inv_sigma2=f32(s2), valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# dense bundle adjustment problems (the inputs of optim/ba.ba_solve)
+# ---------------------------------------------------------------------------
+
+BA_CASES = ("mixed", "mono", "all_invalid")
+
+
+def ba_problem(case: str, seed: int, P: int = 24, L: int = 8192, D: int = 8,
+               n_fixed: int = 8, outliers: float = 0.1,
+               cam=(500.0, 500.0, 320.0, 240.0, 40.0)) -> dict:
+    """A local-BA problem of the kind keyframe maintenance gives the dense
+    solver, as numpy arrays: R [P,3,3], t [P,3], X [L,3], obs_pose [L,D]
+    int64, obs_uvr [L,D,3], obs_w [L,D], pose_fixed [P], point_valid [L].
+
+    P keyframes 25 cm apart along x, turning 0.11 degrees a step, see
+    landmarks 2-6 m ahead; each landmark is observed by 2 to D distinct
+    poses of the window of 9 around the pose it lies in front of, the
+    window's two ends among them (the widest baseline the window has), in
+    its first slots (the rest weight 0, pose 0), with 0.8 px noise at
+    octaves 0-3, ``outliers`` of the observations moved up to 40 px (u and
+    u_r alike, as a wrong match moves them); the
+    last ``n_fixed`` poses are fixed, the free ones start about 3 mrad and
+    1 cm away, the landmarks 3 cm away; 95% of the landmarks valid.
+    ``case`` (BA_CASES): ``mixed`` each landmark's first observation
+    stereo and a quarter of the others mono (u_r = -1); ``mono`` all of
+    them mono; ``all_invalid`` mixed with no valid landmark. A landmark is
+    well determined where the map's are (a stereo observation, or a wide
+    baseline): float32 and float64 solves agree on it."""
+    if case not in BA_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    fx, fy, cx, cy, bf = cam
+    rng = np.random.RandomState(seed)
+    step = 0.25
+    Rs = np.stack([_rotation([0.0, 0.002 * p, 0.0]) for p in range(P)])
+    ts = np.stack([-Rs[p] @ [step * p, 0.0, 0.0] for p in range(P)])
+    base = rng.randint(0, P, L)
+    X = np.stack([step * base + rng.uniform(-1.5, 1.5, L),
+                  rng.uniform(-1.2, 1.2, L), rng.uniform(2.0, 6.0, L)], 1)
+    obs_pose = np.zeros((L, D), np.int64)
+    w = np.zeros((L, D))
+    uvr = np.zeros((L, D, 3))
+    for i in range(L):
+        window = np.arange(max(base[i] - 4, 0), min(base[i] + 5, P))
+        k = min(rng.randint(2, D + 1), len(window))
+        inner = rng.permutation(window[1:-1])[:max(k - 2, 0)]
+        obs_pose[i, :k] = np.concatenate([window[[0, -1]], inner])[:k]
+        w[i, :k] = 1.0 / 1.44 ** rng.randint(0, 4, k)
+    Xc = np.einsum("ldij,lj->ldi", Rs[obs_pose], X) + ts[obs_pose]
+    uvr[..., 0] = fx * Xc[..., 0] / Xc[..., 2] + cx
+    uvr[..., 1] = fy * Xc[..., 1] / Xc[..., 2] + cy
+    uvr[..., 2] = uvr[..., 0] - bf / Xc[..., 2]
+    uvr += rng.normal(0, 0.8, uvr.shape)
+    bad = rng.rand(L, D) < outliers
+    shift = rng.uniform(-40, 40, (int(bad.sum()), 2))
+    uvr[bad] += shift[:, [0, 1, 0]]  # a wrong match moves u and u_r alike
+    mono = (rng.rand(L, D) < 0.25) if case != "mono" else np.ones((L, D),
+                                                                  bool)
+    if case != "mono":
+        mono[:, 0] = False
+    uvr[mono, 2] = -1.0
+    fixed = np.zeros(P, bool)
+    fixed[P - n_fixed:] = True
+    R0, t0 = Rs.copy(), ts.copy()
+    for p in np.nonzero(~fixed)[0]:
+        R0[p] = _rotation(rng.normal(0, 0.003, 3)) @ Rs[p]
+        t0[p] = ts[p] + rng.normal(0, 0.01, 3)
+    valid = rng.rand(L) < 0.95
+    if case == "all_invalid":
+        valid[:] = False
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
+    return dict(R=f32(R0), t=f32(t0), X=f32(X + rng.normal(0, 0.03, X.shape)),
+                obs_pose=obs_pose, obs_uvr=f32(uvr), obs_w=f32(w),
+                pose_fixed=fixed, point_valid=valid)

@@ -74,13 +74,15 @@ class OrbExtractor:
         FrameFeatures, StereoDepth)."""
         from . import stereo as _stereo
         # one pyramid per view, shared by the extraction and the SAD
-        # refinement; left then right
+        # refinement; left then right. Each is packed once, for the ORB
+        # kernels and the SAD kernel both
         pyr_l = self._pyramid(img_l)
         pyr_r = self._pyramid(img_r)
-        feats_l = self._extract_from_pyramid(pyr_l)
-        feats_r = self._extract_from_pyramid(pyr_r)
+        flat_l, flat_r = orb.pack(pyr_l), orb.pack(pyr_r)
+        feats_l = self._extract_from_pyramid(pyr_l, flat_l)
+        feats_r = self._extract_from_pyramid(pyr_r, flat_r)
         sd = _stereo.match_stereo(feats_l, feats_r, pyr_l, pyr_r,
-                                  self.budgets, bf, fx)
+                                  self.budgets, bf, fx, (flat_l, flat_r))
         return feats_l, sd
 
     def _pyramid(self, img: torch.Tensor) -> list[torch.Tensor]:
@@ -90,12 +92,13 @@ class OrbExtractor:
     def _extract(self, img: torch.Tensor) -> FrameFeatures:
         return self._extract_from_pyramid(self._pyramid(img))
 
-    def _extract_from_pyramid(self, pyr) -> FrameFeatures:
+    def _extract_from_pyramid(self, pyr, flat=None) -> FrameFeatures:
         """Every level with a budget above 0 in one call of the ORB
         kernels (ops/orb.py: three launches on the card), concatenated in
-        level order: what _level_features gives level by level. A
-        configuration the kernels do not take runs _level_features level
-        by level on the CPU and raises on the card."""
+        level order: what _level_features gives level by level. ``flat``:
+        the pyramid already packed (orb.pack). A configuration the kernels
+        do not take runs _level_features level by level on the CPU and
+        raises on the card."""
         if ((self.cell, self.per_cell) != (orb.CELL, orb.PER_CELL)
                 or self.n_levels > orb.MAX_LEVELS):
             if pyr[0].device.type != "cpu":
@@ -110,7 +113,7 @@ class OrbExtractor:
             return FrameFeatures(*(torch.cat(p) for p in zip(*parts)))
         return FrameFeatures(*orb.extract_levels(
             pyr, self.budgets, self.scales, self.margin, self.th_high,
-            self.th_low))
+            self.th_low, flat))
 
     def _level_features(self, lvl_img: torch.Tensor, lvl: int, budget: int):
         """One level's features with the per-level functions: the

@@ -437,14 +437,22 @@ def resident_blocks(lib: ctypes.CDLL | None = None) -> tuple[int, int]:
     return out[0], out[1]
 
 
+def pack(pyr: list) -> torch.Tensor:
+    """A pyramid's levels concatenated row-major, level after level: the
+    packed buffer the kernels read (Level.off is a level's first pixel)."""
+    return torch.cat([p.reshape(-1) for p in pyr])
+
+
 def extract_levels(pyr: list, budgets, scales, margin: int = 16,
-                   th_high: float = 20.0, th_low: float = 7.0):
+                   th_high: float = 20.0, th_low: float = 7.0,
+                   flat: torch.Tensor | None = None):
     """ORB features of one view's pyramid ``pyr`` (a list of [h, w]
     float32 level images): (xy [N, 2], response [N], octave [N], angle [N],
     desc [N, 8] int32, valid [N]) for N = the sum of the positive
     ``budgets``, level by level as frontend/extractor.py's per-level loop
     gives them. On the CPU the plain chain; on CUDA one launch each of
-    orb_cells, orb_select and orb_describe, reading nothing back."""
+    orb_cells, orb_select and orb_describe, reading nothing back.
+    ``flat``: pack(pyr), where the caller has it already."""
     for i, lvl_img in enumerate(pyr):
         if lvl_img.dim() != 2 or lvl_img.dtype != torch.float32:
             raise ValueError(f"level {i} must be float32 [h, w], got "
@@ -452,7 +460,8 @@ def extract_levels(pyr: list, budgets, scales, margin: int = 16,
     _check(*pyr)
     levels = level_table(tuple(tuple(p.shape) for p in pyr), tuple(budgets),
                          tuple(scales))
-    flat = torch.cat([p.reshape(-1) for p in pyr])
+    if flat is None:
+        flat = pack(pyr)
     if flat.device.type == "cpu":
         return extract_levels_plain(flat, levels, margin, th_high, th_low)
     score, blurred, cand_v, cand_i = cells(flat, levels, margin, th_high,

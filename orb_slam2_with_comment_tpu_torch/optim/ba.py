@@ -8,14 +8,25 @@ assembles the reduced camera system [6P, 6P] and solves it densely (fixed
 poses get identity rows), ``ba_solve_cg`` solves it by preconditioned
 conjugate gradients without assembling it. Steps are accepted only when
 the robust-weighted chi2 decreases.
+
+``ba_solve_plain`` is the dense solver's plain PyTorch version.
+``ba_solve`` takes it only for tensors on the CPU; for CUDA tensors an
+iteration is two launches of the hand-written kernels of ``csrc/ba.cu``
+(K4: ``ba_assemble``, the linearization and the reduced camera system;
+``ba_update``, the back-substitution, the retract and the accept test)
+around the library's dense solve, or raises. ``LAUNCHES`` counts those
+launches. ``ba_solve_cg`` stays plain.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..geometry import se3
+from ..ops import cuda_lib
 from .pcg import block_pcg
 from .residuals import HUBER_MONO, HUBER_STEREO, CamParams, huber_weight
 
@@ -102,70 +113,116 @@ def _eval_chi2(cam, prob: BAProblem, w_active, R, t, X):
     return e2 * w_active
 
 
+class _Fixed(NamedTuple):
+    """What a solve's iterations share: the Huber thresholds, the active
+    observations and their weights, the free-pose mask per observation."""
+    delta_h: torch.Tensor  # [L, D]
+    active: torch.Tensor  # [L, D] bool
+    w_active: torch.Tensor  # [L, D]
+    free_obs: torch.Tensor  # [L, D] float
+
+
+class _Lin(NamedTuple):
+    """One iteration's linearization (plain version)."""
+    e: torch.Tensor  # [L, D, 3]
+    Jp: torch.Tensor  # [L, D, 3, 6], zero for fixed poses
+    wJp: torch.Tensor  # [L, D, 3, 6]
+    Y: torch.Tensor  # [L, D, 6, 3]
+    Hll_inv: torch.Tensor  # [L, 3, 3]
+    bl: torch.Tensor  # [L, 3]
+    chi2_old: torch.Tensor  # () at the state
+
+
+def _fixed(prob: BAProblem) -> _Fixed:
+    active = (prob.obs_w > 0) & prob.point_valid[:, None]
+    return _Fixed(
+        torch.where(prob.obs_uvr[..., 2] >= 0, HUBER_STEREO, HUBER_MONO),
+        active, torch.where(active, prob.obs_w, 0.0),
+        (~prob.pose_fixed)[prob.obs_pose].to(prob.X.dtype))
+
+
+def _linearize(cam, prob: BAProblem, k: _Fixed, R, t, X, lam,
+               robust: bool) -> _Lin:
+    """Residuals and Jacobians over the [L, D] table, the Huber weights,
+    the landmark blocks with their damped inverses, bl and Y."""
+    e, Jp, Jl = _components(cam, prob, R, t, X)
+    chi2_i = (e * e).sum(-1) * prob.obs_w
+    w_rob = huber_weight(chi2_i, k.delta_h) if robust else 1.0
+    w = k.w_active * w_rob
+    Jp = Jp * k.free_obs[..., None, None]
+    wJp = Jp * w[..., None, None]
+    wJl = Jl * w[..., None, None]
+    Hll = torch.einsum("ldri,ldrj->lij", wJl, Jl)
+    bl = torch.einsum("ldri,ldr->li", wJl, e)
+    Y = torch.einsum("ldri,ldrj->ldij", wJp, Jl)  # [L, D, 6, 3]
+    diag_ll = torch.diagonal(Hll, dim1=-2, dim2=-1).clamp(min=1e-6)
+    Hll_d = Hll + lam * torch.diag_embed(diag_ll)
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
+    Hll_d = torch.where(prob.point_valid[:, None, None], Hll_d, eye3)
+    chi2_old = torch.where(k.active, chi2_i, 0.0).sum()
+    return _Lin(e, Jp, wJp, Y, _inv3x3(Hll_d), bl, chi2_old)
+
+
+def _step(cam, prob: BAProblem, k: _Fixed, lin: _Lin, dxi, R, t, X, lam,
+          accept_all: bool, trace: list | None):
+    """Back-substitution of the landmarks, the candidate and its chi2, the
+    accept test and the damping: the next (R, t, X, lam)."""
+    # back-substitution: Hll dX = -(bl + sum_d Y^T dxi_pose)
+    rhs_l = lin.bl + torch.einsum("ldij,ldi->lj", lin.Y, dxi[prob.obs_pose])
+    dX = -(lin.Hll_inv @ rhs_l[..., None])[..., 0]
+    dX = torch.where(prob.point_valid[:, None], dX, 0.0)
+    R_new, t_new = se3.retract(R, t, dxi)
+    X_new = X + dX
+    chi2_new = _eval_chi2(cam, prob, k.w_active, R_new, t_new, X_new).sum()
+    if accept_all:
+        ok = torch.ones((), dtype=torch.bool, device=X.device)
+    else:
+        ok = ((chi2_new < lin.chi2_old) & torch.isfinite(dxi).all()
+              & torch.isfinite(dX).all())
+    if trace is not None:
+        trace.append(torch.stack([lin.chi2_old, chi2_new, ok.to(X.dtype)]))
+    if accept_all:
+        return R_new, t_new, X_new, lam
+    return (torch.where(ok, R_new, R), torch.where(ok, t_new, t),
+            torch.where(ok, X_new, X),
+            torch.where(ok, lam * 0.5, lam * 5.0).clamp(1e-9, 1e8))
+
+
+def _init_lambda(init_lambda, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(init_lambda, torch.Tensor):
+        return init_lambda.to(dtype=like.dtype, device=like.device).reshape(())
+    return torch.full((), init_lambda, dtype=like.dtype, device=like.device)
+
+
 def _lm_iterations(cam: CamParams, prob: BAProblem, iters: int, robust: bool,
-                   init_lambda, reduced_step,
-                   accept_all: bool = False) -> BAResult:
-    """The LM loop both solvers share: residuals and Jacobians over the
-    [L, D] table, the landmark blocks and their inverses, then
+                   init_lambda, reduced_step, accept_all: bool = False,
+                   trace: list | None = None) -> BAResult:
+    """The LM loop both solvers share: the linearization (_linearize), then
     ``reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam) -> dxi [P, 6]`` (the
     reduced camera system, dense or iterative), back-substitution of the
-    landmarks and the accept/reject on the robust-weighted chi2. With
-    ``accept_all`` every step is taken at a fixed damping (the schedule of
-    parallel.dist_ba)."""
-    dev, f32 = prob.X.device, prob.X.dtype
-    delta_h = torch.where(prob.obs_uvr[..., 2] >= 0, HUBER_STEREO, HUBER_MONO)
-    active = (prob.obs_w > 0) & prob.point_valid[:, None]
-    w_active = torch.where(active, prob.obs_w, 0.0)
-    free_obs = (~prob.pose_fixed)[prob.obs_pose].to(f32)
-    eye3 = torch.eye(3, dtype=f32, device=dev)
+    landmarks and the accept/reject on the robust-weighted chi2 (_step).
+    With ``accept_all`` every step is taken at a fixed damping (the
+    schedule of parallel.dist_ba). ``trace``: a list that gets each
+    iteration's (chi2_old, chi2_new, accepted)."""
+    k = _fixed(prob)
     R, t, X = prob.R, prob.t, prob.X
-    lam = (init_lambda.to(dtype=f32, device=dev).reshape(())
-           if isinstance(init_lambda, torch.Tensor)
-           else torch.full((), init_lambda, dtype=f32, device=dev))
+    lam = _init_lambda(init_lambda, X)
     for _ in range(iters):
-        e, Jp, Jl = _components(cam, prob, R, t, X)
-        chi2_i = (e * e).sum(-1) * prob.obs_w
-        w_rob = huber_weight(chi2_i, delta_h) if robust else 1.0
-        w = w_active * w_rob
-        Jp = Jp * free_obs[..., None, None]
-        wJp = Jp * w[..., None, None]
-        wJl = Jl * w[..., None, None]
-        Hll = torch.einsum("ldri,ldrj->lij", wJl, Jl)
-        bl = torch.einsum("ldri,ldr->li", wJl, e)
-        Y = torch.einsum("ldri,ldrj->ldij", wJp, Jl)  # [L, D, 6, 3]
-        diag_ll = torch.diagonal(Hll, dim1=-2, dim2=-1).clamp(min=1e-6)
-        Hll_d = Hll + lam * torch.diag_embed(diag_ll)
-        Hll_d = torch.where(prob.point_valid[:, None, None], Hll_d, eye3)
-        Hll_inv = _inv3x3(Hll_d)
-        dxi = reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam)
-        # back-substitution: Hll dX = -(bl + sum_d Y^T dxi_pose)
-        rhs_l = bl + torch.einsum("ldij,ldi->lj", Y, dxi[prob.obs_pose])
-        dX = -(Hll_inv @ rhs_l[..., None])[..., 0]
-        dX = torch.where(prob.point_valid[:, None], dX, 0.0)
-        R_new, t_new = se3.retract(R, t, dxi)
-        X_new = X + dX
-        chi2_old = torch.where(active, chi2_i, 0.0).sum()
-        chi2_new = _eval_chi2(cam, prob, w_active, R_new, t_new, X_new).sum()
-        if accept_all:
-            R, t, X = R_new, t_new, X_new
-            continue
-        ok = ((chi2_new < chi2_old) & torch.isfinite(dxi).all()
-              & torch.isfinite(dX).all())
-        R = torch.where(ok, R_new, R)
-        t = torch.where(ok, t_new, t)
-        X = torch.where(ok, X_new, X)
-        lam = torch.where(ok, lam * 0.5, lam * 5.0).clamp(1e-9, 1e8)
+        lin = _linearize(cam, prob, k, R, t, X, lam, robust)
+        dxi = reduced_step(lin.wJp, lin.Jp, lin.e, lin.Y, lin.Hll_inv,
+                           lin.bl, lam)
+        R, t, X, lam = _step(cam, prob, k, lin, dxi, R, t, X, lam,
+                             accept_all, trace)
     R = se3.orthonormalize(R)
-    obs_chi2 = _eval_chi2(cam, prob, w_active, R, t, X)
+    obs_chi2 = _eval_chi2(cam, prob, k.w_active, R, t, X)
     return BAResult(R, t, X, obs_chi2.sum(), obs_chi2, lam)
 
 
-def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
-             robust: bool = True, init_lambda=1e-4,
-             accept_all: bool = False) -> BAResult:
-    """Run ``iters`` LM iterations with the dense Schur complement: the
-    right trade at local-BA window sizes (P up to a few tens).
-    ``accept_all``: take every step at the fixed damping ``init_lambda``."""
+def _dense_system(prob: BAProblem):
+    """The dense reduced camera system as a function of one iteration's
+    linearization: (wJp, Jp, e, Y, Hll_inv, bl, lam) -> (S [6P, 6P],
+    b_s [6P]), fixed poses with identity blocks and a zero right-hand
+    side."""
     P = prob.R.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
     free_pose = ~prob.pose_fixed
@@ -175,7 +232,7 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
     fixed_blk = torch.where(prob.pose_fixed[:, None, None],
                             torch.eye(6, dtype=f32, device=dev), 0.0)
 
-    def reduced_step(wJp, Jp, e, Y, Hll_inv, bl, lam):
+    def system(wJp, Jp, e, Y, Hll_inv, bl, lam):
         Hpp = torch.einsum("ldri,ldrj,ldp->pij", wJp, Jp, G)
         bp = torch.einsum("ldri,ldr,ldp->pi", wJp, e, G)
         # Schur: S[p,q] -= sum_l (sum_{d->p} Y H^-1)_l (sum_{c->q} Y)_l^T
@@ -191,12 +248,249 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
         S = S * keep[..., None, None]
         S[ar, ar] += fixed_blk
         b_s = torch.where(prob.pose_fixed[:, None], 0.0, b_s)
-        S_mat = S.permute(0, 2, 1, 3).reshape(P * 6, P * 6)
-        sol, _ = torch.linalg.solve_ex(S_mat, b_s.reshape(P * 6, 1))
+        return S.permute(0, 2, 1, 3).reshape(P * 6, P * 6), b_s.reshape(-1)
+
+    return system
+
+
+def ba_solve_plain(cam: CamParams, prob: BAProblem, iters: int = 10,
+                   robust: bool = True, init_lambda=1e-4,
+                   accept_all: bool = False,
+                   trace: list | None = None) -> BAResult:
+    """The plain PyTorch version of ba_solve: per iteration the
+    linearization, the dense reduced camera system, its solve and the
+    step, about a hundred eager launches. ``trace`` as _lm_iterations."""
+    P = prob.R.shape[0]
+    system = _dense_system(prob)
+
+    def reduced_step(*lin):
+        S, b_s = system(*lin)
+        sol, _ = torch.linalg.solve_ex(S, b_s[:, None])
         return -sol.reshape(P, 6)
 
     return _lm_iterations(cam, prob, iters, robust, init_lambda, reduced_step,
-                          accept_all)
+                          accept_all, trace)
+
+
+def first_system_plain(cam: CamParams, prob: BAProblem, robust: bool = True,
+                       init_lambda=1e-4):
+    """(S [6P, 6P], b_s [6P], chi2 at the start) of a solve's first
+    iteration, plain: what ba_assemble's first launch writes."""
+    lam = _init_lambda(init_lambda, prob.X)
+    lin = _linearize(cam, prob, _fixed(prob), prob.R, prob.t, prob.X, lam,
+                     robust)
+    S, b_s = _dense_system(prob)(lin.wJp, lin.Jp, lin.e, lin.Y, lin.Hll_inv,
+                                 lin.bl, lam)
+    return S, b_s, lin.chi2_old
+
+
+# ---------------------------------------------------------------------------
+# K4: csrc/ba.cu, ba_assemble and ba_update, two launches an iteration
+# ---------------------------------------------------------------------------
+
+LAUNCHES = {"ba_assemble": 0, "ba_update": 0}
+MAX_POSES = 64  # csrc/ba.cu: a landmark's free poses in one 64-bit mask
+MAX_SLOTS = 32  # csrc/ba.cu kMaxSlots
+_MODE_ACCEPT_ALL, _MODE_LAST, _MODE_EVAL_ONLY = 1, 2, 4
+# the Huber thresholds as the plain version's float32 tensors hold them
+_HUBER = (float(np.float32(HUBER_MONO)), float(np.float32(HUBER_STEREO)))
+
+_P = ctypes.c_void_p
+
+
+class _BaArgs(ctypes.Structure):
+    """csrc/ba.cu's BaArgs, field for field."""
+    _fields_ = [(n, _P) for n in (
+        "obs_uvr", "obs_w", "obs_pose", "pose_fixed", "point_valid", "order",
+        "starts", "R", "t", "X", "lam", "rec", "hinv", "bl", "mask",
+        "partial", "chi2_old", "S", "b", "sol", "Rn", "tn", "Xn", "trace",
+        "obs_chi2", "chi2")] + [
+        ("P", ctypes.c_int), ("L", ctypes.c_int), ("D", ctypes.c_int)] + [
+        (n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "bf",
+                                      "huber_mono", "huber_stereo")] + [
+        ("robust", ctypes.c_int), ("iter", ctypes.c_int),
+        ("mode", ctypes.c_int)]
+
+
+_lib: ctypes.CDLL | None = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    for name in ("ba_args_bytes", "ba_max_grid", "ba_record_floats"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    for name in ("ba_assemble", "ba_update"):
+        getattr(lib, name).argtypes = [_P, _P]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = bind(cuda_lib.load("ba"))
+        got, want = lib.ba_args_bytes(), ctypes.sizeof(_BaArgs)
+        if got != want:
+            raise RuntimeError(f"csrc/ba.cu's BaArgs is {got} bytes, "
+                               f"optim/ba.py's {want}")
+        _lib = lib
+    return _lib
+
+
+def _check_problem(prob: BAProblem) -> bool:
+    """True when every tensor lies on the CPU; raises on a wrong type or
+    shape, on tensors on several devices, and on the card beyond the
+    kernels' limits."""
+    for name in ("R", "t", "X", "obs_uvr", "obs_w"):
+        x = getattr(prob, name)
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+    if prob.obs_pose.dtype != torch.int64:
+        raise ValueError(f"obs_pose must be int64, got {prob.obs_pose.dtype}")
+    for name in ("pose_fixed", "point_valid"):
+        if getattr(prob, name).dtype != torch.bool:
+            raise ValueError(f"{name} must be bool, got "
+                             f"{getattr(prob, name).dtype}")
+    P, L = prob.R.shape[0], prob.X.shape[0]
+    D = prob.obs_w.shape[-1] if prob.obs_w.dim() == 2 else -1
+    want = {"R": (P, 3, 3), "t": (P, 3), "X": (L, 3), "obs_pose": (L, D),
+            "obs_uvr": (L, D, 3), "obs_w": (L, D), "pose_fixed": (P,),
+            "point_valid": (L,)}
+    got = {k: tuple(getattr(prob, k).shape) for k in want}
+    if got != want:
+        raise ValueError(f"expected the shapes {want}, got {got}")
+    if all(x.device.type == "cpu" for x in prob):
+        return True
+    dev = prob.X.device
+    if dev.type != "cuda" or any(x.device != dev for x in prob):
+        raise ValueError("the BA kernels take tensors on one CUDA device "
+                         f"(got {[str(x.device) for x in prob]})")
+    if not 1 <= P <= MAX_POSES:
+        raise ValueError(f"the BA kernels take 1 to {MAX_POSES} poses, "
+                         f"got {P}")
+    if not 1 <= D <= MAX_SLOTS:
+        raise ValueError(f"the BA kernels take 1 to {MAX_SLOTS} observation "
+                         f"slots a landmark, got {D}")
+    if L * D >= 2 ** 31:
+        raise ValueError(f"the BA kernels take L * D below 2^31, got {L * D}")
+    return False
+
+
+class KernelSolve:
+    """One dense LM solve through csrc/ba.cu on a checked CUDA problem:
+    the state, the scratch and the per-pose observation lists of the
+    solve, and the two launches of an iteration. ba_solve drives it;
+    chip_smoke.py and the card tests also call assemble() alone."""
+
+    def __init__(self, cam: CamParams, prob: BAProblem, iters: int,
+                 robust: bool = True, init_lambda=1e-4,
+                 accept_all: bool = False):
+        self.lib = _kernel_lib()
+        dev, f32 = prob.X.device, torch.float32
+        P, L = prob.R.shape[0], prob.X.shape[0]
+        D = prob.obs_w.shape[1]
+        self.prob = BAProblem(*(x.contiguous() for x in prob))
+        self.accept_all = accept_all
+        # the observations of free poses that count, by pose, in landmark
+        # and slot order (a stable sort): the pair blocks' lists
+        act = ((prob.obs_w > 0) & prob.point_valid[:, None]
+               & ~prob.pose_fixed[prob.obs_pose])
+        key = torch.where(act, prob.obs_pose, P).reshape(-1)
+        keys, order = torch.sort(key, stable=True)
+        self.order = order.to(torch.int32)
+        # each pose's first entry; no count is read back to the host
+        self.starts = torch.searchsorted(
+            keys, torch.arange(P + 1, device=dev)).to(torch.int32)
+        self.R = prob.R.clone().contiguous()
+        self.t = prob.t.clone().contiguous()
+        self.X = prob.X.clone().contiguous()
+        self.lam = _init_lambda(init_lambda, prob.X).reshape(1).clone()
+
+        def empty(*shape, dtype=f32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        self.rec = empty(L * D, self.lib.ba_record_floats())
+        self.hinv, self.bl = empty(L, 9), empty(L, 3)
+        self.mask = empty(L, dtype=torch.int64)
+        self.partial = empty(3, self.lib.ba_max_grid())
+        self.chi2_old, self.chi2 = empty(1), empty(1)
+        self.S, self.b = empty(6 * P, 6 * P), empty(6 * P)
+        self.zero_sol = torch.zeros(6 * P, 1, dtype=f32, device=dev)
+        self.Rn, self.tn, self.Xn = empty(P, 3, 3), empty(P, 3), empty(L, 3)
+        self.trace = torch.zeros(max(iters, 1), 3, dtype=f32, device=dev)
+        self.obs_chi2 = empty(L, D)
+        a = _BaArgs()
+        for name in ("obs_uvr", "obs_w", "obs_pose", "pose_fixed",
+                     "point_valid"):
+            setattr(a, name, getattr(self.prob, name).data_ptr())
+        for name in ("order", "starts", "R", "t", "X", "lam", "rec", "hinv",
+                     "bl", "mask", "partial", "chi2_old", "S", "b", "Rn",
+                     "tn", "Xn", "trace", "obs_chi2", "chi2"):
+            setattr(a, name, getattr(self, name).data_ptr())
+        a.sol = self.zero_sol.data_ptr()
+        a.P, a.L, a.D = P, L, D
+        a.fx, a.fy, a.cx, a.cy, a.bf = cam
+        a.huber_mono, a.huber_stereo = _HUBER
+        a.robust = int(robust)
+        self.args = a
+
+    def _launch(self, name: str) -> None:
+        """One launch on the current stream; raises on a launch error."""
+        stream = torch.cuda.current_stream(self.X.device).cuda_stream
+        err = getattr(self.lib, name)(ctypes.addressof(self.args), stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        LAUNCHES[name] += 1
+
+    def assemble(self):
+        """ba_assemble at the current state: (S [6P, 6P], b_s [6P]), the
+        buffers the next assemble overwrites."""
+        self._launch("ba_assemble")
+        return self.S, self.b
+
+    def update(self, sol: torch.Tensor, it: int, last: bool) -> None:
+        """ba_update with the solve's solution ``sol`` [6P, 1] of
+        iteration ``it`` (its row of the trace)."""
+        self.args.sol = sol.data_ptr()
+        self.args.iter = it
+        self.args.mode = ((_MODE_ACCEPT_ALL if self.accept_all else 0)
+                          | (_MODE_LAST if last else 0))
+        self._launch("ba_update")
+
+    def finish_only(self) -> None:
+        """A solve of 0 iterations: the orthonormalized state's chi2."""
+        self.args.sol = self.zero_sol.data_ptr()
+        self.args.mode = _MODE_EVAL_ONLY | _MODE_LAST
+        self._launch("ba_update")
+
+    def run(self, iters: int) -> BAResult:
+        for it in range(iters):
+            S, b = self.assemble()
+            sol, _ = torch.linalg.solve_ex(S, b[:, None])
+            self.update(sol, it, it == iters - 1)
+        if iters == 0:
+            self.finish_only()
+        return self.result()
+
+    def result(self) -> BAResult:
+        return BAResult(self.R, self.t, self.X, self.chi2.reshape(()),
+                        self.obs_chi2, self.lam.reshape(()))
+
+
+def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
+             robust: bool = True, init_lambda=1e-4,
+             accept_all: bool = False) -> BAResult:
+    """Run ``iters`` LM iterations with the dense Schur complement: the
+    right trade at local-BA window sizes (P up to a few tens).
+    ``accept_all``: take every step at the fixed damping ``init_lambda``.
+    On the CPU ba_solve_plain; on CUDA tensors two launches of csrc/ba.cu
+    an iteration around torch.linalg.solve_ex, reading nothing back (at
+    most 64 poses and 32 slots a landmark)."""
+    if _check_problem(prob):
+        return ba_solve_plain(cam, prob, iters, robust, init_lambda,
+                              accept_all)
+    return KernelSolve(cam, prob, iters, robust, init_lambda,
+                       accept_all).run(iters)
 
 
 def ba_solve_cg(cam: CamParams, prob: BAProblem, iters: int = 10,

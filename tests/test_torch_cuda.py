@@ -7,8 +7,9 @@ two of their launches bit for bit, three launches per extracted view and
 no host wait; the redesigned orb_cells against its plain version and
 PR 10's kernel (csrc/orb_v1.cu) bit for bit where ties and ragged cells
 live, orb_describe's gates at 2000 slots and at 1921x1081, and both
-kernels' resident blocks per SM;
-the host tracker's
+kernels' resident blocks per SM; the stereo SAD kernel (K5) and the
+dense BA kernels (K4) against their plain versions, their launch counts,
+two of their launches bit for bit and their limits; the host tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
 
@@ -32,11 +33,12 @@ import torch
 
 from orb_slam2_with_comment_tpu_torch import Sensor, System
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
-    POSE_CASES, SyntheticWorld, orbit_trajectory, pose_problem)
+    POSE_CASES, SyntheticWorld, ba_problem, orbit_trajectory, pose_problem)
+from orb_slam2_with_comment_tpu_torch.frontend import stereo
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig
-from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming, orb
-from orb_slam2_with_comment_tpu_torch.optim import pose_opt
+from orb_slam2_with_comment_tpu_torch.ops import cuda_lib, hamming, orb, sad
+from orb_slam2_with_comment_tpu_torch.optim import ba, pose_opt
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 from orb_slam2_with_comment_tpu_torch.pipeline import TrackerConfig, TrackState
 from orb_slam2_with_comment_tpu_torch.pipeline.loop_closing import Readback
@@ -526,3 +528,182 @@ def test_map_writes_do_not_wait_on_the_card(dev):
     for j, i in last.items():
         assert torch.equal(out[j], vals[i])
     assert int(m2.n_kf) == int(m.n_kf) + 1 and bool(m3.kf_valid[k])
+
+
+def _sad_inputs(dev, n=500):
+    """A rendered 320x240 pair on the card: the packed pyramids, the level
+    table, the left keypoints, their coarse right u from the stereo
+    association, and the valid flags; a fifth of the keypoints then moved
+    onto the image border and a fifth of the coarse u off either side."""
+    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    world = SyntheticWorld(seed=1)
+    R, t = orbit_trajectory(16)[5]
+    t_r = np.asarray(t, np.float32) - np.array([0.08, 0, 0], np.float32)
+    ext = OrbExtractor(n_features=n)
+    pyr = [ext._pyramid(torch.as_tensor(np.clip(world.render(
+        R, tt, **cam)[0], 0, 255).astype(np.uint8)).to(dev))
+        for tt in (t, t_r)]
+    fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
+    mask = stereo.association_mask(fl, fr, ext.scales, 250.0)
+    _, best_j, _, _ = hamming.masked_best_two(fl.desc, fr.desc, mask)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(ext.budgets), tuple(ext.scales))
+    xy, u0 = fl.xy.clone(), fr.xy[best_j.long(), 0]
+    k = n // 5
+    xy[:k:2, 0] = 0.0
+    xy[1:k:2, 1] = 239.0
+    u0[k:2 * k:2] = -2.0
+    u0[k + 1:2 * k:2] = 330.0
+    return orb.pack(pyr[0]), orb.pack(pyr[1]), levels, xy, u0, fl.valid
+
+
+def test_stereo_sad_kernel_matches_plain(dev):
+    """K5 in one launch for every level against sad_refine_plain on the
+    same card: the best shift and ok identical except at near-ties (the two
+    lowest SADs within 1e-5 relative: the 121-term sums run in another
+    order), at most 0.5% of the valid keypoints; u within 1e-4 px and the best
+    SAD within 1e-5 relative where both pick the same shift; two launches
+    bit for bit."""
+    fl, fr, levels, xy, u0, valid = _sad_inputs(dev)
+    before = sad.LAUNCHES["stereo_sad"]
+    got = sad.sad_refine(fl, fr, levels, xy, u0)
+    assert sad.LAUNCHES["stereo_sad"] == before + 1
+    u, s, ok, best = sad.launch(sad._kernel_lib(), fl, fr, levels, xy, u0)
+    for a, b in zip(got, (u, s, ok)):
+        assert torch.equal(a, b)
+    want = sad.sad_refine_plain(fl, fr, levels, xy, u0)
+    curves = sad.sad_curves_plain(fl, fr, levels, xy, u0)
+    two = curves.topk(2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs()
+    same = best.long() == curves.argmin(1)
+    assert bool((same | near).all()) and bool(((ok == want[2]) | near).all())
+    assert int((near & valid).sum()) <= 0.005 * int(valid.sum())
+    both = same & ok & want[2]
+    assert int(both.sum()) > 100
+    assert float((u - want[0]).abs()[both].max()) <= 1e-4
+    assert torch.allclose(s[same], want[1][same], rtol=1e-5, atol=0)
+
+
+def test_stereo_sad_checks_its_arguments(dev):
+    fl, fr, levels, xy, u0, _ = _sad_inputs(dev, n=100)
+    with pytest.raises(ValueError, match="float32"):
+        sad.sad_refine(fl, fr, levels, xy.double(), u0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sad.sad_refine(fl, fr.cpu(), levels, xy, u0)
+    small = orb.level_table(((40, 20),), (3,), (1.0,))
+    z = torch.zeros(800, device=dev)
+    with pytest.raises(ValueError, match="at least 11 rows"):
+        sad.sad_refine(z, z, small, torch.zeros(3, 2, device=dev),
+                       torch.zeros(3, device=dev))
+
+
+BA_CAM = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+
+
+def _ba(dev, case="mixed", seed=0, **kw):
+    p = ba_problem(case, seed, **kw)
+    return ba.BAProblem(*(torch.as_tensor(p[f]).to(dev)
+                          for f in ba.BAProblem._fields))
+
+
+def _damping_after(accepted, lam, accept_all):
+    """The damping an accept sequence leads to, as ba_update computes it."""
+    lam = np.float32(lam)
+    for ok in ([] if accept_all else accepted):
+        lam = np.float32(lam * np.float32(0.5 if ok else 5.0))
+        lam = min(max(lam, np.float32(1e-9)), np.float32(1e8))
+    return float(lam)
+
+
+def _hold_ba(prob, iters, accept_all=False, init_lambda=1e-4):
+    """K4 against ba_solve_plain on the same card: 2 launches an
+    iteration; the accept sequence identical wherever chi2 moves by more
+    than 1e-5 relative (nearer to convergence the two sums of the test are
+    equal within their float32 rounding, and either version may decide
+    either way); the final damping equal where the sequences are, else the
+    one the kernel's own sequence leads to; R, t and X within 1e-4; chi2
+    within 1e-3 relative; two solves bit for bit."""
+    before = dict(ba.LAUNCHES)
+    got = ba.ba_solve(BA_CAM, prob, iters=iters, accept_all=accept_all,
+                      init_lambda=init_lambda)
+    n = max(iters, 1)
+    assert ba.LAUNCHES["ba_update"] == before["ba_update"] + n
+    assert ba.LAUNCHES["ba_assemble"] == before["ba_assemble"] + iters
+    ks = ba.KernelSolve(BA_CAM, prob, iters, accept_all=accept_all,
+                        init_lambda=init_lambda)
+    again = ks.run(iters)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    trace = []
+    want = ba.ba_solve_plain(BA_CAM, prob, iters=iters, accept_all=accept_all,
+                             init_lambda=init_lambda, trace=trace)
+    same = True
+    if iters:
+        mine, plain = ks.trace.cpu(), torch.stack(trace).cpu()
+        moved = (plain[:, 1] / plain[:, 0] - 1).abs() > 1e-5
+        assert torch.equal(mine[:, 2][moved], plain[:, 2][moved])
+        same = torch.equal(mine[:, 2], plain[:, 2])
+        assert float(got.final_lambda) == _damping_after(
+            mine[:, 2].tolist(), float(torch.as_tensor(init_lambda)),
+            accept_all)
+    if same:
+        assert float(got.final_lambda) == float(want.final_lambda)
+    for f in ("R", "t", "X"):
+        err = float((getattr(got, f) - getattr(want, f)).abs().max())
+        assert err <= 1e-4, f"{f} differs by {err}"
+    assert torch.allclose(got.chi2, want.chi2, rtol=1e-3, atol=1e-6)
+    assert torch.allclose(got.obs_chi2, want.obs_chi2, rtol=1e-3, atol=1e-3)
+    return got, want
+
+
+@pytest.mark.parametrize("shape", [(24, 8192, 8), (64, 10000, 8)])
+def test_ba_kernels_match_plain(dev, shape):
+    """At local BA's shape and at the dense solver's most poses; the first
+    reduced camera system within 1e-5 of its largest entry."""
+    P, L, D = shape
+    prob = _ba(dev, P=P, L=L, D=D)
+    S, b_s, chi2 = ba.first_system_plain(BA_CAM, prob)
+    ks = ba.KernelSolve(BA_CAM, prob, 1)
+    S_k, b_k = ks.assemble()
+    scale = float(S.abs().max())
+    assert float((S_k - S).abs().max()) <= 1e-5 * scale
+    assert float((b_k - b_s).abs().max()) <= 1e-5 * scale
+    assert torch.allclose(ks.chi2_old[0], chi2, rtol=1e-5)
+    _hold_ba(prob, 5)
+
+
+@pytest.mark.parametrize("case", ["accept_all", "20 iterations", "no step",
+                                  "all invalid", "mono", "tensor damping"])
+def test_ba_kernels_cases(dev, case):
+    if case == "accept_all":
+        _hold_ba(_ba(dev, seed=1, P=8, L=4096, n_fixed=1), 8,
+                 accept_all=True)
+    elif case == "20 iterations":
+        # no outliers: over 20 iterations a landmark that an outlier
+        # contradicts runs off toward infinity, where float32 and float64
+        # solves of the plain version already part by metres
+        _hold_ba(_ba(dev, seed=2, P=2, L=500, n_fixed=1, outliers=0.0), 20)
+    elif case == "no step":
+        _hold_ba(_ba(dev, seed=3, P=12, L=1000, n_fixed=4), 0)
+    elif case == "all invalid":
+        got, _ = _hold_ba(_ba(dev, "all_invalid", 4, P=12, L=1000), 3)
+        assert float(got.chi2) == 0.0
+    elif case == "mono":
+        _hold_ba(_ba(dev, "mono", 5, P=12, L=2000, D=6, n_fixed=4), 5)
+    else:
+        _hold_ba(_ba(dev, seed=6, P=24, L=2000), 2,
+                 init_lambda=torch.tensor(3e-3, device=dev))
+
+
+def test_ba_kernels_check_their_limits(dev):
+    prob = _ba(dev, P=8, L=100, n_fixed=2)
+    with pytest.raises(ValueError, match="obs_pose must be int64"):
+        ba.ba_solve(BA_CAM, prob._replace(obs_pose=prob.obs_pose.int()))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ba.ba_solve(BA_CAM, prob._replace(X=prob.X.cpu()))
+    big = _ba(dev, P=65, L=100, n_fixed=2)
+    with pytest.raises(ValueError, match="1 to 64 poses"):
+        ba.ba_solve(BA_CAM, big)
+    wide = _ba(dev, P=8, L=10, D=33, n_fixed=2)
+    with pytest.raises(ValueError, match="1 to 32 observation slots"):
+        ba.ba_solve(BA_CAM, wide)

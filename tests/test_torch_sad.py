@@ -1,0 +1,212 @@
+"""K5, the stereo SAD refinement of every pyramid level (ops/sad.py), on the
+CPU: ``sad_refine_plain`` for all levels in one call against the JAX
+package's ``_sad_refine_block`` level by level, on the same numpy
+pyramids, keypoints and coarse right u.
+
+Cases: an orbit frame at 640x480 with 1000 features (SyntheticWorld's
+pair at the bench's 8 cm baseline; the keypoints and coarse right u of the
+port's extractor and stereo association, as the main path gives them);
+then seeded sums of sinusoids rounded to grey levels, the right view the
+left one shifted by a subpixel disparity, with keypoints drawn near the
+true match, at the KITTI 00-02 shape (1241x376) with 2000 features, an
+odd size (641x479), keypoints whose window or strip meets or leaves the
+image edge, levels of budget 0 (5 features), and exact ties of the SADs
+(a horizontal period of 4 px on integer level-0 pixels, where every order
+of the sums gives the same values and the first minimum must win).
+
+Tolerance, as tests/test_torch_stereo.py holds the per-level function:
+``ok`` identical, the best SAD within 1e-3 relative, the refined right u
+within 1e-3 px where ok. The 121-term float32 sums of the non-integer
+pixels of levels >= 1 are added in another order than the JAX package's
+one-hot products.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from orb_slam2_with_comment_tpu.frontend import stereo as jstereo
+from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
+    SyntheticWorld, orbit_trajectory)
+from orb_slam2_with_comment_tpu_torch.frontend import stereo
+from orb_slam2_with_comment_tpu_torch.frontend.extractor import (
+    OrbExtractor, level_budgets)
+from orb_slam2_with_comment_tpu_torch.ops import image, orb, sad
+
+torch.set_num_threads(2)
+DISPARITY = 7.3  # level-0 px
+
+
+def _texture(rng, h, w, shift):
+    """Grey levels of a sum of sinusoids at (x + shift, y)."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    x = x + shift
+    img = np.full((h, w), 128.0)
+    for _ in range(12):
+        fx, fy = rng.uniform(0.05, 0.6, 2) * rng.choice([-1, 1], 2)
+        img += rng.uniform(6, 14) * np.sin(fx * x + fy * y
+                                            + rng.uniform(0, 6.3))
+    return np.clip(np.round(img), 0, 255).astype(np.float32)
+
+
+def _pair(seed, h, w, period=None):
+    """(left, right) float32 grey images; the right view sees the left one's
+    pixel x at x - DISPARITY. ``period``: columns repeating every
+    ``period`` px instead (exact ties of the SADs)."""
+    if period is not None:
+        row = np.float32([0, 60, 120, 60])[np.arange(w) % period]
+        img = np.broadcast_to(row, (h, w)).copy()
+        return img, np.roll(img, -7, axis=1)
+    rng = np.random.RandomState(seed)
+    left = _texture(rng, h, w, 0.0)
+    rng = np.random.RandomState(seed)
+    return left, _texture(rng, h, w, DISPARITY)
+
+
+def _keypoints(rng, levels, w0, h0, edge=False):
+    """xy [N, 2] in level-0 px inside each level's image, and the coarse
+    right u [N] near the true match; with ``edge`` a third of them on the
+    image's border band and some coarse u off either side."""
+    xy, u0 = [], []
+    for lv in levels:
+        s = lv.scale
+        x = rng.uniform(0, lv.w - 1, lv.budget) * s
+        y = rng.uniform(0, lv.h - 1, lv.budget) * s
+        u = x - DISPARITY + rng.uniform(-1.5, 1.5, lv.budget) * s
+        if edge:
+            k = lv.budget // 3
+            x[:k] = rng.choice([0.0, 2.0 * s, (lv.w - 3) * s], k)
+            y[:k] = rng.choice([1.0 * s, (lv.h - 2) * s], k)
+            u[:k] = x[:k] - DISPARITY
+            u[k:2 * k] = rng.choice([-3.0 * s, 4.0 * s, (lv.w + 2) * s], k)
+        xy.append(np.stack([x, y], 1))
+        u0.append(u)
+    return (np.concatenate(xy).astype(np.float32),
+            np.concatenate(u0).astype(np.float32))
+
+
+def _jax_levels(pyr_l, pyr_r, levels, xy, u0):
+    """The JAX package's per-level function over each level's slots."""
+    out = []
+    for lv in levels:
+        sl = slice(lv.slot, lv.slot + lv.budget)
+        fn = jax.jit(lambda pl, pr, p, u, inv=1.0 / lv.scale:
+                     jstereo._sad_refine_block(pl, pr, inv, p, u))
+        ju, jsad, jok = fn(jnp.asarray(pyr_l[lv.lvl]),
+                           jnp.asarray(pyr_r[lv.lvl]), jnp.asarray(xy[sl]),
+                           jnp.asarray(u0[sl]))
+        out.append((np.asarray(ju) * np.float32(lv.scale), np.asarray(jsad),
+                    np.asarray(jok)))
+    return [np.concatenate(a) for a in zip(*out)]
+
+
+def _orbit_inputs():
+    """Orbit frame 5 and its right view at 8 cm: the packed pyramids, the
+    level table, the left keypoints and the coarse right u of the stereo
+    association, from the port's extractor on the CPU."""
+    R, t = orbit_trajectory(16)[5]
+    world = SyntheticWorld(seed=1)
+    views = [np.clip(world.render(R, tt)[0], 0, 255).astype(np.uint8)
+             for tt in (t, np.asarray(t, np.float32)
+                        - np.float32([0.08, 0, 0]))]
+    ext = OrbExtractor(n_features=1000)
+    pyr = [ext._pyramid(torch.as_tensor(v)) for v in views]
+    fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
+    mask = stereo.association_mask(fl, fr, ext.scales, 500.0)
+    _, best_j, _, _ = stereo.hamming.masked_best_two(fl.desc, fr.desc, mask)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(ext.budgets), tuple(ext.scales))
+    return pyr, levels, fl.xy.numpy(), fr.xy[best_j.long(), 0].numpy()
+
+
+CASES = {
+    "orbit frame, 640x480, 1000": (None, 480, 640, 1000, False, None),
+    "kitti 1241x376, 2000": (1, 376, 1241, 2000, False, None),
+    "odd 641x479, 1000": (2, 479, 641, 1000, False, None),
+    "edges 640x480, 1000": (3, 480, 640, 1000, True, None),
+    "budget 0, 5": (4, 480, 640, 5, False, None),
+    "ties 320x240, 500": (5, 240, 320, 500, False, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sad_refine_plain_matches_jax_per_level(case):
+    seed, h, w, n_feat, edge, period = CASES[case]
+    budgets = level_budgets(n_feat)
+    if seed is None:
+        pyr, levels, xy, u0 = _orbit_inputs()
+    else:
+        left, right = _pair(seed, h, w, period)
+        pyr = [image.build_pyramid(torch.as_tensor(im), len(budgets))
+               for im in (left, right)]
+        levels = orb.level_table(
+            tuple(tuple(p.shape) for p in pyr[0]), tuple(budgets),
+            tuple(image.level_scales(len(budgets))))
+        xy, u0 = _keypoints(np.random.RandomState(100 + seed), levels, w, h,
+                            edge)
+    assert sum(lv.budget for lv in levels) == n_feat
+    tu, tsad, tok = (a.numpy() for a in sad.sad_refine_plain(
+        orb.pack(pyr[0]), orb.pack(pyr[1]), levels, torch.as_tensor(xy),
+        torch.as_tensor(u0)))
+    ju, jsad, jok = _jax_levels([p.numpy() for p in pyr[0]],
+                                [p.numpy() for p in pyr[1]], levels, xy, u0)
+    np.testing.assert_array_equal(tok, jok)
+    np.testing.assert_allclose(tsad, jsad, rtol=1e-3, atol=0)
+    np.testing.assert_allclose(tu[jok], ju[jok], rtol=0, atol=1e-3)
+    if period is not None:
+        # every SAD curve of the periodic pair has equal minima 4 shifts
+        # apart: the first one wins, in both packages
+        assert tsad.min() == 0.0 and int(jok.sum()) > 0
+    elif edge:
+        assert 0 < int(jok.sum()) < n_feat * 0.8
+    else:
+        # the orbit frame's unmatched and invalid slots refine too, mostly
+        # to no vertex within one pixel
+        assert int(jok.sum()) > (0.3 if seed is None else 0.5) * n_feat
+    if case == "budget 0, 5":
+        assert len(levels) < len(budgets)
+
+
+def test_sad_refine_wrapper_takes_plain_on_cpu_and_checks():
+    left, right = _pair(7, 120, 160)
+    budgets = level_budgets(200, 4)
+    pyr = [image.build_pyramid(torch.as_tensor(im), 4) for im in (left,
+                                                                  right)]
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(budgets),
+                             tuple(image.level_scales(4)))
+    xy, u0 = (torch.as_tensor(a) for a in _keypoints(
+        np.random.RandomState(7), levels, 160, 120))
+    flat_l, flat_r = orb.pack(pyr[0]), orb.pack(pyr[1])
+    before = dict(sad.LAUNCHES)
+    got = sad.sad_refine(flat_l, flat_r, levels, xy, u0)
+    want = sad.sad_refine_plain(flat_l, flat_r, levels, xy, u0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert sad.LAUNCHES == before  # the plain version launches nothing
+    with pytest.raises(ValueError, match="float32"):
+        sad.sad_refine(flat_l, flat_r, levels, xy.double(), u0)
+    with pytest.raises(ValueError, match="float32"):
+        sad.sad_refine(flat_l.double(), flat_r, levels, xy, u0)
+    with pytest.raises(ValueError, match="expected xy_l"):
+        sad.sad_refine(flat_l, flat_r, levels, xy[1:], u0[1:])
+    with pytest.raises(ValueError, match="packed levels"):
+        sad.sad_refine(flat_l[:100], flat_r, levels, xy, u0)
+
+
+def test_sad_table_limits():
+    """The kernel's table takes at most 16 levels, each at least 11 rows
+    by 21 columns; the plain version takes any."""
+    small = orb.level_table(((40, 20),), (3,), (1.0,))
+    with pytest.raises(ValueError, match="at least 11 rows and 21"):
+        sad._table(small)
+    many = orb.level_table(((40, 40),) * 17, (1,) * 17, (1.0,) * 17)
+    with pytest.raises(ValueError, match="at most 16 levels"):
+        sad._table(many)
+    t = sad._table(orb.level_table(((480, 640), (400, 533)), (600, 400),
+                                   (1.0, 1.2)))
+    assert (t.n_levels, t.n_slots) == (2, 1000)
+    assert t.lv[1].slot == 600 and t.lv[1].off == 480 * 640
+    assert t.lv[1].inv == np.float32(1 / 1.2)
+    assert t.lv[1].scale == np.float32(1.2)
