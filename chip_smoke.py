@@ -91,21 +91,26 @@ Phases (any failure raises and the script exits nonzero without the final
    for bit, and the outputs that are not the plain version's bits
    counted; timed the same two ways beside its bound and the plain
    version.
-   Then K4, the dense BA (csrc/ba.cu: ba_assemble and ba_update), against
+   Then K4, the dense BA (csrc/ba.cu: one ba_solve launch a solve, the
+   reduced system's Cholesky factorization inside), against
    ba_solve_plain (hold_ba) on random local-BA problems
-   (dataio.synthetic.ba_problem) at P = 24 / L = 8192, P = 64 / L =
-   10,000, P = 8 with accept_all, P = 2 over 20 iterations: the first S
-   and b_s within 1e-5 of max |S| (or twice the plain float32 system's
-   distance from float64), the accept sequence identical wherever
-   |chi2_new / chi2_old - 1| > 1e-5 and R, t and X within 1e-4 where
-   float32 resolves the problem (the plain float32 solve within 1e-4 of a
-   float64 one; elsewhere reported), the final damping equal where the
-   sequences are (else the one the kernel's sequence leads to), chi2
-   within 1e-3 relative, two solves bit for bit; each
-   kernel timed the same two ways beside its bound and its plain half,
-   and the solve beside ba_solve_plain. The dense BA problems phases 4
-   and 9-11 give the solver (captured_problems) join them after those
-   phases.
+   (dataio.synthetic.ba_problem) at P = 24 / L = 8192 (the factorization
+   in shared memory), P = 64 / L = 10,000 (from global memory), P = 8
+   with accept_all, P = 2 over 20 iterations: one launch a solve; the
+   first S and b_s within 1e-5 of max |S| (or twice the plain float32
+   system's distance from float64); the first step within n kappa 2^-52
+   of a float64 torch.linalg.solve of the kernel's own float64 S; the
+   accept sequence identical wherever |chi2_new / chi2_old - 1| > 1e-5
+   and R, t and X within 1e-4 where float32 resolves the problem (the
+   plain float32 solve within 1e-4 of a float64 one; elsewhere reported),
+   the final damping equal where the sequences are (else the one the
+   kernel's sequence leads to), chi2 within 1e-3 relative, two solves bit
+   for bit; the solve timed the same two ways beside its bound, PR 13's
+   kernels (csrc/ba_v1.cu with torch.linalg.solve_ex, in turns) and
+   ba_solve_plain, each phase's ms from the kernel's stamps, and
+   torch.linalg.solve_ex on the same float64 S beside the factorize
+   phase. The dense BA problems phases 4 and 9-11 give the solver
+   (captured_problems) join them after those phases.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -313,9 +318,8 @@ Phases (any failure raises and the script exits nonzero without the final
       and its ATE cells read the same.
    Every stereo path refined each pair it extracted on the card with one
    K5 launch (check_k5_per_pair), and every dense BA solve on the card
-   launched ba_assemble once an LM iteration and ba_update at least as
-   often; the paths that keep a map (4, 6, 9, 11, 13a, 16c) ran solves
-   (check_k4_per_iteration).
+   was one ba_solve launch; the paths that keep a map (4, 6, 9, 11, 13a,
+   16c) ran solves (check_k4_per_solve).
    Every (calling function, shape) phases 4, 9-10, 13a, 13c and 14-16 gave
    the kernels (the local-map window at [min(4096, l_max), n_feat] before
    and after growth among them) is then held bit-exact against the plain
@@ -1281,53 +1285,57 @@ def check_sad_kernel(dev) -> dict:
                 max_abs_err=err, library_ms=None, other_problems=timed[1:])
 
 
-# csrc/ba.cu's float32 operations, counted from its code: ba_assemble per
-# active observation (the projection and residual 20, the Huber weight 6,
-# the Jacobians 60, Hll and bl 72, Y 90, Y Hll^-1 90), per landmark (the
-# damping and the 3x3 inverse 50), per pair of observations of one landmark
-# by free poses p <= q (a 6x6 block of 3-term sums, 216), per active
-# observation of a free pose once more (Hpp, bp and the b correction, 288);
-# ba_update per active observation of a free pose (Y^T dxi, 36), per
-# landmark (dX and X, 21), per active observation (the candidate's chi2,
-# 30), per pose (the retract, about 200)
+# csrc/ba.cu's operations an LM iteration, counted from PR 13's two kernels
+# (csrc/ba_v1.cu; the redesign does the same arithmetic): per active
+# observation (the projection and residual 20, the Huber weight 6, the
+# Jacobians 60, Hll and bl 72, Y 90, Y Hll^-1 90), per landmark (the damping
+# and the 3x3 inverse 50), per pair of observations of one landmark by free
+# poses p <= q (a 6x6 block of 3-term sums, 216), per active observation of
+# a free pose once more (Hpp, bp and the b correction, 288); the update per
+# active observation of a free pose (Y^T dxi, 36), per landmark (dX and X,
+# 21), per active observation (the candidate's chi2, 30), per pose (the
+# retract, about 200); and the reduced system's Cholesky factorization and
+# two triangular solves over n = 6 x the free poses, n^3 / 3 + 2 n^2
 BA_OPS_OBS, BA_OPS_LM, BA_OPS_PAIR, BA_OPS_DIAG = 338, 50, 216, 288
 BA_OPS_UPD_FREE, BA_OPS_UPD_LM, BA_OPS_UPD_OBS, BA_OPS_POSE = 36, 21, 30, 200
 
 
 def ba_counts(prob) -> dict:
-    """What this problem's data gives the kernels to do: active
-    observations, those of free poses, and the pairs (p <= q) of one
-    landmark's observations by free poses."""
+    """What this problem's data gives the kernel to do: active
+    observations, those of free poses, the pairs (p <= q) of one
+    landmark's observations by free poses, and the free poses."""
     act = (prob.obs_w > 0) & prob.point_valid[:, None]
     free = act & ~prob.pose_fixed[prob.obs_pose]
     pose = torch.where(free, prob.obs_pose, -1)
     pairs = ((pose[:, :, None] <= pose[:, None, :]) & free[:, :, None]
              & free[:, None, :]).sum()
     return {"active": int(act.sum()), "free": int(free.sum()),
-            "pairs": int(pairs)}
+            "pairs": int(pairs), "free_poses": int((~prob.pose_fixed).sum())}
 
 
-def bound_ba(prob, kernel: str):
-    """(bound_ms, bound_by) of one ba_assemble or ba_update launch: the
-    problem read once (12 + 4 + 8 bytes an observation slot, 12 + 1 a
-    landmark, 48 + 1 a pose) and its outputs written once (S and b_s; the
-    landmarks, poses and damping), against the float32 operations this
-    problem's data needs."""
+def bound_ba(prob, iters: int):
+    """(bound_ms, bound_by) of one ba_solve launch: the problem read once
+    (12 + 4 + 8 bytes an observation slot, 12 + 1 a landmark, 48 + 1 a
+    pose) and its results written once (the poses, landmarks, damping,
+    chi2, per-observation chi2 and trace), against ``iters`` times an
+    iteration's operations on this problem's data, the factorization's
+    included, at the float32 rate (67 TFLOP/s)."""
     P, L = prob.R.shape[0], prob.X.shape[0]
     D = prob.obs_w.shape[1]
     c = ba_counts(prob)
+    n = 6 * c["free_poses"]
     read = 24 * L * D + 13 * L + 49 * P
-    if kernel == "ba_assemble":
-        return bound_of(read + 4 * 36 * P * P + 24 * P,
-                        BA_OPS_OBS * c["active"] + BA_OPS_LM * L
-                        + BA_OPS_PAIR * c["pairs"] + BA_OPS_DIAG * c["free"])
-    return bound_of(read + 24 * P + 12 * L + 48 * P + 16,
-                    BA_OPS_UPD_FREE * c["free"] + BA_OPS_UPD_LM * L
-                    + BA_OPS_UPD_OBS * c["active"] + BA_OPS_POSE * P)
+    write = 48 * P + 12 * L + 4 * L * D + 8 + 12 * iters
+    per_iter = (BA_OPS_OBS * c["active"] + BA_OPS_LM * L
+                + BA_OPS_PAIR * c["pairs"] + BA_OPS_DIAG * c["free"]
+                + BA_OPS_UPD_FREE * c["free"] + BA_OPS_UPD_LM * L
+                + BA_OPS_UPD_OBS * c["active"] + BA_OPS_POSE * P
+                + n ** 3 // 3 + 2 * n ** 2)
+    return bound_of(read + write, iters * per_iter)
 
 
 def damping_after(accepted, lam, accept_all: bool) -> float:
-    """The damping an accept sequence leads to, as ba_update computes it."""
+    """The damping an accept sequence leads to, as the kernel computes it."""
     lam = np.float32(lam)
     for ok in ([] if accept_all else accepted):
         lam = np.float32(lam * np.float32(0.5 if ok else 5.0))
@@ -1335,27 +1343,167 @@ def damping_after(accepted, lam, accept_all: bool) -> float:
     return float(lam)
 
 
-def hold_ba(where: str, args, plain_reps: int = 3):
+class BaselineBa:
+    """PR 13's K4 (csrc/ba_v1.cu: ba_assemble and ba_update, two cooperative
+    launches an LM iteration around torch.linalg.solve_ex), loaded beside
+    the current kernel for the timing only."""
+
+    class Args(ctypes.Structure):
+        """csrc/ba_v1.cu's BaArgs, field for field."""
+        _fields_ = [(n, ctypes.c_void_p) for n in (
+            "obs_uvr", "obs_w", "obs_pose", "pose_fixed", "point_valid",
+            "order", "starts", "R", "t", "X", "lam", "rec", "hinv", "bl",
+            "mask", "partial", "chi2_old", "S", "b", "sol", "Rn", "tn", "Xn",
+            "trace", "obs_chi2", "chi2")] + [
+            (n, ctypes.c_int) for n in ("P", "L", "D")] + [
+            (n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "bf",
+                                          "huber_mono", "huber_stereo")] + [
+            (n, ctypes.c_int) for n in ("robust", "iter", "mode")]
+
+    def __init__(self):
+        self.lib = ctypes.CDLL(cuda_lib.build("ba_v1"))
+        for name in ("ba_args_bytes", "ba_max_grid", "ba_record_floats"):
+            getattr(self.lib, name).argtypes = []
+            getattr(self.lib, name).restype = ctypes.c_int
+        for name in ("ba_assemble", "ba_update"):
+            getattr(self.lib, name).argtypes = [ctypes.c_void_p] * 2
+            getattr(self.lib, name).restype = ctypes.c_int
+        assert self.lib.ba_args_bytes() == ctypes.sizeof(self.Args)
+
+    def solve(self, cam, prob, iters, robust=True, init_lambda=1e-4,
+              accept_all=False):
+        """PR 13's ba_solve on CUDA tensors: per solve a stable sort of the
+        free poses' observations by pose; per iteration ba_assemble,
+        torch.linalg.solve_ex, ba_update."""
+        dev, f32 = prob.X.device, torch.float32
+        P, L = prob.R.shape[0], prob.X.shape[0]
+        D = prob.obs_w.shape[1]
+        prob = ba.BAProblem(*(x.contiguous() for x in prob))
+        act = ((prob.obs_w > 0) & prob.point_valid[:, None]
+               & ~prob.pose_fixed[prob.obs_pose])
+        keys, order = torch.sort(torch.where(act, prob.obs_pose, P)
+                                 .reshape(-1), stable=True)
+        keep = {"order": order.to(torch.int32),
+                "starts": torch.searchsorted(keys, torch.arange(
+                    P + 1, device=dev)).to(torch.int32),
+                "R": prob.R.clone(), "t": prob.t.clone(), "X": prob.X.clone(),
+                "lam": ba._init_lambda(init_lambda, prob.X).reshape(1)
+                .clone(), "rec": torch.empty(L * D, self.lib
+                                              .ba_record_floats(), device=dev),
+                "hinv": torch.empty(L, 9, device=dev),
+                "bl": torch.empty(L, 3, device=dev),
+                "mask": torch.empty(L, dtype=torch.int64, device=dev),
+                "partial": torch.empty(3, self.lib.ba_max_grid(), device=dev),
+                "chi2_old": torch.empty(1, device=dev),
+                "chi2": torch.empty(1, device=dev),
+                "S": torch.empty(6 * P, 6 * P, device=dev),
+                "b": torch.empty(6 * P, device=dev),
+                "Rn": torch.empty(P, 3, 3, device=dev),
+                "tn": torch.empty(P, 3, device=dev),
+                "Xn": torch.empty(L, 3, device=dev),
+                "trace": torch.zeros(max(iters, 1), 3, dtype=f32, device=dev),
+                "obs_chi2": torch.empty(L, D, device=dev),
+                "zero": torch.zeros(6 * P, 1, device=dev)}
+        a = self.Args()
+        for name in ("obs_uvr", "obs_w", "obs_pose", "pose_fixed",
+                     "point_valid"):
+            setattr(a, name, getattr(prob, name).data_ptr())
+        for name, x in keep.items():
+            if name != "zero":
+                setattr(a, name, x.data_ptr())
+        a.P, a.L, a.D = P, L, D
+        a.fx, a.fy, a.cx, a.cy, a.bf = cam
+        a.huber_mono, a.huber_stereo = ba._HUBER
+        a.robust = int(robust)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(name):
+            assert getattr(self.lib, name)(ctypes.addressof(a), stream) == 0
+
+        for it in range(iters):
+            launch("ba_assemble")
+            sol, _ = torch.linalg.solve_ex(keep["S"], keep["b"][:, None])
+            keep["sol"] = sol
+            a.sol, a.iter = sol.data_ptr(), it
+            a.mode = (1 if accept_all else 0) | (2 if it == iters - 1 else 0)
+            launch("ba_update")
+        if iters == 0:
+            a.sol, a.mode = keep["zero"].data_ptr(), 4 | 2
+            launch("ba_update")
+        return ba.BAResult(keep["R"], keep["t"], keep["X"],
+                           keep["chi2"].reshape(()), keep["obs_chi2"],
+                           keep["lam"].reshape(()))
+
+
+_BASE_BA: list = []
+
+
+def base_ba() -> BaselineBa:
+    if not _BASE_BA:
+        _BASE_BA.append(BaselineBa())
+    return _BASE_BA[0]
+
+
+# the phases of a ba_solve launch between its stamps (KernelSolve.
+# record_phases): the structure once; an iteration's linearization (with the
+# previous iteration's accept test), Schur sums, the system's sums (block 0),
+# factorization and solve (block 0), update; the last accept test, the
+# orthonormalization and the per-observation chi2
+BA_PHASES = ("structure", "linearize", "schur", "system", "factorize",
+             "update", "finish")
+
+
+def ba_phases(cam, prob, iters, robust, lam0, accept_all,
+              reps: int = 5) -> dict:
+    """Each phase's ms in one launch of the whole solve, from the stamps
+    block 0 writes after each grid barrier (the card's globaltimer),
+    the mean over ``reps`` launches, and the launch's own ms between its
+    first and last stamp."""
+    out = dict.fromkeys(BA_PHASES + ("launch",), 0.0)
+    for _ in range(reps):
+        ks = ba.KernelSolve(cam, prob, iters, robust, lam0, accept_all)
+        st = ks.record_phases()
+        ks.run()
+        t = (st.double() / 1e6).tolist()
+        out["structure"] += t[1] - t[0]
+        prev = t[1]
+        for it in range(iters):
+            k = 2 + 5 * it
+            for name, j in zip(BA_PHASES[1:6], range(5)):
+                out[name] += t[k + j] - (prev if j == 0 else t[k + j - 1])
+            prev = t[k + 4]
+        out["finish"] += t[-1] - prev
+        out["launch"] += t[-1] - t[0]
+    return {k: v / reps for k, v in out.items()}
+
+
+def hold_ba(where: str, args, plain_reps: int = 3, time_baseline=True):
     """K4 on ``args`` (cam, problem, iterations, robust, initial damping,
-    accept_all) against ba_solve_plain on the same card: the first reduced
-    camera system S and b_s within 1e-5 of max |S|, or within twice the
-    plain float32 system's own distance from the float64 one where that is
-    larger (S sums thousands of terms and cancels Hpp against the Schur
-    term: its float32 rounding grows with the map); the accept sequence
-    identical wherever |chi2_new / chi2_old - 1| > 1e-5 (nearer to
-    convergence the test's two sums are equal within their float32
-    rounding, and either version may decide either way) and R, t and X
-    within 1e-4, where float32 resolves the problem: where the plain
-    float32 solve ends within 1e-4 of a float64 solve of it (the monocular
-    bootstrap's two-view map has a free scale, along which any two
-    float32 solves part by about 1e-3: there the sequences and distances
-    are reported); the final damping equal where the sequences are, else
-    the one the kernel's own sequence leads to; chi2 within 1e-3 relative;
-    two solves bit for bit. Then ba_assemble and ba_update timed per call
-    (CUDA events) and per launch in a replayed CUDA graph beside their
-    bounds and their plain versions, and the whole solve beside
-    ba_solve_plain. Returns ({kernel: row}, largest |R|, |t|, |X|
-    difference)."""
+    accept_all) against ba_solve_plain on the same card: one launch a
+    solve; the first reduced camera system S and b_s within 1e-5 of max
+    |S|, or within twice the plain float32 system's own distance from the
+    float64 one where that is larger (S sums thousands of terms and
+    cancels Hpp against the Schur term: its float32 rounding grows with
+    the map); the first iteration's step, the kernel's float64 solution of
+    its own float64 S, within n kappa 2^-52 (relative, in the max norm) of
+    torch.linalg.solve of that S in float64 (n = 6P rows, kappa its
+    2-norm condition number: the forward error bound of a backward stable
+    solve, which both are); the accept sequence identical wherever
+    |chi2_new / chi2_old - 1| > 1e-5 (nearer to convergence the test's two
+    sums are equal within their float32 rounding, and either version may
+    decide either way) and R, t and X within 1e-4, where float32 resolves
+    the problem: where the plain float32 solve ends within 1e-4 of a
+    float64 solve of it (the monocular bootstrap's two-view map has a free
+    scale, along which any two float32 solves part by about 1e-3: there
+    the sequences and distances are reported); the final damping equal
+    where the sequences are, else the one the kernel's own sequence leads
+    to; chi2 within 1e-3 relative; two solves bit for bit. Then the solve
+    timed per call (CUDA events) and per launch in a replayed CUDA graph,
+    with PR 13's kernels (csrc/ba_v1.cu, per call) in turns where
+    ``time_baseline``, beside the bound and ba_solve_plain; the phases'
+    ms from the kernel's stamps; and the first system solved by
+    torch.linalg.solve_ex in float64 (the library beside the kernel's
+    factorize phase). Returns (row, largest |R|, |t|, |X| difference)."""
     cam, prob, iters, robust, lam0, accept_all = args
     p64 = prob._replace(**{f: getattr(prob, f).double() for f in (
         "R", "t", "X", "obs_uvr", "obs_w")})
@@ -1366,21 +1514,34 @@ def hold_ba(where: str, args, plain_reps: int = 3):
     S, b_s, _ = ba.first_system_plain(cam, prob, robust, lam0)
     S_floor = system_dist(S, b_s, *ba.first_system_plain(cam, p64, robust,
                                                          lam0)[:2])
-    first = ba.KernelSolve(cam, prob, 1, robust, lam0, accept_all)
+    first = ba.KernelSolve(cam, prob, iters, robust, lam0, accept_all)
     S_k, b_k = first.assemble()
     scale = float(S.abs().max())
     e_S = system_dist(S_k, b_k, S, b_s)
     assert e_S <= max(1e-5 * scale, 2 * S_floor), \
-        f"ba_assemble: S or b_s differs by {e_S} (max |S| {scale}; the " \
-        f"plain float32 system is {S_floor} from float64) at {where}"
+        f"ba_solve: the first S or b_s differs by {e_S} (max |S| {scale}; " \
+        f"the plain float32 system is {S_floor} from float64) at {where}"
+    before = ba.LAUNCHES["ba_solve"]
     got = ba.ba_solve(cam, prob, iters, robust, lam0, accept_all)
+    assert ba.LAUNCHES["ba_solve"] == before + 1, where
     ks = ba.KernelSolve(cam, prob, iters, robust, lam0, accept_all)
-    again = ks.run(iters)
+    again = ks.run()
     for part, a, b in zip(got._fields, got, again):
         assert torch.equal(a, b), f"K4: two solves differ in {part} at {where}"
+    e_step, step_tol, kappa = 0.0, 0.0, 0.0
+    if iters:
+        x_ref = torch.linalg.solve(first.S64, first.b64)
+        kappa = float(torch.linalg.cond(first.S64))
+        step_tol = first.S64.shape[0] * kappa * 2.0 ** -52
+        e_step = float((ks.step0 - x_ref).abs().max()) / max(
+            float(x_ref.abs().max()), 1e-300)
+        assert e_step <= step_tol, \
+            f"K4 first step {e_step} from float64 (relative; bound " \
+            f"{step_tol}, condition {kappa}) at {where}"
     trace = []
     want = ba.ba_solve_plain(cam, prob, iters, robust, lam0, accept_all,
                              trace)
+
     def dist(a, b):
         return max(float((getattr(a, f).double() - getattr(b, f).double())
                          .abs().max()) for f in ("R", "t", "X"))
@@ -1411,77 +1572,79 @@ def hold_ba(where: str, args, plain_reps: int = 3):
     P, L = prob.R.shape[0], prob.X.shape[0]
     D = prob.obs_w.shape[1]
     counts = ba_counts(prob)
-    # the plain version's two halves: the linearization with the dense
-    # system, and the step from a solve's dxi
-    k = ba._fixed(prob)
-    lam = ba._init_lambda(lam0, prob.X)
-    lin = ba._linearize(cam, prob, k, prob.R, prob.t, prob.X, lam, robust)
-    dxi = -torch.linalg.solve_ex(S, b_s[:, None])[0].reshape(P, 6)
-    sol = -dxi.reshape(-1, 1)
-    system = ba._dense_system(prob)
-    timing = ba.KernelSolve(cam, prob, 1, robust, lam0, accept_all)
-    timing.assemble()
-    def plain_assemble():
-        li = ba._linearize(cam, prob, k, prob.R, prob.t, prob.X, lam, robust)
-        return system(li.wJp, li.Jp, li.e, li.Y, li.Hll_inv, li.bl, lam)
 
-    runs = {
-        "ba_assemble": (timing.assemble, plain_assemble),
-        "ba_update": (lambda: timing.update(sol, 0, False),
-                      lambda: ba._step(cam, prob, k, lin, dxi, prob.R,
-                                       prob.t, prob.X, lam, accept_all,
-                                       None))}
-    rows = {}
-    for kernel, (fn, plain_fn) in runs.items():
-        row = {"problem": where, "P": P, "L": L, "D": D, **counts,
-               "iters": iters, "accept_flips": flips,
-               "vs_f64": err64, "plain_f32_vs_f64": floor,
-               "resolved_by_float32": resolved,
-               "S_plain_f32_vs_f64": S_floor,
-               "max_abs_err": err if kernel == "ba_update" else e_S,
-               "ms": cuda_ms(fn, 20), "device_ms": graph_ms(fn),
-               "plain_ms": cuda_ms(plain_fn, plain_reps)}
-        row["bound_ms"], row["bound_by"] = bound_ba(prob, kernel)
-        rows[kernel] = row
-    solve = cuda_ms(lambda: ba.ba_solve(cam, prob, iters, robust, lam0,
-                                        accept_all), 5)
-    solve_plain = cuda_ms(lambda: ba.ba_solve_plain(
+    def new():
+        ba.ba_solve(cam, prob, iters, robust, lam0, accept_all)
+
+    def old():
+        base_ba().solve(cam, prob, iters, robust, lam0, accept_all)
+
+    row = {"problem": where, "P": P, "L": L, "D": D, **counts,
+           "iters": iters, "accept_flips": flips, "vs_f64": err64,
+           "plain_f32_vs_f64": floor, "resolved_by_float32": resolved,
+           "first_S_err": e_S, "S_scale": scale,
+           "S_plain_f32_vs_f64": S_floor,
+           "first_step_vs_f64": e_step, "first_step_bound": step_tol,
+           "S_condition": kappa, "max_abs_err": err, "grid": ks.grid()}
+    if time_baseline:
+        row["ms"] = row["prev_ms"] = 0.0
+        for _ in range(2):
+            row["ms"] += cuda_ms(new, 10) / 2
+            row["prev_ms"] += cuda_ms(old, 10) / 2
+    else:
+        row["ms"] = cuda_ms(new, 10)
+    row["device_ms"] = graph_ms(new, launches=5, reps=4)
+    row["plain_ms"] = cuda_ms(lambda: ba.ba_solve_plain(
         cam, prob, iters, robust, lam0, accept_all), plain_reps)
-    for row in rows.values():
-        row["solve_ms"], row["solve_plain_ms"] = solve, solve_plain
-    a, u = rows["ba_assemble"], rows["ba_update"]
-    log(f"K4 {where} [P {P}, L {L}, D {D}, {counts['active']} active "
-        f"observations, {counts['pairs']} free pairs, {iters} iterations"
-        f"{', accept_all' if accept_all else ''}]: first S within "
-        f"{e_S / scale:.2e} of max |S| (the plain float32 system "
-        f"{S_floor / scale:.2e}); accepted {mine[:, 2].tolist()} "
-        f"({flips} flips); max |dR|,|dt|,|dX| {err:.2e}, {err64:.2e} "
-        f"from float64 (the plain float32 solve {floor:.2e}); "
-        f"bit-identical twice; ba_assemble {a['ms']:.4f} ms per call, "
-        f"{a['device_ms']:.4f} on the device, plain {a['plain_ms']:.4f}, "
-        f"bound {a['bound_ms']:.6f} by {a['bound_by']}; ba_update "
-        f"{u['ms']:.4f}, {u['device_ms']:.4f}, plain {u['plain_ms']:.4f}, "
-        f"bound {u['bound_ms']:.6f} by {u['bound_by']}; the solve "
-        f"{solve:.4f} ms, plain {solve_plain:.4f}")
-    return rows, err
+    row["bound_ms"], row["bound_by"] = bound_ba(prob, iters)
+    if iters and time_baseline:
+        row["phases_ms"] = ba_phases(cam, prob, iters, robust, lam0,
+                                     accept_all)
+        # the factorization and solve of one iteration inside the kernel,
+        # beside the library's solve of the same float64 S
+        row["factorize_ms"] = row["phases_ms"]["factorize"] / iters
+    if iters:
+        row["factorize_library_ms"] = cuda_ms(
+            lambda: torch.linalg.solve_ex(first.S64, first.b64), 10)
+    prev = (f", ba_v1 {row['prev_ms']:.4f} ms per call in turns"
+            if time_baseline else "")
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in row.get(
+        "phases_ms", {}).items())
+    log(f"K4 {where} [P {P} ({counts['free_poses']} free), L {L}, D {D}, "
+        f"{counts['active']} active observations, {counts['pairs']} free "
+        f"pairs, {iters} iterations{', accept_all' if accept_all else ''}, "
+        f"grid {row['grid']}]: first S within {e_S / scale:.2e} of max |S| "
+        f"(the plain float32 system {S_floor / scale:.2e}); first step "
+        f"{e_step:.2e} from float64 (bound {step_tol:.2e}, condition "
+        f"{kappa:.3g}); accepted {mine[:, 2].tolist()} ({flips} flips); max "
+        f"|dR|,|dt|,|dX| {err:.2e}, {err64:.2e} from float64 (the plain "
+        f"float32 solve {floor:.2e}); one launch, bit-identical twice; "
+        f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} on the device"
+        f"{prev}; plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} "
+        f"by {row['bound_by']}"
+        + (f"; phases (ms, stamps) {phases}; one factorization and solve "
+           f"{row['factorize_ms']:.4f}" if phases else "")
+        + (f"; torch.linalg.solve_ex on the float64 S "
+           f"{row['factorize_library_ms']:.4f} per call" if iters else ""))
+    return row, err
 
 
 BA_REPLACES = ("orb_slam2_with_comment_tpu/optim/ba.py:208 (ba_solve's "
-               "lax.scan body, :246-335, an XLA program; not a Pallas "
-               "kernel)")
+               "lax.scan, its body :246-335 with the solve at :323, an XLA "
+               "program; not a Pallas kernel)")
 
 
-def check_ba_kernels(dev) -> list:
-    """Phase 3, K4: the two BA kernels held against the plain solver and
-    timed (hold_ba) on random local-BA problems (dataio.synthetic
-    ba_problem): 24 poses (8 fixed) and 8192 landmarks, 64 poses and
-    10,000 landmarks, 8 poses with every step taken (accept_all, the
-    distributed schedule), and 2 poses over 20 iterations (no outliers: a
-    landmark that an outlier contradicts runs off toward infinity over 20
-    iterations, where float32 and float64 solves of the plain version
-    already part by metres). Returns the two kernels' rows."""
-    rows = {"ba_assemble": [], "ba_update": []}
-    err = 0.0
+def check_ba_kernel(dev) -> dict:
+    """Phase 3, K4: the BA kernel held against the plain solver and timed
+    (hold_ba) on random local-BA problems (dataio.synthetic ba_problem):
+    24 poses (8 fixed) and 8192 landmarks (the factorization in shared
+    memory), 64 poses and 10,000 landmarks (56 free: from global memory),
+    8 poses with every step taken (accept_all, the distributed schedule),
+    and 2 poses over 20 iterations (no outliers: a landmark that an
+    outlier contradicts runs off toward infinity over 20 iterations, where
+    float32 and float64 solves of the plain version already part by
+    metres). Returns the kernel's row."""
+    rows, err = [], 0.0
     for where, case, seed, kw, iters, accept_all in (
             ("random, 24 poses, 8192 landmarks", "mixed", 0,
              dict(P=24, L=8192), 5, False),
@@ -1494,16 +1657,16 @@ def check_ba_kernels(dev) -> list:
         p = synthetic.ba_problem(case, seed, **kw)
         prob = ba.BAProblem(*(torch.as_tensor(p[f]).to(dev)
                               for f in ba.BAProblem._fields))
-        got, e = hold_ba(where, (POSE_CAM, prob, iters, True, 1e-4,
+        row, e = hold_ba(where, (POSE_CAM, prob, iters, True, 1e-4,
                                  accept_all))
-        for k, row in got.items():
-            rows[k].append(row)
+        rows.append(row)
         err = max(err, e)
-    src = "orb_slam2_with_comment_tpu_torch/csrc/ba.cu"
-    return [dict(r[0], name=k, route="cuda", source=src,
-                 replaces=BA_REPLACES, library_ms=None,
-                 max_abs_err=max(x["max_abs_err"] for x in r),
-                 other_problems=r[1:]) for k, r in rows.items()]
+    return dict(rows[0], name="ba_solve", route="cuda",
+                source="orb_slam2_with_comment_tpu_torch/csrc/ba.cu",
+                baseline={"name": "ba_v1", "source": "orb_slam2_with_"
+                          "comment_tpu_torch/csrc/ba_v1.cu"},
+                replaces=BA_REPLACES, library_ms=None, max_abs_err=err,
+                other_problems=rows[1:])
 
 
 def fmt_times(row: dict) -> str:
@@ -1515,18 +1678,15 @@ def fmt_times(row: dict) -> str:
 
 # feature extractions, one per frame, the views on the card they
 # extracted, one per frame or two per stereo frame, the stereo pairs
-# extracted on the card, and the dense BA solves on the card with their
-# iterations (count_frames)
-FRAMES = {"frames": 0, "views": 0, "pairs": 0, "ba_solves": 0,
-          "ba_iters": 0}
+# extracted on the card, and the dense BA solves on the card (count_frames)
+FRAMES = {"frames": 0, "views": 0, "pairs": 0, "ba_solves": 0}
 
 
 def launch_counts() -> dict:
     """Each kernel entry point's launches since reset_launches(), "frames":
     the frames whose features were extracted meanwhile, "views": the
     views extracted on the card, "pairs": the stereo pairs among them,
-    "ba_solves" and "ba_iters": the dense BA solves on the card and their
-    LM iterations."""
+    "ba_solves": the dense BA solves on the card."""
     return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **orb.LAUNCHES,
             **sad.LAUNCHES, **ba.LAUNCHES, **FRAMES}
 
@@ -1549,8 +1709,7 @@ def count_frames():
     card one to FRAMES["pairs"]. Every view goes through
     OrbExtractor._extract_from_pyramid once: one on the card adds one to
     FRAMES["views"]. Every dense BA solve goes through ba.ba_solve: one on
-    the card adds one to FRAMES["ba_solves"] and its iterations to
-    FRAMES["ba_iters"]."""
+    the card adds one to FRAMES["ba_solves"]."""
     def counted(fn):
         def run(*a, **kw):
             FRAMES["frames"] += 1
@@ -1571,9 +1730,7 @@ def count_frames():
         return extract_pair(self, img_l, *a, **kw)
 
     def counted_solve(cam, prob, iters=10, *a, **kw):
-        if prob.X.is_cuda:
-            FRAMES["ba_solves"] += 1
-            FRAMES["ba_iters"] += iters
+        FRAMES["ba_solves"] += prob.X.is_cuda
         return solve(cam, prob, iters, *a, **kw)
     OrbExtractor._extract = counted(OrbExtractor._extract)
     OrbExtractor.stereo = counted_pair
@@ -1610,27 +1767,23 @@ K4_PATHS = ("4 rgbd slice", "6 default rgbd", "9 stereo bench",
             "11 mono bench", "13a system rgbd", "16c street")
 
 
-def check_k4_per_iteration(by_phase: dict):
-    """Every dense BA solve on the card launched ba_assemble once an LM
-    iteration and ba_update at least as often; the paths of K4_PATHS ran
-    solves."""
+def check_k4_per_solve(by_phase: dict):
+    """Every dense BA solve on the card was one ba_solve launch; the paths
+    of K4_PATHS ran solves."""
     for phase, c in by_phase.items():
-        assert c["ba_assemble"] == c["ba_iters"], \
-            f"{phase}: {c['ba_assemble']} ba_assemble launches for " \
-            f"{c['ba_iters']} LM iterations"
-        assert c["ba_update"] >= c["ba_iters"], phase
-        assert c["ba_solves"] == 0 or c["ba_update"] > 0, phase
+        assert c["ba_solve"] == c["ba_solves"], \
+            f"{phase}: {c['ba_solve']} ba_solve launches for " \
+            f"{c['ba_solves']} dense BA solves"
     for phase in K4_PATHS:
         assert by_phase[phase]["ba_solves"] > 0, \
             f"{phase}: no dense BA solve on the card"
-    log("K4 launches (ba_assemble, ba_update) and solves by phase: "
-        + str({p: (c["ba_assemble"], c["ba_update"], c["ba_solves"])
-               for p, c in by_phase.items()}))
+    log("K4 launches (one a dense BA solve) by phase: "
+        + str({p: c["ba_solve"] for p, c in by_phase.items()}))
 
 
 def missing(launches: dict, stereo: bool = False) -> list:
     """The kernels of K1-K3, and K5 on a stereo path, that ``launches``
-    does not count; K4 is held per solve by check_k4_per_iteration."""
+    does not count; K4 is held per solve by check_k4_per_solve."""
     names = [*hamming.LAUNCHES, *pose_opt.LAUNCHES, *orb.LAUNCHES]
     return [k for k in names + ([*sad.LAUNCHES] if stereo else [])
             if launches[k] == 0]
@@ -2585,14 +2738,15 @@ def hold_problems(todo, rows):
     rows join the kernels' ``other_problems``."""
     base = BaselineKernels()
     popc_rate = popc_per_s()
-    k4 = {r["name"]: r for r in rows if r["name"].startswith("ba_")}
+    k4 = next(r for r in rows if r["name"] == "ba_solve")
     for where, kernel, tensors in todo:
         if kernel == "ba":
-            got, err = hold_ba(where, tensors, plain_reps=1)
-            for name, row in got.items():
-                k4[name]["other_problems"].append(row)
-            k4["ba_update"]["max_abs_err"] = max(
-                k4["ba_update"]["max_abs_err"], err)
+            # PR 13's kernels and the tensor-core candidate are timed in
+            # phase 3
+            row, err = hold_ba(where, tensors, plain_reps=1,
+                               time_baseline=False)
+            k4["other_problems"].append(row)
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
             continue
         if kernel == "pose_lm":
             # the baseline kernel is held to the gates, timed in phase 3
@@ -3813,7 +3967,7 @@ def main():
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
     libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb",
-            "orb_v1", "stereo_sad", "ba"]
+            "orb_v1", "stereo_sad", "ba", "ba_v1"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
@@ -3838,7 +3992,7 @@ def main():
     t3 = time.perf_counter()
     rows = (check_kernels(dev) + [check_pose_kernel(dev)]
             + check_orb_kernels(dev) + [check_sad_kernel(dev)]
-            + check_ba_kernels(dev))
+            + [check_ba_kernel(dev)])
     log(f"phase 3 in {time.perf_counter() - t3:.1f} s")
     if kernels_only:
         log(json.dumps({"kernels": rows}))
@@ -3911,7 +4065,7 @@ def main():
                   rows)
     check_k2_per_view(by_phase)
     check_k5_per_pair(by_phase)
-    check_k4_per_iteration(by_phase)
+    check_k4_per_solve(by_phase)
     for row in rows:
         # the newest slice's main path is phase 16c's street circuit;
         # every other path's count is listed beside it. Each phase has

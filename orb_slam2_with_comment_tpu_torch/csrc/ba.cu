@@ -1,62 +1,82 @@
-// One Levenberg-Marquardt iteration of the dense-Schur bundle adjustment for
-// Hopper (sm_90a), bound through a plain C interface (ctypes): two
-// cooperative launches an iteration around the library's dense solve.
+// A whole dense-Schur Levenberg-Marquardt bundle adjustment in one
+// cooperative launch for Hopper (sm_90a), bound through a plain C interface
+// (ctypes). One launch runs all ``iters`` iterations, the factorization of
+// the reduced camera system included: nothing returns to the host and no
+// library call runs inside a solve.
 //
-//   ba_assemble  the linearization and the reduced camera system: per
-//                landmark (one thread each) the residuals and Jacobians of
-//                its observations, the Huber IRLS weights, Hll with its
-//                damped diagonal and its adjugate inverse, bl, and per
-//                observation Y = wJp^T Jl and Y Hll^-1; then, after a grid
-//                barrier, per block (p, q >= p) of S (one thread block
-//                each) the pose pair's sums over the landmarks they share:
-//                Hpp_d - sum Y Hll^-1 Y^T and b_s = bp - sum Y Hll^-1 bl,
-//                identity blocks and a zero right-hand side for fixed
-//                poses; and chi2 at the current state.
-//   ba_update    after torch.linalg.solve_ex(S, b_s): the back-substitution
-//                dX = -Hll^-1 (bl + sum Y^T dxi), the SE3 retract of every
-//                pose, the candidate's chi2, and, after a grid barrier, the
-//                accept test (chi2_new < chi2_old, every step finite) with
-//                the damping x0.5 / x5 clipped to [1e-9, 1e8], all on the
-//                device; on the last iteration the committed rotations'
-//                orthonormalization and the per-observation chi2.
+// What it replaces. In the JAX package a solve is the lax.scan of
+// orb_slam2_with_comment_tpu/optim/ba.py:208 (ba_solve; the body, :246-335,
+// is one LM iteration and solves its reduced system at :323), an XLA
+// program; it is not a Pallas kernel. The port's plain PyTorch version
+// (optim/ba.py ba_solve_plain) issues about a hundred eager launches an
+// iteration; PR 13's kernels (csrc/ba_v1.cu, kept as the timing baseline)
+// took two cooperative launches an iteration around torch.linalg.solve_ex.
 //
-// What it replaces. In the JAX package one LM iteration is the lax.scan
-// body of orb_slam2_with_comment_tpu/optim/ba.py:208 (ba_solve, :246-335),
-// an XLA program; it is not a Pallas kernel. The port's plain PyTorch
-// version (optim/ba.py ba_solve_plain) issues about a hundred eager
-// launches an iteration; at local-BA sizes (24 poses, some 8,000
-// landmarks) each is a few microseconds of host time while the card
-// idles. Here an iteration is these two launches and the solve's.
+// The phases, between grid barriers:
+//   structure (once)  each observation's free pose (or -1) and each
+//                     landmark's 64-bit mask of free poses; each free pose's
+//                     list of landmarks (warps count a range of landmarks
+//                     each, every block of threads scans the counts itself,
+//                     the warps fill); then for every block (p, q >= p) of
+//                     the reduced system, warps
+//                     walk p's list (each a range of it), count, and, once
+//                     every block of threads has scanned the counts in block
+//                     order itself, write the observation pairs (o_p, o_q)
+//                     of the landmarks that both poses observe, in landmark
+//                     order (p == q: the unordered pairs of the landmark's
+//                     observations of p, each once).
+//   linearize         a lane an observation slot (a group of the next power
+//                     of two >= D lanes a landmark): residual, Jacobians,
+//                     the Huber weight; the landmark's Hll and bl summed
+//                     over its lanes by a fixed shuffle tree; Hll's damped
+//                     inverse; Y = wJp^T Jl and Y Hll^-1 per observation,
+//                     written 16 bytes at a time.
+//   Schur             each pair list cut into chunks of kChunk pairs, a warp
+//                     a chunk, 6 lanes a pair (a lane a row of the 6x6
+//                     term), 5 pairs at once; float64 sums of float64 terms
+//                     (products of float32 values are exact in float64). The
+//                     warp that sums a block's last chunk (an integer count
+//                     of its chunks done) adds the block's chunks in chunk
+//                     order, Hpp's damped diagonal and b_s.
+//   factorize         block 0 loads S and factorizes S = U^T U (block
+//                     Cholesky on the 6x6 blocks of the free poses, float64)
+//                     with the forward substitution folded in, inverts the
+//                     diagonal blocks and back-substitutes. S lies in shared
+//                     memory up to kSharedFree free poses, else in global
+//                     memory (L2) with each block row staged in shared
+//                     memory. A non-positive pivot gives NaN: the step is
+//                     not finite and the accept test rejects it.
+//   update            every block retracts every pose; a lane an observation
+//                     again: dX = -Hll^-1 (bl + sum Y^T dxi), the candidate's
+//                     chi2; then, after a barrier, every block sums the
+//                     blocks' partials in the same order and takes the same
+//                     decision (chi2_new < chi2_old, everything finite; the
+//                     damping x0.5 / x5 clipped to [1e-9, 1e8]).
+//   finish            the poses orthonormalized, the per-observation chi2.
+// Four grid barriers an iteration. Every block of threads keeps the poses
+// and the damping itself; a landmark is read and written by the same block
+// in every phase, so only the grid barriers order the phases.
 //
-// What bounds it. An iteration reads the problem once (some 30 bytes an
-// observation) and writes a record of 64 floats an active observation that
-// the pair blocks and the update read back; the float32 work is some 400
-// operations an observation plus 216 for each pair of observations of one
-// landmark by two free poses. At 8,192 landmarks of 8 slots that is a few
-// MB and some 50 MFLOP: microseconds at the card's rates. What is left is
-// the latency of the two launches, the grid barriers, and the pair
-// blocks' walks over their pose's observation list.
+// What bounds it. The float work is some 400 operations an observation and
+// 216 a pair an iteration, the factorization (6 n)^3 / 3 over n free poses:
+// microseconds at the card's rates. What is left is latency: the grid
+// barriers, block 0's factorization (a chain of 6 n dependent pivots), and
+// the loads of the pair walk.
 //
-// Sums in a fixed order. No float atomics: every sum runs in an order set
-// by the launch shape alone (the grid follows the problem's shape, up to
-// what the card holds at once), so two launches give the same bits. Each
-// thread sums its landmarks' terms in landmark order; a block sums its
-// threads by a fixed shuffle tree and its warps in order; the blocks'
-// partials are summed the same way by one block (by every block where all
-// need the total). The pair block (p, q) walks pose p's list of
-// observations (active ones of free poses, sorted by landmark and slot
-// once per solve by the caller) and, for each landmark that pose q also
-// observes (a 64-bit pose mask per landmark), the slots of pose q in slot
-// order; those sums run in float64, each term formed in float32. The plain
-// version's sums run in other orders: the last bits differ, and the accept
-// test, which compares two sums that are nearly equal near convergence,
-// can decide differently there.
+// Sums in a fixed order. No float atomics: every sum runs in an order set by
+// the problem's shape (the grid follows it, up to what the card holds at
+// once), so two launches give the same bits; which warp combines a block of S
+// (an integer atomic counts its chunks done) does not change the order it
+// adds them in. The plain version's float32
+// sums run in other orders; the last bits differ, and the accept test,
+// which compares two sums that are nearly equal near convergence, can decide
+// differently there.
 //
-// Everything else is formed as the plain version forms it (-fmad=false:
-// no product is fused into an add). Inactive observations (weight 0 or an
-// invalid landmark) are skipped, where the plain version adds their exact
-// zeros. Limits: at most 64 poses (the pose mask), 32 slots a landmark,
-// L * D below 2^31.
+// Everything in float32 is formed as the plain version forms it
+// (-fmad=false: no product is fused into an add); the float64 sums and the
+// factorization use fma() where the product is exact or float64 anyway.
+// Limits: at most 64 poses (the pose mask), 32 slots a landmark, L * D and
+// the pair count below 2^31.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,19 +85,31 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPoses = 64;
 constexpr int kMaxSlots = 32;
 constexpr int kMaxGrid = 1024;
+// free poses whose system block 0 factorizes in shared memory
+constexpr int kSharedFree = 28;
+// pairs a warp takes at once (6 lanes a pair), steps a chunk, pairs a chunk
+constexpr int kPairGroups = 5;
+constexpr int kSteps = 8;
+constexpr int kChunk = kSteps * kPairGroups;
+// a chunk's float64 sums: the Schur term [6][6], Hpp [6][6], bp, b correction
+constexpr int kPart = 84;
+// the most ranges of landmarks a block's pair list is cut into to build it
+constexpr int kMaxRanges = 64;
 // an active observation's record, floats
 constexpr int kRec = 64;
 constexpr int kY = 0;    // Y [6][3] = wJp^T Jl
 constexpr int kYH = 18;  // Y Hll^-1 [6][3]
-constexpr int kJp = 36;  // Jp [3][6], zero for a fixed pose
+constexpr int kJp = 36;  // Jp [3][6]
 constexpr int kE = 54;   // e [3]
 constexpr int kWt = 57;  // w = obs_w * the Huber weight
-constexpr int kAcc = 36 + 36 + 6 + 6;  // a diagonal pair's sums
+// the phase stamps: start, structure, 5 an iteration, end
+constexpr int kStampsFixed = 3;
+constexpr int kStampsIter = 5;
 
 struct BaArgs {
   // the problem, read only
@@ -86,43 +118,223 @@ struct BaArgs {
   const long long* obs_pose;  // [L, D]
   const bool* pose_fixed;     // [P]
   const bool* point_valid;    // [L]
-  const int* order;           // [L * D] observation indices by pose
-  const int* starts;          // [P + 1] each pose's first entry in order
-  // the state, updated in place by ba_update
+  // the state, updated in place
   float* R;    // [P, 3, 3]
   float* t;    // [P, 3]
   float* X;    // [L, 3]
   float* lam;  // [1]
+  // the results
+  float* trace;     // [iters, 3] chi2_old, chi2_new, accepted
+  float* obs_chi2;  // [L, D]
+  float* chi2;      // [1]
+  double* step0;    // [6P] the first iteration's solution of S x = b_s
+  // kAssemble: the first system, fixed poses' identity rows included
+  float* S;         // [6P, 6P]
+  float* b;         // [6P]
+  double* S64;      // [6P, 6P]
+  double* b64;      // [6P]
+  float* chi2_old;  // [1]
+  long long* stamps;  // null, or the phase stamps (globaltimer, ns)
   // scratch
-  float* rec;                // [L * D, kRec]
-  float* hinv;               // [L, 9]
-  float* bl;                 // [L, 3]
-  unsigned long long* mask;  // [L] free poses observing the landmark
-  float* partial;            // [3, kMaxGrid] block partials
-  float* chi2_old;           // [1]
-  float* S;                  // [6P, 6P]
-  float* b;                  // [6P]
-  const float* sol;          // [6P] the solve's solution
-  float* Rn;                 // [P, 3, 3] candidate
-  float* tn;                 // [P, 3]
-  float* Xn;                 // [L, 3]
-  float* trace;              // [iters, 3] chi2_old, chi2_new, accepted
-  float* obs_chi2;           // [L, D]
-  float* chi2;               // [1]
-  int P, L, D;
+  float* rec;             // [L * D, kRec]
+  float* hinv;            // [L, 9]
+  float* bl;              // [L, 3]
+  float* Xn;              // [L, 3]
+  signed char* spose;     // [L, max(D, 8)] an active observation's free
+                          // pose, or -1
+  unsigned long long* mask;  // [L] the free poses observing the landmark
+  int* pcounts;           // [P, kMaxRanges] landmarks of each free pose in
+                          // each range of landmarks
+  int* plist;             // [L * D] each free pose's landmarks, pose by pose
+  int* counts;            // [P (P + 1) / 2, kMaxRanges] pairs of each block
+                          // of S in each range of its first pose's list
+  int* done;              // [P (P + 1) / 2] chunks of each block summed
+  int* pairs;             // [L D (D + 1) / 2, 2] observation pairs, block by
+                          // block
+  double* part;           // [chunk_cap, kPart] the chunks' sums
+  double* Sb;             // [P (P + 1) / 2, 36] S's upper blocks, factorized
+  double* bs;             // [6P] b_s
+  double* x;              // [6P] the solution
+  double* partial;        // [3, kMaxGrid] the blocks' partial sums
+  int P, L, D, iters;
+  int chunk_cap;  // part's rows
   float fx, fy, cx, cy, bf;
   float huber_mono, huber_stereo;
   int robust;
-  int iter;  // this iteration's row of trace
-  int mode;  // ba_update: kAcceptAll | kLast | kEvalOnly
+  int mode;  // kAcceptAll | kAssemble
 };
 
 constexpr int kAcceptAll = 1;  // take every step at a fixed damping
-constexpr int kLast = 2;       // orthonormalize, per-observation chi2
-constexpr int kEvalOnly = 4;   // no step (a solve of 0 iterations)
+constexpr int kAssemble = 2;   // stop after the first S and b_s
 
-__device__ __forceinline__ bool active(const BaArgs& a, int l, long long o) {
-  return a.point_valid[l] && a.obs_w[o] > 0.f;
+// ---------------------------------------------------------------------------
+// shared memory, carved from the dynamic allocation by the pose count
+// ---------------------------------------------------------------------------
+
+struct Layout {
+  int fac, y, dinv, uinv, urow, rmask, R, t, Rn, tn, dxi, red, fidx,
+      nzl, poff, off, cstart, tp, tq, cp, cq, misc, bytes;
+};
+
+__host__ __device__ inline int shared_free(int P) {
+  return P < kSharedFree ? P : kSharedFree;
+}
+
+__host__ __device__ inline int take(int* at, int bytes) {
+  const int here = *at;
+  *at += (bytes + 15) & ~15;
+  return here;
+}
+
+__host__ __device__ inline Layout layout(int P) {
+  Layout s;
+  const int nfs = shared_free(P);
+  const int nb = P * (P + 1) / 2;
+  int at = 0;
+  s.fac = take(&at, 8 * 36 * (nfs * (nfs + 1) / 2));
+  s.y = take(&at, 8 * 6 * P);
+  s.dinv = take(&at, 8 * 6 * P);
+  s.uinv = take(&at, 8 * 36 * P);
+  s.urow = take(&at, P > kSharedFree ? 8 * 36 * P : 0);
+  s.rmask = take(&at, 8 * P);
+  s.R = take(&at, 4 * 9 * P);
+  s.t = take(&at, 4 * 3 * P);
+  s.Rn = take(&at, 4 * 9 * P);
+  s.tn = take(&at, 4 * 3 * P);
+  s.dxi = take(&at, 4 * 6 * P);
+  s.red = take(&at, 8 * kWarps);
+  s.fidx = take(&at, 4 * P);
+  s.nzl = take(&at, 4 * P);
+  s.poff = take(&at, 4 * (P + 1));
+  s.off = take(&at, 4 * (nb + 1));
+  s.cstart = take(&at, 4 * (nb + 1));
+  s.tp = take(&at, nb);
+  s.tq = take(&at, nb);
+  s.cp = take(&at, nb);
+  s.cq = take(&at, nb);
+  s.misc = take(&at, 4 * 16);
+  s.bytes = at;
+  return s;
+}
+
+struct Smem {
+  double *fac, *y, *dinv, *uinv, *urow;  // urow null where S is in shared
+  unsigned long long* rmask;  // S's nonzero blocks of each block row
+  float *R, *t, *Rn, *tn, *dxi;
+  double* red;
+  int *fidx, *nzl, *poff, *off, *cstart, *misc;
+  // block k of the upper triangle, row by row: (tp, tq); block b, column by
+  // column: (cp, cq)
+  unsigned char *tp, *tq, *cp, *cq;
+};
+
+__device__ inline Smem carve(unsigned char* base, int P) {
+  const Layout l = layout(P);
+  Smem s;
+  s.fac = reinterpret_cast<double*>(base + l.fac);
+  s.y = reinterpret_cast<double*>(base + l.y);
+  s.dinv = reinterpret_cast<double*>(base + l.dinv);
+  s.uinv = reinterpret_cast<double*>(base + l.uinv);
+  s.urow = P > kSharedFree ? reinterpret_cast<double*>(base + l.urow)
+                           : nullptr;
+  s.R = reinterpret_cast<float*>(base + l.R);
+  s.t = reinterpret_cast<float*>(base + l.t);
+  s.Rn = reinterpret_cast<float*>(base + l.Rn);
+  s.tn = reinterpret_cast<float*>(base + l.tn);
+  s.dxi = reinterpret_cast<float*>(base + l.dxi);
+  s.red = reinterpret_cast<double*>(base + l.red);
+  s.rmask = reinterpret_cast<unsigned long long*>(base + l.rmask);
+  s.nzl = reinterpret_cast<int*>(base + l.nzl);
+  s.poff = reinterpret_cast<int*>(base + l.poff);
+  s.fidx = reinterpret_cast<int*>(base + l.fidx);
+  s.off = reinterpret_cast<int*>(base + l.off);
+  s.cstart = reinterpret_cast<int*>(base + l.cstart);
+  s.misc = reinterpret_cast<int*>(base + l.misc);
+  s.tp = base + l.tp;
+  s.tq = base + l.tq;
+  s.cp = base + l.cp;
+  s.cq = base + l.cq;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// small helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void stamp(const BaArgs& a, int k) {
+  if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long ns = 0;
+#ifdef __CUDA_ARCH__
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+#endif
+    a.stamps[k] = (long long)ns;
+  }
+}
+
+// the lanes of a landmark: the next power of two >= D
+__device__ __forceinline__ int group_of(int D) {
+  int g = 1;
+  while (g < D) g <<= 1;
+  return g;
+}
+
+// the sum over a group of g lanes (a power of two) by a fixed xor tree;
+// every lane gets it
+__device__ __forceinline__ float group_sum(float v, int g) {
+  for (int off = g >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the block's sum of each thread's v in a fixed order; every thread gets it
+__device__ double block_total(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double s = red[0];
+  for (int w = 1; w < kWarps; ++w) s += red[w];
+  __syncthreads();  // red[] is reused
+  return s;
+}
+
+// the sum of the blocks' partials v[0..n) in a fixed order: thread t adds
+// v[t], v[t + kThreads], ..., then the block's tree; every block that calls
+// it gets the same bits
+__device__ double partials_total(const double* v, int n, double* red) {
+  double s = 0.0;
+  for (int k = threadIdx.x; k < n; k += kThreads) s += __ldcg(v + k);
+  return block_total(s, red);
+}
+
+// the block's exclusive scan of in[0..n) into out[0..n] (out[n] the total),
+// out in shared memory; every thread of the block calls it
+__device__ void block_scan(const int* in, int n, int* out, int* red) {
+  // in and out may be one array
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = (n + kThreads - 1) / kThreads;
+  const int lo = threadIdx.x * seg;
+  const int hi = lo + seg < n ? lo + seg : n;
+  int own = 0;
+  for (int k = lo; k < hi; ++k) own += in[k];
+  int inc = own;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += v;
+  }
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += red[w];
+  int run = base + inc - own;
+  for (int k = lo; k < hi; ++k) {
+    const int v = in[k];
+    out[k] = run;
+    run += v;
+  }
+  if (threadIdx.x == kThreads - 1) out[n] = run;
+  __syncthreads();
 }
 
 // (x, y, z clamped) of a landmark in a camera
@@ -150,6 +362,29 @@ __device__ __forceinline__ float obs_e2(const BaArgs& a, const float* R,
   return (e0 * e0 + e1 * e1) + e2 * e2;
 }
 
+// the same squared residual evaluated in float64 at the float32 state: what
+// the chi2 sums that the accept test compares add. Near convergence the two
+// sums differ by less than the float32 rounding of each residual, where a
+// float32 evaluation decides by its rounding; this one decides as a float64
+// solver would
+__device__ __forceinline__ double obs_e2_sum(const BaArgs& a, const float* R,
+                                             const float* t, const float* X,
+                                             long long o) {
+  double xc[3];
+  for (int i = 0; i < 3; ++i)
+    xc[i] = fma((double)R[3 * i + 2], (double)X[2],
+                fma((double)R[3 * i + 1], (double)X[1],
+                    (double)R[3 * i] * X[0])) + t[i];
+  if (fabs(xc[2]) < 1e-9) xc[2] = 1e-9;
+  const double iz = 1.0 / xc[2];
+  const float* uvr = a.obs_uvr + 3 * o;
+  const double u = fma((double)a.fx * xc[0], iz, (double)a.cx);
+  const double v = fma((double)a.fy * xc[1], iz, (double)a.cy);
+  const double e0 = uvr[0] - u, e1 = uvr[1] - v;
+  const double e2 = uvr[2] >= 0.f ? uvr[2] - (u - a.bf * iz) : 0.0;
+  return fma(e2, e2, fma(e1, e1, e0 * e0));
+}
+
 // the closed-form 3x3 inverse of optim/ba.py _inv3x3
 __device__ void inv3x3(const float* M, float* out) {
   const float a = M[0], b = M[1], c = M[2], d = M[3], e = M[4], f = M[5],
@@ -161,250 +396,6 @@ __device__ void inv3x3(const float* M, float* out) {
   const float inv_det = 1.0f / (fabsf(det) < 1e-12f ? 1e-12f : det);
   const float adj[9] = {A, B, C, D, E, F, G, H, I};
   for (int k = 0; k < 9; ++k) out[k] = adj[k] * inv_det;
-}
-
-// the linearization of landmark l: writes the records of its active
-// observations, Hll^-1, bl and its pose mask; returns its chi2 at the state
-__device__ float linearize(const BaArgs& a, int l, const float* Rs,
-                           const float* ts, float lam) {
-  const float* X = a.X + 3 * l;
-  const bool valid = a.point_valid[l];
-  float H[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float bl[3] = {0.f, 0.f, 0.f};
-  float chi2 = 0.f;
-  unsigned long long mask = 0ull;
-  for (int d = 0; d < a.D; ++d) {
-    const long long o = (long long)l * a.D + d;
-    const float w_obs = a.obs_w[o];
-    if (!(valid && w_obs > 0.f)) continue;
-    const int p = (int)a.obs_pose[o];
-    const float* R = Rs + 9 * p;
-    float xc[3];
-    to_camera(R, ts + 3 * p, X, xc);
-    const float x = xc[0], y = xc[1], z = xc[2];
-    const float iz = 1.0f / z;
-    const float iz2 = iz * iz;
-    const float* uvr = a.obs_uvr + 3 * o;
-    const bool stereo = uvr[2] >= 0.f;
-    const float srow = stereo ? 1.f : 0.f;
-    const float u = a.fx * x * iz + a.cx;
-    const float v = a.fy * y * iz + a.cy;
-    const float ur = u - a.bf * iz;
-    const float e[3] = {uvr[0] - u, uvr[1] - v, (uvr[2] - ur) * srow};
-    const float chi2_i = ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) * w_obs;
-    chi2 += chi2_i;
-    float w_rob = 1.f;
-    if (a.robust) {
-      const float delta = stereo ? a.huber_stereo : a.huber_mono;
-      const float abs_e = sqrtf(fmaxf(chi2_i, 1e-12f));
-      w_rob = abs_e <= delta ? 1.f : delta / abs_e;
-    }
-    const float w = w_obs * w_rob;
-    // d(u, v, u_r) / d(camera point), rows of the mono observation zero
-    const float J[9] = {a.fx * iz, 0.f, -a.fx * x * iz2,
-                        0.f, a.fy * iz, -a.fy * y * iz2,
-                        (a.fx * iz) * srow, 0.f,
-                        (-a.fx * x * iz2 + a.bf * iz2) * srow};
-    const float free = a.pose_fixed[p] ? 0.f : 1.f;
-    float Jp[18], Jl[9];
-    for (int r = 0; r < 3; ++r) {
-      const float j0 = J[3 * r], j1 = J[3 * r + 1], j2 = J[3 * r + 2];
-      // -(Jproj @ [I, -hat(Xc)])
-      Jp[6 * r + 0] = -((j0 * 1.f + j1 * 0.f) + j2 * 0.f) * free;
-      Jp[6 * r + 1] = -((j0 * 0.f + j1 * 1.f) + j2 * 0.f) * free;
-      Jp[6 * r + 2] = -((j0 * 0.f + j1 * 0.f) + j2 * 1.f) * free;
-      Jp[6 * r + 3] = -((j0 * 0.f + j1 * -z) + j2 * y) * free;
-      Jp[6 * r + 4] = -((j0 * z + j1 * 0.f) + j2 * -x) * free;
-      Jp[6 * r + 5] = -((j0 * -y + j1 * x) + j2 * 0.f) * free;
-      for (int c = 0; c < 3; ++c)
-        Jl[3 * r + c] = -((j0 * R[c] + j1 * R[3 + c]) + j2 * R[6 + c]);
-    }
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j)
-        H[3 * i + j] += ((Jl[i] * w) * Jl[j] + (Jl[3 + i] * w) * Jl[3 + j]) +
-                        (Jl[6 + i] * w) * Jl[6 + j];
-      bl[i] += ((Jl[i] * w) * e[0] + (Jl[3 + i] * w) * e[1]) +
-               (Jl[6 + i] * w) * e[2];
-    }
-    float* rec = a.rec + o * kRec;
-    for (int i = 0; i < 6; ++i)
-      for (int j = 0; j < 3; ++j)
-        rec[kY + 3 * i + j] = ((Jp[i] * w) * Jl[j] +
-                               (Jp[6 + i] * w) * Jl[3 + j]) +
-                              (Jp[12 + i] * w) * Jl[6 + j];
-    for (int k = 0; k < 18; ++k) rec[kJp + k] = Jp[k];
-    for (int k = 0; k < 3; ++k) rec[kE + k] = e[k];
-    rec[kWt] = w;
-    if (!a.pose_fixed[p]) mask |= 1ull << p;
-  }
-  // the damped diagonal (clamped at 1e-6); the identity for an invalid one
-  float Hd[9];
-  for (int k = 0; k < 9; ++k) Hd[k] = valid ? H[k] : (k % 4 == 0 ? 1.f : 0.f);
-  if (valid)
-    for (int i = 0; i < 3; ++i) Hd[4 * i] = H[4 * i] + lam * fmaxf(H[4 * i], 1e-6f);
-  float Hi[9];
-  inv3x3(Hd, Hi);
-  for (int k = 0; k < 9; ++k) a.hinv[9 * l + k] = Hi[k];
-  for (int k = 0; k < 3; ++k) a.bl[3 * l + k] = bl[k];
-  a.mask[l] = mask;
-  for (int d = 0; d < a.D; ++d) {
-    const long long o = (long long)l * a.D + d;
-    if (!(valid && a.obs_w[o] > 0.f)) continue;
-    float* rec = a.rec + o * kRec;
-    for (int i = 0; i < 6; ++i)
-      for (int k = 0; k < 3; ++k)
-        rec[kYH + 3 * i + k] = (rec[kY + 3 * i] * Hi[k] +
-                                rec[kY + 3 * i + 1] * Hi[3 + k]) +
-                               rec[kY + 3 * i + 2] * Hi[6 + k];
-  }
-  return chi2;
-}
-
-// the block's sum of each thread's v[0..n), in a fixed order, into out[]
-// (shared); every thread of the block calls it
-template <typename T, int N>
-__device__ void block_sum(const T (&v)[N], int n, T (*red)[kAcc], T* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i >= n) break;
-    T x = v[i];
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) red[warp][i] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < n) {
-    T s = red[0][threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) s += red[w][threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-__device__ float block_total(float v, float (*red)[kAcc], float* out) {
-  const float vv[1] = {v};
-  block_sum<float, 1>(vv, 1, red, out);
-  return out[0];
-}
-
-// the sum of the blocks' partials v[0..n) in a fixed order: thread t adds
-// v[t], v[t + kThreads], ... (independent loads in flight together), then
-// the block's tree; every block that calls it gets the same bits
-__device__ float partials_total(const float* v, int n, float (*red)[kAcc],
-                                float* out) {
-  float s = 0.f;
-  for (int k = threadIdx.x; k < n; k += kThreads) s += v[k];
-  return block_total(s, red, out);
-}
-
-// block (p, q >= p) of S and, for p == q, b_s[p]. Each term is formed in
-// float32 as the plain version forms it and summed in float64: S cancels
-// Hpp against the Schur term, both sums of thousands of terms, and float32
-// sums in another order than the plain version's would leave S farther
-// from the exact one than the plain version's own rounding does
-__device__ void pair_block(const BaArgs& a, int p, int q, float lam,
-                           double (*red)[kAcc], double* out) {
-  const int n6 = 6 * a.P;
-  const bool fp = a.pose_fixed[p], fq = a.pose_fixed[q];
-  if (fp || fq) {
-    // identity on a fixed pose's diagonal, zeros elsewhere, zero rhs
-    if (threadIdx.x < 36) {
-      const int i = threadIdx.x / 6, j = threadIdx.x % 6;
-      const float v = (p == q && i == j) ? 1.f : 0.f;
-      a.S[(6 * p + i) * n6 + 6 * q + j] = v;
-      if (q != p) a.S[(6 * q + j) * n6 + 6 * p + i] = 0.f;
-      if (p == q && j == 0) a.b[6 * p + i] = 0.f;
-    }
-    return;
-  }
-  const bool diag = p == q;
-  double acc[kAcc];
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0;
-  const int s1 = a.starts[p + 1];
-  for (int k = a.starts[p] + threadIdx.x; k < s1; k += kThreads) {
-    const long long o = a.order[k];
-    const int l = (int)(o / a.D);
-    if (!((a.mask[l] >> q) & 1ull)) continue;
-    const float* ro = a.rec + o * kRec;
-    float yh[18];
-    for (int m = 0; m < 18; ++m) yh[m] = ro[kYH + m];
-    for (int c = 0; c < a.D; ++c) {
-      const long long oc = (long long)l * a.D + c;
-      if (a.obs_pose[oc] != q || !(a.obs_w[oc] > 0.f)) continue;
-      const float* y = a.rec + oc * kRec + kY;
-      for (int i = 0; i < 6; ++i)
-        for (int j = 0; j < 6; ++j)
-          acc[6 * i + j] += (double)((yh[3 * i] * y[3 * j] +
-                                      yh[3 * i + 1] * y[3 * j + 1]) +
-                                     yh[3 * i + 2] * y[3 * j + 2]);
-    }
-    if (diag) {
-      const float* Jp = ro + kJp;
-      const float* e = ro + kE;
-      const float w = ro[kWt];
-      const float* blv = a.bl + 3 * l;
-      for (int i = 0; i < 6; ++i) {
-        for (int j = 0; j < 6; ++j)
-          acc[36 + 6 * i + j] += (double)(((Jp[i] * w) * Jp[j] +
-                                           (Jp[6 + i] * w) * Jp[6 + j]) +
-                                          (Jp[12 + i] * w) * Jp[12 + j]);
-        acc[72 + i] += (double)(((Jp[i] * w) * e[0] +
-                                 (Jp[6 + i] * w) * e[1]) +
-                                (Jp[12 + i] * w) * e[2]);
-        acc[78 + i] += (double)((yh[3 * i] * blv[0] +
-                                 yh[3 * i + 1] * blv[1]) +
-                                yh[3 * i + 2] * blv[2]);
-      }
-    }
-  }
-  block_sum<double, kAcc>(acc, diag ? kAcc : 36, red, out);
-  if (threadIdx.x < 36) {
-    // each sum rounded to float32 once, then S as the plain version forms it
-    const int i = threadIdx.x / 6, j = threadIdx.x % 6;
-    float v = -(float)out[threadIdx.x];
-    if (diag) {
-      // Hpp + lam diag(max(diag Hpp, 1e-6))
-      const float h = (float)out[36 + threadIdx.x];
-      v = v + (i == j ? h + lam * fmaxf(h, 1e-6f) : h + 0.f);
-      if (j == 0)
-        a.b[6 * p + i] = (float)out[72 + i] - (float)out[78 + i];
-    }
-    a.S[(6 * p + i) * n6 + 6 * q + j] = v;
-    if (!diag) a.S[(6 * q + j) * n6 + 6 * p + i] = v;
-  }
-  __syncthreads();  // out[] is reused by the block's next pair
-}
-
-__global__ void __launch_bounds__(kThreads) ba_assemble_kernel(const BaArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float Rs[kMaxPoses * 9], ts[kMaxPoses * 3];
-  __shared__ float red[kWarps][kAcc];
-  __shared__ float out[kAcc];
-  __shared__ double red2[kWarps][kAcc];
-  __shared__ double out2[kAcc];
-  for (int i = threadIdx.x; i < a.P * 9; i += kThreads) Rs[i] = a.R[i];
-  for (int i = threadIdx.x; i < a.P * 3; i += kThreads) ts[i] = a.t[i];
-  __syncthreads();
-  const float lam = a.lam[0];
-  float chi2 = 0.f;
-  for (int l = blockIdx.x * kThreads + threadIdx.x; l < a.L;
-       l += gridDim.x * kThreads)
-    chi2 += linearize(a, l, Rs, ts, lam);
-  const float tot = block_total(chi2, red, out);
-  if (threadIdx.x == 0) a.partial[blockIdx.x] = tot;
-  grid.sync();
-  if (blockIdx.x == 0) {
-    const float s = partials_total(a.partial, gridDim.x, red, out);
-    if (threadIdx.x == 0) a.chi2_old[0] = s;
-  }
-  // pairs (p, q >= p) row by row
-  const int n_pairs = a.P * (a.P + 1) / 2;
-  for (int k = blockIdx.x; k < n_pairs; k += gridDim.x) {
-    int p = 0, r = k;
-    while (r >= a.P - p) r -= a.P - p++;
-    pair_block(a, p, p + r, lam, red2, out2);
-  }
 }
 
 // exp(xi) (R, t) of optim/geometry se3.retract
@@ -456,176 +447,1040 @@ __device__ void orthonormalize(const float* R, float* out) {
                        R[3 * i + 2] * M[6 + j];
 }
 
-__global__ void __launch_bounds__(kThreads) ba_update_kernel(const BaArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float Rs[kMaxPoses * 9], ts[kMaxPoses * 3];
-  __shared__ float Rn[kMaxPoses * 9], tn[kMaxPoses * 3], dxi[kMaxPoses * 6];
-  __shared__ float red[kWarps][kAcc];
-  __shared__ float out[kAcc];
-  __shared__ int ok_s;
-  const bool step = !(a.mode & kEvalOnly);
-  const bool accept_all = a.mode & kAcceptAll;
-  const int stride = gridDim.x * kThreads;
-  for (int i = threadIdx.x; i < a.P * 9; i += kThreads) Rs[i] = a.R[i];
-  for (int i = threadIdx.x; i < a.P * 3; i += kThreads) ts[i] = a.t[i];
-  int finite_dxi = 1;
-  if (step)
-    for (int i = threadIdx.x; i < a.P * 6; i += kThreads) {
-      dxi[i] = -a.sol[i];
-      finite_dxi &= isfinite(dxi[i]) ? 1 : 0;
+// the index of block (p, q >= p) of the upper triangle of n x n blocks, row
+// by row
+__device__ __forceinline__ int tri(int p, int q, int n) {
+  return p * n - p * (p - 1) / 2 + (q - p);
+}
+
+// the row p of block k of the upper triangle of n x n blocks
+__device__ __forceinline__ int tri_row(int k, int n) {
+  const double m = 2.0 * n + 1.0;
+  int p = (int)((m - sqrt(m * m - 8.0 * k)) * 0.5);
+  if (p < 0) p = 0;
+  while (p > 0 && tri(p, p, n) > k) --p;
+  while (p + 1 < n && tri(p + 1, p + 1, n) <= k) ++p;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// the structure: pair lists of each block of S
+// ---------------------------------------------------------------------------
+
+// the bytes of landmark l's free poses a row of spose holds: 8 (one word) up
+// to 8 slots
+__device__ __forceinline__ int spose_row(int D) { return D <= 8 ? 8 : D; }
+
+__device__ __forceinline__ unsigned long long spose_word(const BaArgs& a,
+                                                         int l) {
+  return a.D <= 8
+             ? reinterpret_cast<const unsigned long long*>(a.spose)[l]
+             : 0ull;
+}
+
+// the free pose of landmark l's slot d (-1: none), from its word w where
+// D <= 8
+__device__ __forceinline__ int slot_pose(const BaArgs& a, int l,
+                                         unsigned long long w, int d) {
+  return a.D <= 8 ? (int)(signed char)(w >> (8 * d))
+                  : (int)a.spose[(long long)l * a.D + d];
+}
+
+// the pairs of landmark l (mask m, word w) for block (fp, fq >= fp)
+__device__ __forceinline__ int pairs_of(const BaArgs& a, int l,
+                                        unsigned long long m,
+                                        unsigned long long w, int fp,
+                                        int fq) {
+  if (!((m >> fp) & (m >> fq) & 1ull)) return 0;
+  int cp = 0, cq = 0;
+  for (int d = 0; d < a.D; ++d) {
+    const int f = slot_pose(a, l, w, d);
+    cp += f == fp;
+    cq += f == fq;
+  }
+  return fp == fq ? cp * (cp + 1) / 2 : cp * cq;
+}
+
+// writes landmark l's pairs for block (fp, fq) from pairs[at]
+__device__ void fill_pairs(const BaArgs& a, int l, unsigned long long w,
+                           int fp, int fq, int at) {
+  const int o0 = l * a.D;
+  for (int d = 0; d < a.D; ++d) {
+    if (slot_pose(a, l, w, d) != fp) continue;
+    for (int c = fp == fq ? d : 0; c < a.D; ++c) {
+      if (slot_pose(a, l, w, c) != fq) continue;
+      a.pairs[2ll * at] = o0 + d;
+      a.pairs[2ll * at + 1] = o0 + c;
+      ++at;
     }
-  finite_dxi = __syncthreads_and(finite_dxi);
-  if (step && threadIdx.x < a.P)
-    retract(dxi + 6 * threadIdx.x, Rs + 9 * threadIdx.x, ts + 3 * threadIdx.x,
-            Rn + 9 * threadIdx.x, tn + 3 * threadIdx.x);
-  __syncthreads();
-  float chi2n = 0.f, nonfinite = 0.f;
-  if (step) {
-    for (int l = blockIdx.x * kThreads + threadIdx.x; l < a.L; l += stride) {
-      const bool valid = a.point_valid[l];
-      float dX[3] = {0.f, 0.f, 0.f};
-      if (valid) {
-        float s[3] = {0.f, 0.f, 0.f};
-        for (int d = 0; d < a.D; ++d) {
-          const long long o = (long long)l * a.D + d;
-          const int p = (int)a.obs_pose[o];
-          if (!(a.obs_w[o] > 0.f) || a.pose_fixed[p]) continue;
-          const float* Y = a.rec + o * kRec + kY;
-          const float* x = dxi + 6 * p;
-          for (int j = 0; j < 3; ++j) {
-            float yx = 0.f;
-            for (int i = 0; i < 6; ++i) yx += Y[3 * i + j] * x[i];
-            s[j] += yx;
-          }
+  }
+}
+
+// free pose f's landmarks among [lo, hi), 32 at a time in order: their
+// count or, from plist[at], the landmarks themselves (fill). Every lane of
+// the warp calls it
+__device__ int pose_walk(const BaArgs& a, int f, int lo, int hi, bool fill,
+                         int at) {
+  const int lane = threadIdx.x & 31;
+  int run = at;
+  for (int l0 = lo; l0 < hi; l0 += 32) {
+    const int l = l0 + lane;
+    const bool in = l < hi && ((a.mask[l] >> f) & 1ull);
+    const unsigned bits = __ballot_sync(0xffffffffu, in);
+    if (fill && in) a.plist[run + __popc(bits & ((1u << lane) - 1u))] = l;
+    run += __popc(bits);
+  }
+  return run;
+}
+
+// block (fp, fq)'s pairs of the landmarks list[lo, hi) (fp's list), 32 at a
+// time in order, the next 32 masks and words loaded ahead: their count or,
+// from pairs[at], the pairs themselves (fill). Every lane of the warp calls
+// it
+__device__ int walk(const BaArgs& a, const int* list, int fp, int fq, int lo,
+                    int hi, bool fill, int at) {
+  const int lane = threadIdx.x & 31;
+  int ln = lo + lane < hi ? list[lo + lane] : 0;
+  unsigned long long m = 0ull, w = 0ull;
+  if (lo + lane < hi) {
+    m = a.mask[ln];
+    w = spose_word(a, ln);
+  }
+  int run = at;
+  for (int i0 = lo; i0 < hi; i0 += 32) {
+    const int i = i0 + lane, l = ln;
+    const unsigned long long mc = m, wc = w;
+    m = w = 0ull;
+    if (i + 32 < hi) {
+      ln = list[i + 32];
+      m = a.mask[ln];
+      w = spose_word(a, ln);
+    }
+    const int c = i < hi ? pairs_of(a, l, mc, wc, fp, fq) : 0;
+    int inc = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += v;
+    }
+    if (fill && c > 0) fill_pairs(a, l, wc, fp, fq, run + inc - c);
+    run += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  return run;
+}
+
+// the ranges of landmarks each pair list is built in: as many as there are
+// warps for each block of S, at most kMaxRanges, 32 landmarks or more each
+__device__ __forceinline__ int ranges_of(int L, int nb) {
+  int r = nb > 0 ? gridDim.x * kWarps / nb : 1;
+  const int most = (L + 31) / 32;
+  if (r > most) r = most;
+  if (r > kMaxRanges) r = kMaxRanges;
+  return r < 1 ? 1 : r;
+}
+
+// ---------------------------------------------------------------------------
+// the linearization, a lane an observation slot
+// ---------------------------------------------------------------------------
+
+// landmark l (lanes of group g, this lane's slot d): writes the records of
+// its active observations of free poses, Hll^-1 and bl; returns this lane's
+// observation's chi2 at the state for the sums (obs_e2_sum)
+__device__ double linearize(const BaArgs& a, int l, int d, int g,
+                           const Smem& s, float lam) {
+  const bool lv = l < a.L;
+  const bool valid = lv && a.point_valid[l];
+  const long long o = (long long)l * a.D + d;
+  const bool act = valid && d < a.D && a.obs_w[o] > 0.f;
+  float chi2_i = 0.f, w = 0.f;
+  double term = 0.0;
+  float e[3] = {0.f, 0.f, 0.f}, Jp[18], Jl[9];
+  for (int k = 0; k < 18; ++k) Jp[k] = 0.f;
+  for (int k = 0; k < 9; ++k) Jl[k] = 0.f;
+  int p = 0;
+  if (act) {
+    const float w_obs = a.obs_w[o];
+    p = (int)a.obs_pose[o];
+    const float* R = s.R + 9 * p;
+    const float* X = a.X + 3 * l;
+    float xc[3];
+    to_camera(R, s.t + 3 * p, X, xc);
+    const float x = xc[0], y = xc[1], z = xc[2];
+    const float iz = 1.0f / z;
+    const float iz2 = iz * iz;
+    const float* uvr = a.obs_uvr + 3 * o;
+    const bool stereo = uvr[2] >= 0.f;
+    const float srow = stereo ? 1.f : 0.f;
+    const float u = a.fx * x * iz + a.cx;
+    const float v = a.fy * y * iz + a.cy;
+    const float ur = u - a.bf * iz;
+    e[0] = uvr[0] - u;
+    e[1] = uvr[1] - v;
+    e[2] = (uvr[2] - ur) * srow;
+    chi2_i = ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) * w_obs;
+    term = obs_e2_sum(a, R, s.t + 3 * p, X, o) * (double)w_obs;
+    float w_rob = 1.f;
+    if (a.robust) {
+      const float delta = stereo ? a.huber_stereo : a.huber_mono;
+      const float abs_e = sqrtf(fmaxf(chi2_i, 1e-12f));
+      w_rob = abs_e <= delta ? 1.f : delta / abs_e;
+    }
+    w = w_obs * w_rob;
+    // d(u, v, u_r) / d(camera point), rows of the mono observation zero
+    const float J[9] = {a.fx * iz, 0.f, -a.fx * x * iz2,
+                        0.f, a.fy * iz, -a.fy * y * iz2,
+                        (a.fx * iz) * srow, 0.f,
+                        (-a.fx * x * iz2 + a.bf * iz2) * srow};
+    const float free = s.fidx[p] < 0 ? 0.f : 1.f;
+    for (int r = 0; r < 3; ++r) {
+      const float j0 = J[3 * r], j1 = J[3 * r + 1], j2 = J[3 * r + 2];
+      // -(Jproj @ [I, -hat(Xc)])
+      Jp[6 * r + 0] = -((j0 * 1.f + j1 * 0.f) + j2 * 0.f) * free;
+      Jp[6 * r + 1] = -((j0 * 0.f + j1 * 1.f) + j2 * 0.f) * free;
+      Jp[6 * r + 2] = -((j0 * 0.f + j1 * 0.f) + j2 * 1.f) * free;
+      Jp[6 * r + 3] = -((j0 * 0.f + j1 * -z) + j2 * y) * free;
+      Jp[6 * r + 4] = -((j0 * z + j1 * 0.f) + j2 * -x) * free;
+      Jp[6 * r + 5] = -((j0 * -y + j1 * x) + j2 * 0.f) * free;
+      for (int c = 0; c < 3; ++c)
+        Jl[3 * r + c] = -((j0 * R[c] + j1 * R[3 + c]) + j2 * R[6 + c]);
+    }
+  }
+  // the landmark's Hll and bl over its lanes
+  float H[9], bl[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j)
+      H[3 * i + j] = group_sum(((Jl[i] * w) * Jl[j] +
+                                (Jl[3 + i] * w) * Jl[3 + j]) +
+                                   (Jl[6 + i] * w) * Jl[6 + j], g);
+    bl[i] = group_sum(((Jl[i] * w) * e[0] + (Jl[3 + i] * w) * e[1]) +
+                          (Jl[6 + i] * w) * e[2], g);
+  }
+  // the damped diagonal (clamped at 1e-6); the identity for an invalid one
+  float Hd[9];
+  for (int k = 0; k < 9; ++k) Hd[k] = valid ? H[k] : (k % 4 == 0 ? 1.f : 0.f);
+  if (valid)
+    for (int i = 0; i < 3; ++i) Hd[4 * i] = H[4 * i] + lam * fmaxf(H[4 * i], 1e-6f);
+  float Hi[9];
+  inv3x3(Hd, Hi);
+  if (lv && d == 0) {
+    for (int k = 0; k < 9; ++k) a.hinv[9 * l + k] = Hi[k];
+    for (int k = 0; k < 3; ++k) a.bl[3 * l + k] = bl[k];
+  }
+  if (act && s.fidx[p] >= 0) {
+    // the record: Y, Y Hll^-1, Jp, e, w, written 16 bytes at a time
+    float r[60];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        r[kY + 3 * i + j] = ((Jp[i] * w) * Jl[j] +
+                             (Jp[6 + i] * w) * Jl[3 + j]) +
+                            (Jp[12 + i] * w) * Jl[6 + j];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        r[kYH + 3 * i + k] = (r[kY + 3 * i] * Hi[k] +
+                              r[kY + 3 * i + 1] * Hi[3 + k]) +
+                             r[kY + 3 * i + 2] * Hi[6 + k];
+#pragma unroll
+    for (int k = 0; k < 18; ++k) r[kJp + k] = Jp[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r[kE + k] = e[k];
+    r[kWt] = w;
+    r[58] = r[59] = 0.f;
+    float4* rec = reinterpret_cast<float4*>(a.rec + o * kRec);
+#pragma unroll
+    for (int k = 0; k < 15; ++k)
+      rec[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+  }
+  return term;
+}
+
+// ---------------------------------------------------------------------------
+// the Schur sums, a warp a chunk of a pair list
+// ---------------------------------------------------------------------------
+
+// acc[j] += sum_m a[m] b[3 j + m]: a row of a [6][3] x [3][6]^T term
+__device__ __forceinline__ void schur_row(const float* a, const float* b,
+                                          double* acc) {
+  const double a0 = a[0], a1 = a[1], a2 = a[2];
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    acc[j] = fma(a2, (double)b[3 * j + 2],
+                 fma(a1, (double)b[3 * j + 1], fma(a0, (double)b[3 * j], acc[j])));
+}
+
+// the first 20 floats of a record (Y and two of Y Hll^-1), 16 bytes at a time
+__device__ __forceinline__ void load_y(const float* rec, float* y) {
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float4 v = __ldcg(r4 + k);
+    y[4 * k] = v.x;
+    y[4 * k + 1] = v.y;
+    y[4 * k + 2] = v.z;
+    y[4 * k + 3] = v.w;
+  }
+}
+
+// block k of S (and its part of b_s) from its chunks' sums, in chunk order,
+// by the warp that summed its last chunk
+__device__ void combine_block(const BaArgs& a, const Smem& s, int k, int nf,
+                              double lam) {
+  const int lane = threadIdx.x & 31;
+  const int fp = s.tp[k];
+  const bool diag = s.tq[k] == fp;
+  const int c0 = s.cstart[k], c1 = s.cstart[k + 1];
+  for (int e = lane; e < 36; e += 32) {
+    const int i = e / 6, j = e % 6;
+    double sch = 0.0, h = 0.0;
+    // in chunk order, 4 chunks' loads in flight at once
+    for (int c = c0; c < c1; c += 4) {
+      double v[4], g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const double* part = a.part + (long long)(c + u) * kPart;
+        v[u] = c + u < c1 ? __ldcg(part + e) : 0.0;
+        g[u] = c + u < c1 && diag ? __ldcg(part + 36 + e) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c + u < c1) {
+          sch += v[u];
+          h += g[u];
         }
+      }
+    }
+    double v = -sch;
+    // Hpp + lam diag(max(diag Hpp, 1e-6))
+    if (diag) v += i == j ? h + lam * fmax(h, 1e-6) : h;
+    a.Sb[36ll * k + e] = v;
+  }
+  if (diag && lane < 6) {
+    double bp = 0.0, bc = 0.0;
+    for (int c = c0; c < c1; c += 4) {
+      double v[4], g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const double* part = a.part + (long long)(c + u) * kPart;
+        v[u] = c + u < c1 ? __ldcg(part + 72 + lane) : 0.0;
+        g[u] = c + u < c1 ? __ldcg(part + 78 + lane) : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c + u < c1) {
+          bp += v[u];
+          bc += g[u];
+        }
+      }
+    }
+    a.bs[6 * fp + lane] = bp - bc;
+  }
+}
+
+__device__ void chunk_done(const BaArgs& a, const Smem& s, int c, int k,
+                           int nf, double lam);
+
+// the block of S of chunk c: the last k with cstart[k] <= c
+__device__ __forceinline__ int block_of_chunk(const Smem& s, int c, int nb) {
+  int lo = 0, hi = nb;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (s.cstart[mid] <= c) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// chunk c of the pair lists: its sums into part[c]; the warp that sums a
+// block's last chunk (an integer count of the block's chunks done) combines
+// the block's chunks
+__device__ void schur_chunk(const BaArgs& a, const Smem& s, int c, int nb,
+                            int nf, double lam) {
+  const int lane = threadIdx.x & 31;
+  const int k = block_of_chunk(s, c, nb);
+  const bool diag = s.tp[k] == s.tq[k];
+  const int first = s.off[k] + (c - s.cstart[k]) * kChunk;
+  const int last = first + kChunk < s.off[k + 1] ? first + kChunk
+                                                  : s.off[k + 1];
+  const int grp = lane / 6, i = lane % 6;
+  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double hp[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double bp = 0.0, bc = 0.0;
+  if (grp < kPairGroups) {
+    int oa[kSteps], ob[kSteps];
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const int j = first + grp + kPairGroups * st;
+      oa[st] = j < last ? a.pairs[2ll * j] : -1;
+      ob[st] = j < last ? a.pairs[2ll * j + 1] : -1;
+    }
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      if (oa[st] < 0) break;
+      const float* ra = a.rec + (long long)oa[st] * kRec;
+      const float* rb = a.rec + (long long)ob[st] * kRec;
+      float yb[20];
+      load_y(rb, yb);
+      const float* yh = ra + kYH + 3 * i;
+      schur_row(yh, yb, acc);
+      if (!diag) continue;
+      if (oa[st] != ob[st]) {
+        float ya[20];
+        load_y(ra, ya);
+        schur_row(rb + kYH + 3 * i, ya, acc);
+        continue;
+      }
+      // the observation's own terms: Hpp, bp and Y Hll^-1 bl
+      const float* Jp = ra + kJp;
+      const float* e = ra + kE;
+      const double w = ra[kWt];
+      const float* blv = a.bl + 3 * (oa[st] / a.D);
+      for (int r = 0; r < 3; ++r) {
+        const double wi = w * (double)Jp[6 * r + i];
+#pragma unroll
+        for (int jj = 0; jj < 6; ++jj)
+          hp[jj] = fma(wi, (double)Jp[6 * r + jj], hp[jj]);
+        bp = fma(wi, (double)e[r], bp);
+      }
+      bc = fma((double)yh[2], (double)blv[2],
+               fma((double)yh[1], (double)blv[1],
+                   fma((double)yh[0], (double)blv[0], bc)));
+    }
+  }
+  // the groups' sums in group order, into lanes 0-5
+  double vals[14];
+  for (int j = 0; j < 6; ++j) {
+    vals[j] = acc[j];
+    vals[6 + j] = hp[j];
+  }
+  vals[12] = bp;
+  vals[13] = bc;
+  double* out = a.part + (long long)c * kPart;
+  for (int v = 0; v < 14; ++v) {
+    double sum = vals[v];
+    for (int gg = 1; gg < kPairGroups; ++gg)
+      sum += __shfl_sync(0xffffffffu, vals[v], i + 6 * gg);
+    if (lane < 6) {
+      if (v < 6) out[6 * i + v] = sum;
+      else if (v < 12) out[36 + 6 * i + (v - 6)] = sum;
+      else out[72 + 6 * (v - 12) + i] = sum;
+    }
+  }
+  chunk_done(a, s, c, k, nf, lam);
+}
+
+// chunk c of block k summed: the warp that sums a block's last chunk (an
+// integer count of the block's chunks done) combines the block's chunks
+__device__ void chunk_done(const BaArgs& a, const Smem& s, int c, int k,
+                           int nf, double lam) {
+  const int lane = threadIdx.x & 31;
+  __threadfence();
+  int done = 0;
+  if (lane == 0) done = atomicAdd(a.done + k, 1);
+  done = __shfl_sync(0xffffffffu, done, 0);
+  if (done == s.cstart[k + 1] - s.cstart[k] - 1) {
+    __threadfence();
+    combine_block(a, s, k, nf, lam);
+    if (lane == 0) a.done[k] = 0;  // for the next iteration
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the reduced system: sums, factorization, solve (block 0)
+// ---------------------------------------------------------------------------
+
+// the reduced system after the Schur sums: b_s into s.y and S's upper
+// blocks into B (shared memory; or Sb itself, in global memory); a block
+// without pairs is Hpp's damped diagonal alone
+__device__ void load_system(const BaArgs& a, const Smem& s, double* B, int nb,
+                            int nf, double lam) {
+  for (int i0 = threadIdx.x; i0 < nb * 36; i0 += 8 * kThreads) {
+    double v[8];  // 8 loads in flight, then the stores
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = i0 + u * kThreads, k = idx / 36;
+      v[u] = 0.0;
+      if (idx >= nb * 36) continue;
+      if (s.cstart[k + 1] > s.cstart[k])
+        v[u] = B != a.Sb ? __ldcg(a.Sb + idx) : 0.0;
+      else if (s.tp[k] == s.tq[k] && idx % 36 % 7 == 0)
+        v[u] = lam * 1e-6;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = i0 + u * kThreads, k = idx / 36;
+      if (idx < nb * 36 && (B != a.Sb || s.cstart[k + 1] == s.cstart[k]))
+        B[idx] = v[u];
+    }
+  }
+  for (int r = threadIdx.x; r < 6 * nf; r += kThreads) {
+    const int k = tri(r / 6, r / 6, nf);
+    s.y[r] = s.cstart[k + 1] > s.cstart[k] ? __ldcg(a.bs + r) : 0.0;
+  }
+  __syncthreads();
+}
+
+// 1 / sqrt(x) of a positive float64: the float32 estimate refined by two
+// Newton steps (each doubles the correct bits: 23 -> 46 -> 92), where x
+// lies in float32's normal range; else the library's
+__device__ __forceinline__ double rsqrt_pos(double x) {
+  if (!(x > 1e-36 && x < 1e36)) return rsqrt(x);
+  double r = (double)rsqrtf((float)x);
+  const double h = 0.5 * x;
+  r = r * fma(-h * r, r, 1.5);
+  return r * fma(-h * r, r, 1.5);
+}
+
+// block row k's diagonal block factorized in place, U_kk^T U_kk = S_kk (warp
+// 0, a lane a row; staged in Uk too), the forward substitution's y_k, and
+// the list of row k's nonzero blocks right of the diagonal (nzl, relative
+// to k; their count in s.misc[1])
+__device__ void factor_diag(double* B, const Smem& s, int nf, int k,
+                            double* Uk, int* nzl) {
+  const int lane = threadIdx.x & 31;
+  double* Bk = B + 36 * tri(k, k, nf);
+  double* y = s.y;
+  double u[6], yr = 0.0;
+  for (int c = 0; c < 6; ++c) u[c] = lane < 6 ? Bk[6 * lane + c] : 0.0;
+  if (lane < 6) yr = y[6 * k + lane];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    if (lane == j) {
+      const double piv = u[j];
+      // NaN where S is not positive definite
+      const double inv = piv > 0.0 ? rsqrt_pos(piv)
+                                   : __longlong_as_double(
+                                         0x7ff8000000000000ll);
+      for (int c = j + 1; c < 6; ++c) u[c] *= inv;
+      u[j] = piv * inv;
+      yr *= inv;
+      s.dinv[6 * k + j] = inv;
+    }
+    double uj[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) uj[c] = __shfl_sync(0xffffffffu, u[c], j);
+    const double yj = __shfl_sync(0xffffffffu, yr, j);
+    if (lane > j && lane < 6) {
+      double ujr = 0.0;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) ujr = c == lane ? uj[c] : ujr;
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        if (c >= lane) u[c] = fma(-ujr, uj[c], u[c]);
+      yr = fma(-ujr, yj, yr);
+    }
+  }
+  if (lane < 6) {
+    for (int c = 0; c < 6; ++c) {
+      Bk[6 * lane + c] = u[c];
+      Uk[6 * lane + c] = u[c];
+    }
+    y[6 * k + lane] = yr;
+  }
+  int n = 0;
+  for (int q0 = k + 1; q0 < nf; q0 += 32) {
+    const int q = q0 + lane;
+    const bool nz = q < nf && ((s.rmask[k] >> q) & 1ull);
+    const unsigned bits = __ballot_sync(0xffffffffu, nz);
+    if (nz) nzl[n + __popc(bits & ((1u << lane) - 1u))] = q - k;
+    n += __popc(bits);
+  }
+  if (lane == 0) s.misc[1] = n;
+  __syncwarp();
+}
+
+// S = U^T U on nf x nf blocks of 6 (B: the upper blocks, row-major within)
+// and the solution of S x = y in place of y (shared). Right-looking: block
+// row k's diagonal block is factorized (factor_diag), the panel solved (a
+// thread a column of a block), the trailing blocks updated (a thread a row
+// of a block, the blocks column by column so that a warp's threads share
+// the row k block they read); the forward substitution rides along. Only
+// the nonzero blocks (s.rmask: S's and the factorization's fill) are
+// touched. Where B is in global memory, block row k is staged in s.urow for
+// the update. Then the diagonal blocks are inverted (a warp a block, a lane
+// a column) and the back substitution takes a 6x6 product a block row.
+__device__ void factor_solve(double* B, const Smem& s, int nf) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  double* y = s.y;
+  double* dinv = s.dinv;
+  for (int k = 0; k < nf; ++k) {
+    double* Bk = B + 36 * tri(k, k, nf);  // block row k, contiguous
+    double* Uk = s.urow != nullptr ? s.urow : Bk;
+    if (warp == 0) factor_diag(B, s, nf, k, Uk, s.nzl);
+    __syncthreads();
+    const int rest = s.misc[1];  // nonzero blocks, at nzl[0..rest)
+    const int* nzl = s.nzl;
+    // the panel: U_kq = U_kk^-T S_kq, a thread a column
+    for (int t = tid; t < 6 * rest; t += kThreads) {
+      const int q = nzl[t / 6], c = t % 6;
+      double xv[6];
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        double v = Bk[36 * q + 6 * r + c];
+#pragma unroll
+        for (int m = 0; m < r; ++m) v = fma(-Uk[6 * m + r], xv[m], v);
+        xv[r] = v * dinv[6 * k + r];
+      }
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        Bk[36 * q + 6 * r + c] = xv[r];
+        Uk[36 * q + 6 * r + c] = xv[r];
+      }
+    }
+    __syncthreads();
+    // the trailing blocks (k < p <= q) and the rest of the right-hand side
+    const int n_items = 6 * (rest * (rest + 1) / 2);
+    for (int t = tid; t < n_items + 6 * rest; t += kThreads) {
+      if (t >= n_items) {
+        const int pr = nzl[(t - n_items) / 6], i = (t - n_items) % 6;
+        double v = y[6 * (k + pr) + i];
+#pragma unroll
+        for (int m = 0; m < 6; ++m)
+          v = fma(-Uk[36 * pr + 6 * m + i], y[6 * k + m], v);
+        y[6 * (k + pr) + i] = v;
+        continue;
+      }
+      const int b = t / 6, i = t % 6;
+      const int pr = nzl[s.cp[b]], qr = nzl[s.cq[b]];
+      double up[6];
+#pragma unroll
+      for (int m = 0; m < 6; ++m) up[m] = Uk[36 * pr + 6 * m + i];
+      double* Bpq = B + 36 * tri(k + pr, k + qr, nf) + 6 * i;
+      double v[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) v[j] = Bpq[j];
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int m = 0; m < 6; ++m)
+          v[j] = fma(-up[m], Uk[36 * qr + 6 * m + j], v[j]);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) Bpq[j] = v[j];
+    }
+    __syncthreads();
+  }
+  // the diagonal blocks' inverses (upper triangular), a lane a column
+  for (int k = warp; k < nf; k += kWarps) {
+    if (lane < 6) {
+      const double* U = B + 36 * tri(k, k, nf);
+      double x[6];
+#pragma unroll
+      for (int r = 5; r >= 0; --r) {
+        double v = r == lane ? 1.0 : 0.0;
+#pragma unroll
+        for (int m = r + 1; m < 6; ++m) v = fma(-U[6 * r + m], x[m], v);
+        x[r] = v * dinv[6 * k + r];
+      }
+#pragma unroll
+      for (int r = 0; r < 6; ++r) s.uinv[36 * k + 6 * r + lane] = x[r];
+    }
+  }
+  __syncthreads();
+  // back substitution, U x = y, block row by block row from the last
+  for (int k = nf - 1; k >= 0; --k) {
+    double xr = 0.0;
+    if (tid < 6)
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        xr = fma(s.uinv[36 * k + 6 * tid + c], y[6 * k + c], xr);
+    __syncwarp();
+    if (tid < 6) y[6 * k + tid] = xr;
+    __syncthreads();
+    for (int t = tid; t < 6 * k; t += kThreads) {
+      const int p = t / 6, i = t % 6;
+      if (!((s.rmask[p] >> k) & 1ull)) continue;
+      const double* Upk = B + 36 * tri(p, k, nf) + 6 * i;
+      double v = y[6 * p + i];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) v = fma(-Upk[j], y[6 * k + j], v);
+      y[6 * p + i] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// the first system in full pose indexing, fixed poses' identity rows
+// included, into S, b, S64, b64: the symmetric matrix the factorization
+// reads (its upper blocks, mirrored)
+__device__ void write_system(const BaArgs& a, const Smem& s, const double* B,
+                             int nf) {
+  const int n6 = 6 * a.P;
+  for (int idx = threadIdx.x; idx < n6 * n6; idx += kThreads) {
+    const int r = idx / n6, c = idx % n6;
+    const int p = r / 6, q = c / 6, i = r % 6, j = c % 6;
+    const int fp = s.fidx[p], fq = s.fidx[q];
+    double v;
+    if (fp < 0 || fq < 0) {
+      v = (p == q && i == j) ? 1.0 : 0.0;
+    } else if (fp < fq || (fp == fq && i <= j)) {
+      v = B[36 * tri(fp, fq, nf) + 6 * i + j];
+    } else {
+      v = B[36 * tri(fq, fp, nf) + 6 * j + i];
+    }
+    a.S64[idx] = v;
+    a.S[idx] = (float)v;
+  }
+  for (int r = threadIdx.x; r < n6; r += kThreads) {
+    const int fp = s.fidx[r / 6];
+    const double v = fp < 0 ? 0.0 : s.y[6 * fp + r % 6];
+    a.b64[r] = v;
+    a.b[r] = (float)v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem s = carve(smem, a.P);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool assemble = a.mode & kAssemble;
+  const bool accept_all = a.mode & kAcceptAll;
+  const int iters = assemble ? 1 : a.iters;
+  stamp(a, 0);
+  for (int i = tid; i < a.P * 9; i += kThreads) s.R[i] = a.R[i];
+  for (int i = tid; i < a.P * 3; i += kThreads) s.t[i] = a.t[i];
+  if (tid == 0) {
+    int nf = 0;
+    for (int p = 0; p < a.P; ++p) s.fidx[p] = a.pose_fixed[p] ? -1 : nf++;
+    s.misc[0] = nf;
+  }
+  __syncthreads();
+  const int nf = s.misc[0];
+  const int nb = nf * (nf + 1) / 2;
+  const int G = group_of(a.D), per_warp = 32 / G;
+  const int lm_stride = gridDim.x * kWarps * per_warp;
+  const int lm_first = (blockIdx.x * kWarps + warp) * per_warp;
+  const int gl = lane / G, d = lane % G;
+  float lam = a.lam[0];
+
+  if (iters > 0) {
+    // the structure: the tables of the blocks of S; free poses of the
+    // active observations, the masks
+    for (int k = tid; k < nb; k += kThreads) {
+      const int p = tri_row(k, nf);
+      s.tp[k] = (unsigned char)p;
+      s.tq[k] = (unsigned char)(p + k - tri(p, p, nf));
+      int q = (int)((sqrt(8.0 * k + 1.0) - 1.0) * 0.5);
+      while (q * (q + 1) / 2 > k) --q;
+      while ((q + 1) * (q + 2) / 2 <= k) ++q;
+      s.cq[k] = (unsigned char)q;
+      s.cp[k] = (unsigned char)(k - q * (q + 1) / 2);
+    }
+    for (int k = blockIdx.x * kThreads + tid; k < nb;
+         k += gridDim.x * kThreads)
+      a.done[k] = 0;
+    const int row = spose_row(a.D);
+    for (int l = blockIdx.x * kThreads + tid; l < a.L;
+         l += gridDim.x * kThreads) {
+      const bool valid = a.point_valid[l];
+      unsigned long long m = 0ull;
+      for (int c = 0; c < row; ++c) {
+        const long long o = (long long)l * a.D + c;
+        int f = -1;
+        if (c < a.D && valid && a.obs_w[o] > 0.f)
+          f = s.fidx[(int)a.obs_pose[o]];
+        a.spose[(long long)l * row + c] = (signed char)f;
+        if (f >= 0) m |= 1ull << f;
+      }
+      a.mask[l] = m;
+    }
+    grid.sync();
+    // each free pose's landmarks in order: a warp a (pose, range of
+    // landmarks), counting, then, once every block of threads has scanned
+    // the counts, filling
+    const int R1 = ranges_of(a.L, nf);
+    const int span1 = ((a.L + R1 - 1) / R1 + 31) & ~31;
+    for (int t = blockIdx.x * kWarps + warp; t < nf * R1;
+         t += gridDim.x * kWarps) {
+      const int lo = (t % R1) * span1;
+      const int hi = lo + span1 < a.L ? lo + span1 : a.L;
+      const int n = pose_walk(a, t / R1, lo, hi, false, 0);
+      if (lane == 0) a.pcounts[t] = n;
+    }
+    grid.sync();
+    for (int f = tid; f < nf; f += kThreads) {
+      int n = 0;
+      for (int r = 0; r < R1; ++r) n += __ldcg(a.pcounts + f * R1 + r);
+      s.poff[f] = n;
+    }
+    __syncthreads();
+    block_scan(s.poff, nf, s.poff, s.misc + 4);
+    for (int t = blockIdx.x * kWarps + warp; t < nf * R1;
+         t += gridDim.x * kWarps) {
+      const int f = t / R1, lo = (t % R1) * span1;
+      const int hi = lo + span1 < a.L ? lo + span1 : a.L;
+      int at = s.poff[f];
+      for (int r = 0; r < t % R1; ++r) at += __ldcg(a.pcounts + f * R1 + r);
+      pose_walk(a, f, lo, hi, true, at);
+    }
+    grid.sync();
+    // the pair lists: a warp a (block (p, q) of S, range of p's list),
+    // counting, then, once every block of threads has scanned the counts,
+    // filling
+    const int R = ranges_of(a.L, nb);
+    for (int t = blockIdx.x * kWarps + warp; t < nb * R;
+         t += gridDim.x * kWarps) {
+      const int k = t / R, fp = s.tp[k];
+      const int len = s.poff[fp + 1] - s.poff[fp];
+      const int span = ((len + R - 1) / R + 31) & ~31;
+      const int lo = s.poff[fp] + (t % R) * span;
+      const int hi = lo + span < s.poff[fp + 1] ? lo + span : s.poff[fp + 1];
+      const int n = walk(a, a.plist, fp, s.tq[k], lo, hi, false, 0);
+      if (lane == 0) a.counts[t] = n;
+    }
+    grid.sync();
+    for (int k = tid; k < nb; k += kThreads) {
+      int n = 0;
+      for (int r = 0; r < R; ++r) n += __ldcg(a.counts + k * R + r);
+      s.off[k] = n;
+    }
+    __syncthreads();
+    block_scan(s.off, nb, s.off, s.misc + 4);
+    for (int k = tid; k < nb; k += kThreads)
+      s.cstart[k] = (s.off[k + 1] - s.off[k] + kChunk - 1) / kChunk;
+    __syncthreads();
+    block_scan(s.cstart, nb, s.cstart, s.misc + 4);
+    for (int t = blockIdx.x * kWarps + warp; t < nb * R;
+         t += gridDim.x * kWarps) {
+      const int k = t / R, fp = s.tp[k];
+      const int len = s.poff[fp + 1] - s.poff[fp];
+      const int span = ((len + R - 1) / R + 31) & ~31;
+      const int lo = s.poff[fp] + (t % R) * span;
+      const int hi = lo + span < s.poff[fp + 1] ? lo + span : s.poff[fp + 1];
+      int at = s.off[k];
+      for (int r = 0; r < t % R; ++r) at += __ldcg(a.counts + k * R + r);
+      walk(a, a.plist, fp, s.tq[k], lo, hi, true, at);
+    }
+    if (blockIdx.x == 0) {
+      // S's nonzero blocks: those with pairs, the diagonal, and the
+      // factorization's fill (block (p, q) once blocks (k, p) and (k, q) are)
+      for (int p = tid; p < nf; p += kThreads) {
+        unsigned long long m = 1ull << p;
+        for (int q = p + 1; q < nf; ++q) {
+          const int k = tri(p, q, nf);
+          if (s.off[k + 1] > s.off[k]) m |= 1ull << q;
+        }
+        s.rmask[p] = m;
+      }
+      __syncthreads();
+      if (warp == 0)
+        for (int k = 0; k < nf; ++k) {
+          const unsigned long long m = s.rmask[k] & ~((2ull << k) - 1ull);
+          __syncwarp();
+          for (int p = k + 1 + lane; p < nf; p += 32)
+            if ((m >> p) & 1ull) s.rmask[p] |= m & ~((1ull << p) - 1ull);
+          __syncwarp();
+        }
+      __syncthreads();
+    }
+    if (a.stamps != nullptr) grid.sync();  // only to time the phase alone
+    stamp(a, 1);
+  }
+
+  const int n_chunks = iters > 0 ? s.cstart[nb] : 0;
+  // S's blocks in shared memory, or from global memory
+  double* B = nf <= shared_free(a.P) ? s.fac : a.Sb;
+  bool ok = false;
+  for (int it = 0; it < iters; ++it) {
+    const int st = kStampsFixed - 1 + kStampsIter * it;  // 2, 7, ...
+    // linearize
+    double chi2 = 0.0;
+    for (int l0 = lm_first; l0 < a.L; l0 += lm_stride)
+      chi2 += linearize(a, l0 + gl, d, G, s, lam);
+    const double tot = block_total(chi2, s.red);
+    if (tid == 0) a.partial[blockIdx.x] = tot;
+    grid.sync();
+    stamp(a, st);
+    const double chi2_old = partials_total(a.partial, gridDim.x, s.red);
+    // the Schur sums, each block of S combined by the warp of its last chunk
+    for (int c = blockIdx.x * kWarps + warp; c < n_chunks;
+         c += gridDim.x * kWarps)
+      schur_chunk(a, s, c, nb, nf, (double)lam);
+    grid.sync();
+    stamp(a, st + 1);
+    if (blockIdx.x == 0) {
+      load_system(a, s, B, nb, nf, (double)lam);
+      stamp(a, st + 2);
+      if (assemble) {
+        write_system(a, s, B, nf);
+        if (tid == 0) a.chi2_old[0] = chi2_old;
+      } else {
+        factor_solve(B, s, nf);
+        for (int i = tid; i < 6 * nf; i += kThreads) a.x[i] = s.y[i];
+        if (it == 0)
+          for (int r = tid; r < 6 * a.P; r += kThreads) {
+            const int fp = s.fidx[r / 6];
+            a.step0[r] = fp < 0 ? 0.0 : s.y[6 * fp + r % 6];
+          }
+      }
+    }
+    if (assemble) return;
+    grid.sync();
+    stamp(a, st + 3);
+    // the step: every pose retracted by every block
+    int finite = 1;
+    for (int i = tid; i < a.P * 6; i += kThreads) {
+      const int fp = s.fidx[i / 6];
+      const float v = fp < 0 ? 0.f : (float)(-__ldcg(a.x + 6 * fp + i % 6));
+      s.dxi[i] = v;
+      finite &= isfinite(v) ? 1 : 0;
+    }
+    finite = __syncthreads_and(finite);
+    for (int p = tid; p < a.P; p += kThreads)
+      retract(s.dxi + 6 * p, s.R + 9 * p, s.t + 3 * p, s.Rn + 9 * p,
+              s.tn + 3 * p);
+    __syncthreads();
+    // back-substitution and the candidate's chi2, a lane an observation
+    double chi2n = 0.0, nonfinite = 0.0;
+    for (int l0 = lm_first; l0 < a.L; l0 += lm_stride) {
+      const int l = l0 + gl;
+      const bool lv = l < a.L;
+      const long long o = (long long)l * a.D + d;
+      const bool valid = lv && a.point_valid[l];
+      const bool act = valid && d < a.D && a.obs_w[o] > 0.f;
+      const int p = act ? (int)a.obs_pose[o] : 0;
+      float sv[3] = {0.f, 0.f, 0.f};
+      if (act && s.fidx[p] >= 0) {
+        float Y[20];
+        load_y(a.rec + o * kRec, Y);
+        const float* x = s.dxi + 6 * p;
+        for (int j = 0; j < 3; ++j) {
+          float yx = 0.f;
+          for (int i = 0; i < 6; ++i) yx += Y[3 * i + j] * x[i];
+          sv[j] = yx;
+        }
+      }
+      for (int j = 0; j < 3; ++j) sv[j] = group_sum(sv[j], G);
+      float dX[3] = {0.f, 0.f, 0.f}, Xn[3] = {0.f, 0.f, 0.f};
+      if (valid) {
         const float* Hi = a.hinv + 9 * l;
         float rhs[3];
-        for (int j = 0; j < 3; ++j) rhs[j] = a.bl[3 * l + j] + s[j];
+        for (int j = 0; j < 3; ++j) rhs[j] = a.bl[3 * l + j] + sv[j];
         for (int i = 0; i < 3; ++i)
           dX[i] = -((Hi[3 * i] * rhs[0] + Hi[3 * i + 1] * rhs[1]) +
                     Hi[3 * i + 2] * rhs[2]);
       }
-      float Xn[3];
-      for (int i = 0; i < 3; ++i) {
-        if (!isfinite(dX[i])) nonfinite = 1.f;
-        Xn[i] = a.X[3 * l + i] + dX[i];
-        a.Xn[3 * l + i] = Xn[i];
+      if (lv) {
+        for (int i = 0; i < 3; ++i) {
+          if (!isfinite(dX[i])) nonfinite = 1.0;
+          Xn[i] = a.X[3 * l + i] + dX[i];
+          if (d == 0) a.Xn[3 * l + i] = Xn[i];
+        }
       }
-      if (!valid) continue;
-      for (int d = 0; d < a.D; ++d) {
-        const long long o = (long long)l * a.D + d;
-        if (!(a.obs_w[o] > 0.f)) continue;
-        const int p = (int)a.obs_pose[o];
-        chi2n += obs_e2(a, Rn + 9 * p, tn + 3 * p, Xn, o) * a.obs_w[o];
-      }
+      if (act)
+        chi2n += obs_e2_sum(a, s.Rn + 9 * p, s.tn + 3 * p, Xn, o) *
+                 (double)a.obs_w[o];
     }
-  }
-  const float part = block_total(chi2n, red, out);
-  const float nf = block_total(nonfinite, red, out);
-  if (threadIdx.x == 0) {
-    a.partial[blockIdx.x] = part;
-    a.partial[kMaxGrid + blockIdx.x] = nf;
-  }
-  grid.sync();
-  // every block the same totals
-  const float chi2_new = partials_total(a.partial, gridDim.x, red, out);
-  const float bad = partials_total(a.partial + kMaxGrid, gridDim.x, red, out);
-  if (threadIdx.x == 0) {
-    const float chi2_old = a.chi2_old[0];
-    const bool ok = step && (accept_all || (chi2_new < chi2_old && finite_dxi &&
-                                            bad == 0.f));
-    ok_s = ok;
-    if (blockIdx.x == 0 && step) {
-      a.trace[3 * a.iter] = chi2_old;
-      a.trace[3 * a.iter + 1] = chi2_new;
-      a.trace[3 * a.iter + 2] = ok ? 1.f : 0.f;
-      if (!accept_all) {
-        const float lam = a.lam[0];
-        a.lam[0] = fminf(fmaxf(ok ? lam * 0.5f : lam * 5.0f, 1e-9f), 1e8f);
-      }
+    const double part = block_total(chi2n, s.red);
+    const double nf_part = block_total(nonfinite, s.red);
+    if (tid == 0) {
+      a.partial[kMaxGrid + blockIdx.x] = part;
+      a.partial[2 * kMaxGrid + blockIdx.x] = nf_part;
     }
+    grid.sync();
+    stamp(a, st + 4);
+    // every block the same totals and the same decision
+    const double chi2_new = partials_total(a.partial + kMaxGrid, gridDim.x,
+                                          s.red);
+    const double bad = partials_total(a.partial + 2 * kMaxGrid, gridDim.x,
+                                     s.red);
+    ok = accept_all || (chi2_new < chi2_old && finite && bad == 0.0);
+    if (blockIdx.x == 0 && tid == 0) {
+      a.trace[3 * it] = (float)chi2_old;
+      a.trace[3 * it + 1] = (float)chi2_new;
+      a.trace[3 * it + 2] = ok ? 1.f : 0.f;
+    }
+    if (!accept_all)
+      lam = fminf(fmaxf(ok ? lam * 0.5f : lam * 5.0f, 1e-9f), 1e8f);
+    if (ok) {
+      for (int l0 = lm_first; l0 < a.L; l0 += lm_stride) {
+        const int l = l0 + gl;
+        if (l < a.L && d == 0)
+          for (int i = 0; i < 3; ++i) a.X[3 * l + i] = a.Xn[3 * l + i];
+      }
+      for (int i = tid; i < a.P * 9; i += kThreads) s.R[i] = s.Rn[i];
+      for (int i = tid; i < a.P * 3; i += kThreads) s.t[i] = s.tn[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const bool ok = ok_s;
-  if (ok)
-    for (int l = blockIdx.x * kThreads + threadIdx.x; l < a.L; l += stride)
-      for (int i = 0; i < 3; ++i) a.X[3 * l + i] = a.Xn[3 * l + i];
-  // the committed poses, orthonormalized after the last iteration
-  const bool last = a.mode & kLast;
-  if (threadIdx.x < a.P) {
-    float* Rc = (ok ? Rn : Rs) + 9 * threadIdx.x;
-    float* tc = (ok ? tn : ts) + 3 * threadIdx.x;
+  // the committed poses orthonormalized; the per-observation chi2
+  for (int p = tid; p < a.P; p += kThreads) {
     float Ro[9];
-    if (last) orthonormalize(Rc, Ro);
-    for (int k = 0; k < 9; ++k) {
-      Rs[9 * threadIdx.x + k] = last ? Ro[k] : Rc[k];
-      if (blockIdx.x == 0) a.R[9 * threadIdx.x + k] = Rs[9 * threadIdx.x + k];
-    }
-    for (int k = 0; k < 3; ++k) {
-      ts[3 * threadIdx.x + k] = tc[k];
-      if (blockIdx.x == 0) a.t[3 * threadIdx.x + k] = tc[k];
-    }
+    orthonormalize(s.R + 9 * p, Ro);
+    for (int k = 0; k < 9; ++k) s.Rn[9 * p + k] = Ro[k];
   }
-  if (!last) return;
   __syncthreads();
-  float chi2 = 0.f;
-  for (int l = blockIdx.x * kThreads + threadIdx.x; l < a.L; l += stride) {
-    const float* X = ok ? a.Xn + 3 * l : a.X + 3 * l;
-    for (int d = 0; d < a.D; ++d) {
-      const long long o = (long long)l * a.D + d;
-      float c = 0.f;
-      if (active(a, l, o)) {
-        const int p = (int)a.obs_pose[o];
-        c = obs_e2(a, Rs + 9 * p, ts + 3 * p, X, o) * a.obs_w[o];
-      }
-      a.obs_chi2[o] = c;
-      chi2 += c;
-    }
+  if (blockIdx.x == 0) {
+    for (int i = tid; i < a.P * 9; i += kThreads) a.R[i] = s.Rn[i];
+    for (int i = tid; i < a.P * 3; i += kThreads) a.t[i] = s.t[i];
+    if (tid == 0) a.lam[0] = lam;
   }
-  const float tot = block_total(chi2, red, out);
-  if (threadIdx.x == 0) a.partial[2 * kMaxGrid + blockIdx.x] = tot;
+  double chi2 = 0.0;
+  for (int l0 = lm_first; l0 < a.L; l0 += lm_stride) {
+    const int l = l0 + gl;
+    const long long o = (long long)l * a.D + d;
+    if (l >= a.L || d >= a.D) continue;
+    float c = 0.f;
+    if (a.point_valid[l] && a.obs_w[o] > 0.f) {
+      const int p = (int)a.obs_pose[o];
+      c = obs_e2(a, s.Rn + 9 * p, s.t + 3 * p, a.X + 3 * l, o) * a.obs_w[o];
+    }
+    a.obs_chi2[o] = c;
+    chi2 += c;
+  }
+  const double tot = block_total(chi2, s.red);
+  if (tid == 0) a.partial[blockIdx.x] = tot;
   grid.sync();
   if (blockIdx.x == 0) {
-    const float s = partials_total(a.partial + 2 * kMaxGrid, gridDim.x, red,
-                                   out);
-    if (threadIdx.x == 0) a.chi2[0] = s;
+    const double sum = partials_total(a.partial, gridDim.x, s.red);
+    if (tid == 0) a.chi2[0] = (float)sum;
   }
+  stamp(a, kStampsFixed - 1 + kStampsIter * iters);
 }
 
-// the most blocks of ``kernel`` that can be resident at once (a cooperative
-// launch's limit), capped at kMaxGrid
-int grid_of(const void* kernel, int* blocks) {
+bool g_attr = false;
+
+// the grid of a launch: as many blocks as its work has (the landmarks'
+// lanes, the pose pairs, the chunks' warps), at most the resident limit.
+// It depends on the problem's shape alone, so the sums' order, and two
+// launches' bits, do too.
+int grid_of(const BaArgs* a, int* blocks, int* smem) {
+  if (a->P < 1 || a->P > kMaxPoses || a->D < 1 || a->D > kMaxSlots ||
+      a->L < 0 || a->iters < 0 || (long long)a->L * a->D >= (1ll << 31) ||
+      a->chunk_cap < 0)
+    return (int)cudaErrorInvalidValue;
+  *smem = layout(a->P).bytes;
+  cudaError_t err = cudaSuccess;
+  if (!g_attr) {
+    err = cudaFuncSetAttribute((const void*)ba_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               layout(kMaxPoses).bytes);
+    if (err != cudaSuccess) return (int)err;
+    g_attr = true;
+  }
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, (const void*)ba_kernel, kThreads, *smem);
   if (err != cudaSuccess) return (int)err;
-  *blocks = per_sm * sms < kMaxGrid ? per_sm * sms : kMaxGrid;
-  return *blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
-}
-
-// a launch's grid: as many blocks as its work has (a landmark a thread;
-// for ba_assemble also a pose pair a block), at most the resident limit.
-// It depends on the problem's shape alone, so the sums' order, and two
-// launches' bits, do too; blocks beyond the work would only lengthen the
-// grid barriers and the partial sums.
-int launch(const void* kernel, const BaArgs* a, void* stream, int pairs) {
-  if (a->P < 1 || a->P > kMaxPoses || a->D < 1 || a->D > kMaxSlots ||
-      a->L < 0 || (long long)a->L * a->D >= (1ll << 31))
-    return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  int err = grid_of(kernel, &blocks);
-  if (err != 0) return err;
-  int work = (a->L + kThreads - 1) / kThreads;
-  if (pairs && a->P * (a->P + 1) / 2 > work) work = a->P * (a->P + 1) / 2;
+  const int resident = per_sm * sms < kMaxGrid ? per_sm * sms : kMaxGrid;
+  int g = 1;
+  while (g < a->D) g <<= 1;
+  int work = (int)(((long long)a->L * g + kThreads - 1) / kThreads);
+  const int pairs = a->P * (a->P + 1) / 2;
+  if (pairs > work) work = pairs;
+  const int chunk_blocks = (a->chunk_cap + kWarps - 1) / kWarps;
+  if (chunk_blocks > work) work = chunk_blocks;
   if (work < 1) work = 1;
-  if (work < blocks) blocks = work;
-  void* args[] = {const_cast<BaArgs*>(a)};
-  return (int)cudaLaunchCooperativeKernel(kernel, blocks, kThreads, args, 0,
-                                          static_cast<cudaStream_t>(stream));
+  *blocks = work < resident ? work : resident;
+  return *blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -634,18 +1489,22 @@ extern "C" {
 
 int ba_args_bytes() { return (int)sizeof(BaArgs); }
 
-int ba_max_grid() { return kMaxGrid; }
-
-int ba_record_floats() { return kRec; }
-
-int ba_assemble(const void* args, void* stream) {
-  return launch((const void*)ba_assemble_kernel,
-                static_cast<const BaArgs*>(args), stream, 1);
+// the grid a launch of ``args`` takes, or -(its error)
+int ba_grid(const void* args) {
+  int blocks = 0, smem = 0;
+  const int err = grid_of(static_cast<const BaArgs*>(args), &blocks, &smem);
+  return err != 0 ? -err : blocks;
 }
 
-int ba_update(const void* args, void* stream) {
-  return launch((const void*)ba_update_kernel,
-                static_cast<const BaArgs*>(args), stream, 0);
+int ba_solve(const void* args, void* stream) {
+  const BaArgs* a = static_cast<const BaArgs*>(args);
+  int blocks = 0, smem = 0;
+  const int err = grid_of(a, &blocks, &smem);
+  if (err != 0) return err;
+  void* params[] = {const_cast<BaArgs*>(a)};
+  return (int)cudaLaunchCooperativeKernel((const void*)ba_kernel, blocks,
+                                          kThreads, params, (size_t)smem,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,12 +10,12 @@ conjugate gradients without assembling it. Steps are accepted only when
 the robust-weighted chi2 decreases.
 
 ``ba_solve_plain`` is the dense solver's plain PyTorch version.
-``ba_solve`` takes it only for tensors on the CPU; for CUDA tensors an
-iteration is two launches of the hand-written kernels of ``csrc/ba.cu``
-(K4: ``ba_assemble``, the linearization and the reduced camera system;
-``ba_update``, the back-substitution, the retract and the accept test)
-around the library's dense solve, or raises. ``LAUNCHES`` counts those
-launches. ``ba_solve_cg`` stays plain.
+``ba_solve`` takes it only for tensors on the CPU; for CUDA tensors a
+whole solve is one launch of the hand-written kernel of ``csrc/ba.cu``
+(K4: every iteration's linearization, reduced camera system, its Cholesky
+factorization and solve in float64, back-substitution, retract and accept
+test), or raises. ``LAUNCHES`` counts those launches. ``ba_solve_cg``
+stays plain.
 """
 from __future__ import annotations
 
@@ -275,7 +275,7 @@ def ba_solve_plain(cam: CamParams, prob: BAProblem, iters: int = 10,
 def first_system_plain(cam: CamParams, prob: BAProblem, robust: bool = True,
                        init_lambda=1e-4):
     """(S [6P, 6P], b_s [6P], chi2 at the start) of a solve's first
-    iteration, plain: what ba_assemble's first launch writes."""
+    iteration, plain: what KernelSolve.assemble writes."""
     lam = _init_lambda(init_lambda, prob.X)
     lin = _linearize(cam, prob, _fixed(prob), prob.R, prob.t, prob.X, lam,
                      robust)
@@ -285,13 +285,21 @@ def first_system_plain(cam: CamParams, prob: BAProblem, robust: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# K4: csrc/ba.cu, ba_assemble and ba_update, two launches an iteration
+# K4: csrc/ba.cu, one launch a solve
 # ---------------------------------------------------------------------------
 
-LAUNCHES = {"ba_assemble": 0, "ba_update": 0}
-MAX_POSES = 64  # csrc/ba.cu: a landmark's free poses in one 64-bit mask
+LAUNCHES = {"ba_solve": 0}
+MAX_POSES = 64  # csrc/ba.cu kMaxPoses: a landmark's free poses in a 64-bit mask
 MAX_SLOTS = 32  # csrc/ba.cu kMaxSlots
-_MODE_ACCEPT_ALL, _MODE_LAST, _MODE_EVAL_ONLY = 1, 2, 4
+_MODE_ACCEPT_ALL, _MODE_ASSEMBLE = 1, 2
+# csrc/ba.cu: an observation's record in floats, the pairs a chunk of a pair
+# list, a chunk's float64 sums, the blocks of partial sums
+REC_FLOATS, PAIR_CHUNK, PART_DOUBLES, MAX_GRID = 64, 40, 84, 1024
+# csrc/ba.cu kMaxRanges: the most ranges of landmarks a pair list is built in
+MAX_RANGES = 64
+# csrc/ba.cu kSharedFree: up to this many free poses (and at most P) the
+# reduced system is factorized in shared memory, above from global memory
+SHARED_FREE = 28
 # the Huber thresholds as the plain version's float32 tensors hold them
 _HUBER = (float(np.float32(HUBER_MONO)), float(np.float32(HUBER_STEREO)))
 
@@ -301,27 +309,50 @@ _P = ctypes.c_void_p
 class _BaArgs(ctypes.Structure):
     """csrc/ba.cu's BaArgs, field for field."""
     _fields_ = [(n, _P) for n in (
-        "obs_uvr", "obs_w", "obs_pose", "pose_fixed", "point_valid", "order",
-        "starts", "R", "t", "X", "lam", "rec", "hinv", "bl", "mask",
-        "partial", "chi2_old", "S", "b", "sol", "Rn", "tn", "Xn", "trace",
-        "obs_chi2", "chi2")] + [
-        ("P", ctypes.c_int), ("L", ctypes.c_int), ("D", ctypes.c_int)] + [
+        "obs_uvr", "obs_w", "obs_pose", "pose_fixed", "point_valid", "R",
+        "t", "X", "lam", "trace", "obs_chi2", "chi2", "step0", "S", "b",
+        "S64", "b64", "chi2_old", "stamps", "rec", "hinv", "bl", "Xn",
+        "spose", "mask", "pcounts", "plist", "counts", "done", "pairs",
+        "part", "Sb", "bs", "x", "partial")] + [
+        (n, ctypes.c_int) for n in ("P", "L", "D", "iters",
+                                    "chunk_cap")] + [
         (n, ctypes.c_float) for n in ("fx", "fy", "cx", "cy", "bf",
                                       "huber_mono", "huber_stereo")] + [
-        ("robust", ctypes.c_int), ("iter", ctypes.c_int),
-        ("mode", ctypes.c_int)]
+        ("robust", ctypes.c_int), ("mode", ctypes.c_int)]
+
+
+def scratch_sizes(P: int, L: int, D: int) -> dict:
+    """The kernel's scratch for a problem of this shape: the observation
+    pairs of every block of the reduced system (each landmark gives a block
+    (p, q > p) the products of its observations of p and of q, and (p, p)
+    the unordered pairs of its observations of p, each once: at most
+    D (D + 1) / 2 a landmark), the blocks of S over the poses, and the
+    chunks the pair lists are cut into (a list of n pairs in ceil(n /
+    PAIR_CHUNK), so at most pairs // PAIR_CHUNK + blocks)."""
+    pairs = L * D * (D + 1) // 2
+    blocks = P * (P + 1) // 2
+    return {"pairs": pairs, "blocks": blocks,
+            "chunks": pairs // PAIR_CHUNK + blocks}
+
+
+def phase_stamps(iters: int) -> int:
+    """The stamps a timed launch writes (csrc/ba.cu kStampsFixed and
+    kStampsIter): the start, the structure's end, 5 an iteration (after
+    the linearization, the Schur sums, block 0's load of the system, the
+    factorization, the update), the end."""
+    return 3 + 5 * iters
 
 
 _lib: ctypes.CDLL | None = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    for name in ("ba_args_bytes", "ba_max_grid", "ba_record_floats"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    for name in ("ba_assemble", "ba_update"):
-        getattr(lib, name).argtypes = [_P, _P]
-        getattr(lib, name).restype = ctypes.c_int
+    lib.ba_args_bytes.argtypes = []
+    lib.ba_args_bytes.restype = ctypes.c_int
+    lib.ba_grid.argtypes = [_P]
+    lib.ba_grid.restype = ctypes.c_int
+    lib.ba_solve.argtypes = [_P, _P]
+    lib.ba_solve.restype = ctypes.c_int
     return lib
 
 
@@ -340,7 +371,7 @@ def _kernel_lib() -> ctypes.CDLL:
 def _check_problem(prob: BAProblem) -> bool:
     """True when every tensor lies on the CPU; raises on a wrong type or
     shape, on tensors on several devices, and on the card beyond the
-    kernels' limits."""
+    kernel's limits."""
     for name in ("R", "t", "X", "obs_uvr", "obs_w"):
         x = getattr(prob, name)
         if x.dtype != torch.float32:
@@ -363,113 +394,133 @@ def _check_problem(prob: BAProblem) -> bool:
         return True
     dev = prob.X.device
     if dev.type != "cuda" or any(x.device != dev for x in prob):
-        raise ValueError("the BA kernels take tensors on one CUDA device "
+        raise ValueError("the BA kernel takes tensors on one CUDA device "
                          f"(got {[str(x.device) for x in prob]})")
     if not 1 <= P <= MAX_POSES:
-        raise ValueError(f"the BA kernels take 1 to {MAX_POSES} poses, "
+        raise ValueError(f"the BA kernel takes 1 to {MAX_POSES} poses, "
                          f"got {P}")
     if not 1 <= D <= MAX_SLOTS:
-        raise ValueError(f"the BA kernels take 1 to {MAX_SLOTS} observation "
+        raise ValueError(f"the BA kernel takes 1 to {MAX_SLOTS} observation "
                          f"slots a landmark, got {D}")
-    if L * D >= 2 ** 31:
-        raise ValueError(f"the BA kernels take L * D below 2^31, got {L * D}")
+    if scratch_sizes(P, L, D)["pairs"] >= 2 ** 31:
+        raise ValueError("the BA kernel takes L * D (D + 1) / 2 below 2^31, "
+                         f"got {scratch_sizes(P, L, D)['pairs']}")
     return False
 
 
 class KernelSolve:
-    """One dense LM solve through csrc/ba.cu on a checked CUDA problem:
-    the state, the scratch and the per-pose observation lists of the
-    solve, and the two launches of an iteration. ba_solve drives it;
-    chip_smoke.py and the card tests also call assemble() alone."""
+    """One dense LM solve through csrc/ba.cu on a checked CUDA problem: the
+    state, the results and the scratch of the solve. ``run`` is the one
+    launch of the whole solve; ``assemble`` a launch that stops after the
+    first reduced camera system. ba_solve drives it; chip_smoke.py and the
+    card tests also call assemble() and record_phases()."""
 
     def __init__(self, cam: CamParams, prob: BAProblem, iters: int,
                  robust: bool = True, init_lambda=1e-4,
                  accept_all: bool = False):
         self.lib = _kernel_lib()
-        dev, f32 = prob.X.device, torch.float32
+        dev, f32, f64 = prob.X.device, torch.float32, torch.float64
         P, L = prob.R.shape[0], prob.X.shape[0]
         D = prob.obs_w.shape[1]
         self.prob = BAProblem(*(x.contiguous() for x in prob))
-        self.accept_all = accept_all
-        # the observations of free poses that count, by pose, in landmark
-        # and slot order (a stable sort): the pair blocks' lists
-        act = ((prob.obs_w > 0) & prob.point_valid[:, None]
-               & ~prob.pose_fixed[prob.obs_pose])
-        key = torch.where(act, prob.obs_pose, P).reshape(-1)
-        keys, order = torch.sort(key, stable=True)
-        self.order = order.to(torch.int32)
-        # each pose's first entry; no count is read back to the host
-        self.starts = torch.searchsorted(
-            keys, torch.arange(P + 1, device=dev)).to(torch.int32)
+        self.iters, self.accept_all = iters, accept_all
         self.R = prob.R.clone().contiguous()
         self.t = prob.t.clone().contiguous()
         self.X = prob.X.clone().contiguous()
         self.lam = _init_lambda(init_lambda, prob.X).reshape(1).clone()
+        self.stamps = None
 
         def empty(*shape, dtype=f32):
             return torch.empty(shape, dtype=dtype, device=dev)
 
-        self.rec = empty(L * D, self.lib.ba_record_floats())
-        self.hinv, self.bl = empty(L, 9), empty(L, 3)
-        self.mask = empty(L, dtype=torch.int64)
-        self.partial = empty(3, self.lib.ba_max_grid())
-        self.chi2_old, self.chi2 = empty(1), empty(1)
-        self.S, self.b = empty(6 * P, 6 * P), empty(6 * P)
-        self.zero_sol = torch.zeros(6 * P, 1, dtype=f32, device=dev)
-        self.Rn, self.tn, self.Xn = empty(P, 3, 3), empty(P, 3), empty(L, 3)
+        sizes = scratch_sizes(P, L, D)
         self.trace = torch.zeros(max(iters, 1), 3, dtype=f32, device=dev)
-        self.obs_chi2 = empty(L, D)
+        self.obs_chi2, self.chi2 = empty(L, D), empty(1)
+        self.step0 = torch.zeros(6 * P, dtype=f64, device=dev)
+        self.rec = empty(L * D, REC_FLOATS)
+        self.hinv, self.bl, self.Xn = empty(L, 9), empty(L, 3), empty(L, 3)
+        self.spose = empty(L * max(D, 8), dtype=torch.int8)
+        self.mask = empty(L, dtype=torch.int64)
+        self.pcounts = empty(P * MAX_RANGES, dtype=torch.int32)
+        self.plist = empty(L * D, dtype=torch.int32)
+        self.counts = empty(sizes["blocks"] * MAX_RANGES, dtype=torch.int32)
+        self.done = empty(sizes["blocks"], dtype=torch.int32)
+        self.pairs = empty(sizes["pairs"], 2, dtype=torch.int32)
+        self.part = empty(sizes["chunks"], PART_DOUBLES, dtype=f64)
+        self.Sb = empty(sizes["blocks"], 36, dtype=f64)
+        self.bs, self.x = empty(6 * P, dtype=f64), empty(6 * P, dtype=f64)
+        self.partial = empty(3, MAX_GRID, dtype=f64)
         a = _BaArgs()
         for name in ("obs_uvr", "obs_w", "obs_pose", "pose_fixed",
                      "point_valid"):
             setattr(a, name, getattr(self.prob, name).data_ptr())
-        for name in ("order", "starts", "R", "t", "X", "lam", "rec", "hinv",
-                     "bl", "mask", "partial", "chi2_old", "S", "b", "Rn",
-                     "tn", "Xn", "trace", "obs_chi2", "chi2"):
+        for name in ("R", "t", "X", "lam", "trace", "obs_chi2", "chi2",
+                     "step0", "rec", "hinv", "bl", "Xn", "spose", "mask",
+                     "pcounts", "plist", "counts", "done", "pairs", "part",
+                     "Sb", "bs", "x", "partial"):
             setattr(a, name, getattr(self, name).data_ptr())
-        a.sol = self.zero_sol.data_ptr()
-        a.P, a.L, a.D = P, L, D
+        a.P, a.L, a.D, a.iters = P, L, D, iters
+        a.chunk_cap = sizes["chunks"]
         a.fx, a.fy, a.cx, a.cy, a.bf = cam
         a.huber_mono, a.huber_stereo = _HUBER
         a.robust = int(robust)
+        a.mode = _MODE_ACCEPT_ALL if accept_all else 0
         self.args = a
 
-    def _launch(self, name: str) -> None:
+    def _stream(self) -> int:
+        return torch.cuda.current_stream(self.X.device).cuda_stream
+
+    def _launch(self) -> None:
         """One launch on the current stream; raises on a launch error."""
-        stream = torch.cuda.current_stream(self.X.device).cuda_stream
-        err = getattr(self.lib, name)(ctypes.addressof(self.args), stream)
+        err = self.lib.ba_solve(ctypes.addressof(self.args), self._stream())
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-        LAUNCHES[name] += 1
+            raise RuntimeError(f"ba_solve launch failed: cudaError_t {err}")
+        LAUNCHES["ba_solve"] += 1
+
+    def grid(self) -> int:
+        """The blocks of threads a launch takes on this card."""
+        return self.lib.ba_grid(ctypes.addressof(self.args))
+
+    def record_phases(self) -> torch.Tensor:
+        """Have each later launch write its phase stamps (phase_stamps;
+        the card's globaltimer in ns, read by block 0 after each grid
+        barrier, with one more barrier after the structure) into the
+        returned tensor."""
+        self.stamps = torch.zeros(phase_stamps(self.iters),
+                                  dtype=torch.int64, device=self.X.device)
+        self.args.stamps = self.stamps.data_ptr()
+        return self.stamps
 
     def assemble(self):
-        """ba_assemble at the current state: (S [6P, 6P], b_s [6P]), the
-        buffers the next assemble overwrites."""
-        self._launch("ba_assemble")
+        """A launch that stops after the first iteration's reduced camera
+        system at the current state: (S [6P, 6P], b_s [6P]) in float32,
+        fixed poses with identity rows and a zero right-hand side; its
+        float64 values stay in ``S64`` and ``b64`` (the upper triangle the
+        factorization reads, mirrored) and the chi2 at the state in
+        ``chi2_old``."""
+        if not hasattr(self, "S64"):
+            P, dev = self.R.shape[0], self.X.device
+            n6 = 6 * P
+            self.S = torch.empty(n6, n6, dtype=torch.float32, device=dev)
+            self.b = torch.empty(n6, dtype=torch.float32, device=dev)
+            self.S64 = torch.empty(n6, n6, dtype=torch.float64, device=dev)
+            self.b64 = torch.empty(n6, dtype=torch.float64, device=dev)
+            self.chi2_old = torch.empty(1, dtype=torch.float32, device=dev)
+            for name in ("S", "b", "S64", "b64", "chi2_old"):
+                setattr(self.args, name, getattr(self, name).data_ptr())
+        mode = self.args.mode
+        self.args.mode = mode | _MODE_ASSEMBLE
+        try:
+            self._launch()
+        finally:
+            self.args.mode = mode
         return self.S, self.b
 
-    def update(self, sol: torch.Tensor, it: int, last: bool) -> None:
-        """ba_update with the solve's solution ``sol`` [6P, 1] of
-        iteration ``it`` (its row of the trace)."""
-        self.args.sol = sol.data_ptr()
-        self.args.iter = it
-        self.args.mode = ((_MODE_ACCEPT_ALL if self.accept_all else 0)
-                          | (_MODE_LAST if last else 0))
-        self._launch("ba_update")
-
-    def finish_only(self) -> None:
-        """A solve of 0 iterations: the orthonormalized state's chi2."""
-        self.args.sol = self.zero_sol.data_ptr()
-        self.args.mode = _MODE_EVAL_ONLY | _MODE_LAST
-        self._launch("ba_update")
-
-    def run(self, iters: int) -> BAResult:
-        for it in range(iters):
-            S, b = self.assemble()
-            sol, _ = torch.linalg.solve_ex(S, b[:, None])
-            self.update(sol, it, it == iters - 1)
-        if iters == 0:
-            self.finish_only()
+    def run(self) -> BAResult:
+        """The solve's one launch: every iteration, then the orthonormalized
+        poses and the per-observation chi2 (with 0 iterations only these);
+        the first iteration's solution of S x = b_s stays in ``step0``."""
+        self._launch()
         return self.result()
 
     def result(self) -> BAResult:
@@ -483,14 +534,14 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
     """Run ``iters`` LM iterations with the dense Schur complement: the
     right trade at local-BA window sizes (P up to a few tens).
     ``accept_all``: take every step at the fixed damping ``init_lambda``.
-    On the CPU ba_solve_plain; on CUDA tensors two launches of csrc/ba.cu
-    an iteration around torch.linalg.solve_ex, reading nothing back (at
-    most 64 poses and 32 slots a landmark)."""
+    On the CPU ba_solve_plain; on CUDA tensors one launch of csrc/ba.cu for
+    the whole solve, its reduced system factorized inside, reading nothing
+    back (at most 64 poses and 32 slots a landmark)."""
     if _check_problem(prob):
         return ba_solve_plain(cam, prob, iters, robust, init_lambda,
                               accept_all)
     return KernelSolve(cam, prob, iters, robust, init_lambda,
-                       accept_all).run(iters)
+                       accept_all).run()
 
 
 def ba_solve_cg(cam: CamParams, prob: BAProblem, iters: int = 10,

@@ -13,7 +13,17 @@ Tolerances, as tests/test_torch_optim.py holds the solver: the final
 damping equal (the same accept sequence), R, t and X within 1e-3, chi2
 within 1e-3 relative (the dense float32 Schur system is assembled in
 another order).
+
+Also the kernel's binding (csrc/ba.cu's BaArgs, limits and extern "C"
+functions against optim/ba.py, and PR 13's csrc/ba_v1.cu against the
+baseline driver in chip_smoke.py) and the scratch the wrapper sizes from
+the shapes against a brute-force count of the pair lists.
 """
+import ctypes
+import math
+import os
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,6 +35,7 @@ from orb_slam2_with_comment_tpu.optim import ba as jba
 from orb_slam2_with_comment_tpu.optim.residuals import CamParams as JCam
 from orb_slam2_with_comment_tpu.parallel import dist_ba as jdist_ba
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import ba_problem
+from orb_slam2_with_comment_tpu_torch.ops import cuda_lib
 from orb_slam2_with_comment_tpu_torch.optim import ba
 from orb_slam2_with_comment_tpu_torch.optim.residuals import CamParams
 
@@ -129,3 +140,138 @@ def test_ba_solve_wrapper_takes_plain_on_cpu_and_checks():
         ba.ba_solve(CAM, tprob._replace(pose_fixed=tprob.pose_fixed.int()))
     with pytest.raises(ValueError, match="expected the shapes"):
         ba.ba_solve(CAM, tprob._replace(obs_w=tprob.obs_w[:, :3]))
+
+
+def _source(name):
+    with open(os.path.join(cuda_lib.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def _c_fields(src):
+    """(C type, name) of each field of the source's BaArgs, in order."""
+    body = re.search(r"struct BaArgs \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in body.split(";"):
+        words = decl.replace("*", " * ").replace(",", " , ").split()
+        if not words:
+            continue
+        names = " ".join(w for w in words if w not in (
+            "const", "unsigned", "long", "signed", "*")).split(",")
+        ctype = "ptr" if "*" in words else words[-2] if len(
+            names) == 1 else words[0]
+        for name in names:
+            out.append((ctype, name.split()[-1]))
+    return out
+
+
+def _baseline_args():
+    import chip_smoke
+    return chip_smoke.BaselineBa.Args
+
+
+# each kernel source and its ctypes mirror: the kernel's, and PR 13's
+# kernels (the timing baseline) as chip_smoke.py binds them
+MIRRORS = {"ba.cu": lambda: ba._BaArgs, "ba_v1.cu": _baseline_args}
+
+
+@pytest.mark.parametrize("name", sorted(MIRRORS))
+def test_args_match_the_source(name):
+    """The ctypes mirror has BaArgs' fields in the source's order, a
+    pointer for each pointer, int and float where the source has them."""
+    fields = _c_fields(_source(name))
+    mirror = MIRRORS[name]()
+    assert [n for _, n in fields] == [f[0] for f in mirror._fields_]
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    for (ctype, n), (_, ptype) in zip(fields, mirror._fields_):
+        assert ptype is kinds[ctype], n
+
+
+def test_binding_matches_the_extern_c_interface_and_the_limits():
+    """The functions bind() binds are the source's extern "C" functions with
+    the same parameter types, and the source's limits and sizes are the
+    wrapper's."""
+    src = _source("ba.cu")
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)
+                   .group(1))
+
+    assert const("kMaxPoses") == ba.MAX_POSES
+    assert const("kMaxSlots") == ba.MAX_SLOTS
+    assert const("kRec") == ba.REC_FLOATS
+    assert const("kPart") == ba.PART_DOUBLES
+    assert const("kMaxGrid") == ba.MAX_GRID
+    assert const("kMaxRanges") == ba.MAX_RANGES
+    assert const("kSharedFree") == ba.SHARED_FREE
+    assert re.search(r"constexpr int kChunk = kSteps \* kPairGroups;", src)
+    assert const("kSteps") * const("kPairGroups") == ba.PAIR_CHUNK
+    assert (const("kStampsFixed"), const("kStampsIter")) == (3, 5)
+    assert ba.phase_stamps(4) == 3 + 5 * 4
+
+    class Lib:
+        pass
+
+    extern = src[src.index('extern "C" {'):]
+    fns = re.findall(r"\nint (\w+)\(([^)]*)\)", extern)
+    for fn, _ in fns:
+        setattr(Lib, fn, type("Fn", (), {})())
+    lib = ba.bind(Lib())
+    assert sorted(fn for fn, _ in fns) == ["ba_args_bytes", "ba_grid",
+                                           "ba_solve"]
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p}
+    for fn, params in fns:
+        want = [c_types[" ".join(p.split()[:-1])]
+                for p in params.split(",") if p.strip()]
+        assert getattr(lib, fn).argtypes == want, fn
+        assert getattr(lib, fn).restype is ctypes.c_int
+
+
+def _pair_lists(obs_pose, active, fixed):
+    """The kernel's pair lists by brute force: for each block (p, q >= p)
+    of the free poses, the observation pairs of the landmarks that both
+    observe (p == q: the unordered pairs of p's observations, each once)."""
+    P = fixed.shape[0]
+    fidx = np.cumsum(~fixed) - 1
+    L, D = obs_pose.shape
+    lists = {}
+    for l in range(L):
+        f = [fidx[obs_pose[l, d]] if active[l, d] and not fixed[
+            obs_pose[l, d]] else -1 for d in range(D)]
+        for d in range(D):
+            for c in range(D):
+                if f[d] < 0 or f[c] < 0 or f[d] > f[c]:
+                    continue
+                if f[d] == f[c] and c < d:
+                    continue
+                lists.setdefault((f[d], f[c]), []).append((d, c))
+    return lists, int((~fixed).sum()), P
+
+
+@pytest.mark.parametrize("case", ["random", "repeated poses", "one pose"])
+def test_scratch_sizes_hold_the_pair_lists(case):
+    """The pairs and chunks the wrapper allocates from the shapes hold what
+    a brute-force count of the pair lists finds, with landmarks that
+    observe a pose in several slots too; where every slot of every
+    landmark observes one free pose the pairs fill it exactly."""
+    rng = np.random.RandomState({"random": 0, "repeated poses": 1,
+                                 "one pose": 2}[case])
+    P, L, D = 9, 400, 6
+    fixed = np.zeros(P, bool)
+    fixed[-2:] = True
+    if case == "one pose":
+        obs_pose = np.zeros((L, D), np.int64)
+        active = np.ones((L, D), bool)
+    else:
+        high = 3 if case == "repeated poses" else P
+        obs_pose = rng.randint(0, high, (L, D))
+        active = rng.rand(L, D) < 0.8
+    lists, nf, _ = _pair_lists(obs_pose, active, fixed)
+    sizes = ba.scratch_sizes(P, L, D)
+    n_pairs = sum(len(v) for v in lists.values())
+    n_chunks = sum(math.ceil(len(v) / ba.PAIR_CHUNK) for v in lists.values())
+    assert n_pairs <= sizes["pairs"] and n_chunks <= sizes["chunks"]
+    assert len(lists) <= nf * (nf + 1) // 2 <= sizes["blocks"]
+    if case == "one pose":
+        assert n_pairs == sizes["pairs"] == L * D * (D + 1) // 2

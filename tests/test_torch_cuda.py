@@ -8,8 +8,10 @@ no host wait; the redesigned orb_cells against its plain version and
 PR 10's kernel (csrc/orb_v1.cu) bit for bit where ties and ragged cells
 live, orb_describe's gates at 2000 slots and at 1921x1081, and both
 kernels' resident blocks per SM; the stereo SAD kernel (K5) and the
-dense BA kernels (K4) against their plain versions, their launch counts,
-two of their launches bit for bit and their limits; the host tracker's
+dense BA kernel (K4) against its plain version, one launch a solve, its
+factorization in shared memory (24 poses) and from global memory (64),
+the step it rejects where S is not positive definite, two solves bit for
+bit and its limits; the host tracker's
 non-blocking readback, System on the card by default, and the map loader
 and AutoTracker.sync() on the card.
 
@@ -607,7 +609,7 @@ def _ba(dev, case="mixed", seed=0, **kw):
 
 
 def _damping_after(accepted, lam, accept_all):
-    """The damping an accept sequence leads to, as ba_update computes it."""
+    """The damping an accept sequence leads to, as the kernel computes it."""
     lam = np.float32(lam)
     for ok in ([] if accept_all else accepted):
         lam = np.float32(lam * np.float32(0.5 if ok else 5.0))
@@ -616,22 +618,20 @@ def _damping_after(accepted, lam, accept_all):
 
 
 def _hold_ba(prob, iters, accept_all=False, init_lambda=1e-4):
-    """K4 against ba_solve_plain on the same card: 2 launches an
-    iteration; the accept sequence identical wherever chi2 moves by more
-    than 1e-5 relative (nearer to convergence the two sums of the test are
-    equal within their float32 rounding, and either version may decide
-    either way); the final damping equal where the sequences are, else the
-    one the kernel's own sequence leads to; R, t and X within 1e-4; chi2
+    """K4 against ba_solve_plain on the same card: one launch a solve; the
+    accept sequence identical wherever chi2 moves by more than 1e-5
+    relative (nearer to convergence the two sums of the test are equal
+    within their float32 rounding, and either version may decide either
+    way); the final damping equal where the sequences are, else the one
+    the kernel's own sequence leads to; R, t and X within 1e-4; chi2
     within 1e-3 relative; two solves bit for bit."""
-    before = dict(ba.LAUNCHES)
+    before = ba.LAUNCHES["ba_solve"]
     got = ba.ba_solve(BA_CAM, prob, iters=iters, accept_all=accept_all,
                       init_lambda=init_lambda)
-    n = max(iters, 1)
-    assert ba.LAUNCHES["ba_update"] == before["ba_update"] + n
-    assert ba.LAUNCHES["ba_assemble"] == before["ba_assemble"] + iters
+    assert ba.LAUNCHES["ba_solve"] == before + 1
     ks = ba.KernelSolve(BA_CAM, prob, iters, accept_all=accept_all,
                         init_lambda=init_lambda)
-    again = ks.run(iters)
+    again = ks.run()
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     trace = []
@@ -658,17 +658,30 @@ def _hold_ba(prob, iters, accept_all=False, init_lambda=1e-4):
 
 @pytest.mark.parametrize("shape", [(24, 8192, 8), (64, 10000, 8)])
 def test_ba_kernels_match_plain(dev, shape):
-    """At local BA's shape and at the dense solver's most poses; the first
-    reduced camera system within 1e-5 of its largest entry."""
+    """At local BA's shape (16 free poses: the factorization in shared
+    memory) and at the most poses (56 free: from global memory); the first
+    reduced camera system within 1e-5 of its largest entry; the first
+    step, the kernel's float64 solution of its own float64 S, within
+    n kappa 2^-52 of torch.linalg.solve of that S (relative, max norm; n
+    rows, kappa the 2-norm condition number: the forward error bound of a
+    backward stable solve)."""
     P, L, D = shape
     prob = _ba(dev, P=P, L=L, D=D)
+    n_free = int((~prob.pose_fixed).sum())
+    assert (n_free <= min(P, ba.SHARED_FREE)) == (P == 24)
     S, b_s, chi2 = ba.first_system_plain(BA_CAM, prob)
-    ks = ba.KernelSolve(BA_CAM, prob, 1)
+    ks = ba.KernelSolve(BA_CAM, prob, 5)
     S_k, b_k = ks.assemble()
     scale = float(S.abs().max())
     assert float((S_k - S).abs().max()) <= 1e-5 * scale
     assert float((b_k - b_s).abs().max()) <= 1e-5 * scale
     assert torch.allclose(ks.chi2_old[0], chi2, rtol=1e-5)
+    assert torch.equal(ks.S64.float(), S_k)
+    ks.run()
+    x = torch.linalg.solve(ks.S64, ks.b64)
+    bound = 6 * P * float(torch.linalg.cond(ks.S64)) * 2.0 ** -52
+    err = float((ks.step0 - x).abs().max()) / float(x.abs().max())
+    assert err <= bound, (err, bound)
     _hold_ba(prob, 5)
 
 
@@ -693,6 +706,40 @@ def test_ba_kernels_cases(dev, case):
     else:
         _hold_ba(_ba(dev, seed=6, P=24, L=2000), 2,
                  init_lambda=torch.tensor(3e-3, device=dev))
+
+
+def test_ba_kernel_rejects_a_step_of_a_matrix_not_positive_definite(dev):
+    """A negative damping (-1e6) makes S negative definite: the first
+    pivot is negative, the factorization gives NaN, the step is not
+    finite and is rejected, and the damping becomes what a rejection gives
+    (5 lambda, clipped to [1e-9, 1e8]); the state stays as it was, and the
+    next iteration, at that damping, takes its step."""
+    prob = _ba(dev, seed=7, P=12, L=1000, n_fixed=4)
+    lam0 = -1e6
+    ks = ba.KernelSolve(BA_CAM, prob, 1, init_lambda=lam0)
+    got = ks.run()
+    assert not bool(torch.isfinite(ks.step0[:6]).any())
+    assert ks.trace[0, 2].item() == 0.0
+    assert float(got.final_lambda) == _damping_after([False], lam0, False)
+    kept = ba.ba_solve(BA_CAM, prob, iters=0)
+    for f in ("R", "t", "X", "chi2", "obs_chi2"):
+        assert torch.equal(getattr(got, f), getattr(kept, f)), f
+    ks2 = ba.KernelSolve(BA_CAM, prob, 2, init_lambda=lam0)
+    ks2.run()
+    assert ks2.trace[:, 2].tolist() == [0.0, 1.0]
+
+
+def test_ba_kernel_two_solves_bit_for_bit(dev):
+    """Two launches of the whole solve on one problem give the same bits,
+    the phase stamps on or off."""
+    prob = _ba(dev, seed=8, P=24, L=8192)
+    first = ba.KernelSolve(BA_CAM, prob, 5).run()
+    timed = ba.KernelSolve(BA_CAM, prob, 5)
+    stamps = timed.record_phases()
+    second = timed.run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert bool((stamps.diff() >= 0).all()) and int(stamps[-1]) > 0
 
 
 def test_ba_kernels_check_their_limits(dev):
