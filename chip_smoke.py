@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits nonzero without the final
    timing baseline, ``pose_lm.cu``, the first pose kernel
    ``pose_lm_v1.cu`` as its timing baseline, ``orb.cu``, and PR 10's
    ``orb_cells`` and ``orb_describe`` as ``orb_v1.cu``, their timing
-   baseline, ``stereo_sad.cu`` and ``ba.cu``; one nvcc each, started
+   baseline, ``stereo_sad.cu``, K5's first design ``stereo_sad_v1.cu``
+   as its timing baseline, ``ba.cu`` and ``ba_v1.cu``; one nvcc each, started
    together) and print the build time, ptxas' register report, the
    blocks of ``orb_cells`` and ``orb_describe`` resident on one SM,
    current and baseline (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
@@ -79,18 +80,26 @@ Phases (any failure raises and the script exits nonzero without the final
    ops/orb.launch_cells and launch_describe, so that the two times differ
    only by the kernel), and the chain per
    view beside the plain chain and the pyramid before it.
-   Then K5, the stereo SAD refinement (csrc/stereo_sad.cu), against
-   sad_refine_plain (hold_sad) on the main path's inputs (the stereo
-   association's coarse right u): the rendered bench pair (640x480, 1000
-   features), the KITTI-camera pair (1241x376, 2000), an odd size
-   (641x479), 5 features (levels of budget 0), and the bench pair with a
-   fifth of the keypoints on the image border and a fifth of the coarse u
-   off either side. The best shift and ok identical except at near-ties
-   (the two lowest SADs within 1e-5 relative; counted on the valid
-   keypoints and under 0.5% of them), u within 1e-4 px, two launches bit
-   for bit, and the outputs that are not the plain version's bits
-   counted; timed the same two ways beside its bound and the plain
-   version.
+   Then K5, the stereo match after the association (csrc/stereo_sad.cu:
+   the SAD refinement of every level, the depth and the median-SAD sweep
+   in one cooperative launch), against stereo_depth_plain (hold_sad) on
+   the main path's inputs (K1's association of the extracted views): the
+   rendered bench pair (640x480, 1000 features), the KITTI-camera pair
+   (1241x376, 2000), an odd size (641x479), 5 features (levels of budget
+   0), the bench pair with a fifth of the keypoints on the image border
+   and a fifth of the coarse right u off either side, the bench pair with
+   every best_d >= 75 (no good keypoint: the median is inf), the KITTI
+   pair at 4096 features, and the bench pair with ties at the median (one
+   good keypoint of each level copied into 2 of every 3 of its slots):
+   u_right and depth in bits, the best SAD, ok and the best shift in bits
+   against sad_refine_plain, two launches in bits; the first design
+   (csrc/stereo_sad_v1.cu, the refinement alone) held to the plain
+   refinement as before (the best shift and ok identical except at
+   near-ties, u within 1e-4 px). Both timed the same two ways in turns
+   (new, first design, first design, new) beside the bound, the plain
+   version and the parent's path after K1 (the first design and the eager
+   tail); the kernel's stamps split its time between the refinement with
+   the per-keypoint tail and the median's sweep.
    Then K4, the dense BA (csrc/ba.cu: one ba_solve launch a solve, the
    reduced system's Cholesky factorization inside), against
    ba_solve_plain (hold_ba) on random local-BA problems
@@ -163,7 +172,7 @@ Phases (any failure raises and the script exits nonzero without the final
    more than the default RGB-D tracker of phase 6 made over the same 60
    poses, and at least two K3 launches per tracked frame (phase 10 too).
    Prints ms per frame and the stage times of the front end: both
-   views' extraction, ``match_stereo`` and its ``_sad_refine`` part.
+   views' extraction, ``match_stereo`` and its ``_stereo_depth`` part.
 10. Stereo at the KITTI 00-02 camera (bench.py's KITTI-shape figure):
    1241x376, 2000 features, fx = fy = 718.856, cx = 607.1928,
    cy = 185.2157, bf = 386.1448, MapConfig(24, 2000, 8000, 8), fps = 10,
@@ -1149,26 +1158,31 @@ def check_orb_kernels(dev) -> list:
 # csrc/stereo_sad.cu's float32 operations per keypoint, counted from its
 # code: each of the 11 x 121 window elements two subtractions of a centre,
 # the difference, its absolute value and the sum's add; the parabola, the
-# rounding and the position about 20
-SAD_OPS_KEY = 11 * 121 * 5 + 20
+# rounding and the position about 20; the tail (the gates, the disparity,
+# the median's four passes, the threshold and the division) about 20
+SAD_OPS_KEY = 11 * 121 * 5 + 20 + 20
 # the pixels a keypoint needs: its 11x11 window and 11x21 strip
 SAD_PIXELS_KEY = 121 + 231
 
 
 def bound_sad(n: int):
-    """(bound_ms, bound_by) of one stereo_sad call on n keypoints: the
-    pixels each keypoint needs and its xy and coarse u read once, the u,
-    SAD and ok written once, against the float32 operations."""
-    return bound_of(n * (4 * SAD_PIXELS_KEY + 12 + 9), n * SAD_OPS_KEY)
+    """(bound_ms, bound_by) of one stereo_depth call on n keypoints: the
+    pixels each keypoint needs, its xy, K1's distance and index and the
+    gathered right u read once, u and depth written once, against the
+    float32 operations."""
+    return bound_of(n * (4 * SAD_PIXELS_KEY + 8 + 4 + 4 + 4 + 8),
+                    n * SAD_OPS_KEY)
 
 
 def sad_cases(dev):
     """Phase 3's K5 problems: (name, left and right views on the card,
-    features, bf, fx, edges): the rendered bench pair (orbit frame 0 and
+    features, bf, fx, variant): the rendered bench pair (orbit frame 0 and
     its right view at the 8 cm baseline), the KITTI-camera pair, an odd
     size (641x479), the bench pair with 5 features (levels of budget 0),
-    and the bench pair with a fifth of the keypoints on the image border
-    and a fifth of the coarse right u off either side."""
+    the bench pair with a fifth of the keypoints on the image border and
+    a fifth of the coarse right u off either side ("edges"), with every
+    best_d >= 75 ("unmatched"), the KITTI pair at 4096 features, and the
+    bench pair with ties at the median ("ties")."""
     left = first_frames("orbit60", 1)[0][0]
     right = first_frames("orbit60_right", 1)[0]
     kl, kr = (first_frames(s, 1)[0] for s in ("kitti30_left",
@@ -1177,112 +1191,229 @@ def sad_cases(dev):
     odd = render_job((0.0, [pose] + right_view([pose], BENCH_BASELINE),
                       dict(fx=500.0, fy=500.0, cx=320.5, cy=239.5,
                            width=641, height=479), "image"), dev)
-    return [("bench pair, 640x480, 1000", left, right, 1000, 40.0, 500.0,
-             False),
-            ("KITTI camera, 1241x376, 2000", kl, kr, 2000, KITTI_BF,
-             KITTI_CAM["fx"], False),
-            ("odd size, 641x479, 1000", odd[0], odd[1], 1000, 40.0, 500.0,
-             False),
-            ("bench pair, 5 (levels of budget 0)", left, right, 5, 40.0,
-             500.0, False),
-            ("bench pair, 1000, window and strip at the edges", left, right,
-             1000, 40.0, 500.0, True)]
+    kitti = (kl, kr, KITTI_BF, KITTI_CAM["fx"])
+    bench = (left, right, 40.0, 500.0)
+    return [("bench pair, 640x480, 1000", *bench[:2], 1000, *bench[2:],
+             None),
+            ("KITTI camera, 1241x376, 2000", *kitti[:2], 2000, *kitti[2:],
+             None),
+            ("odd size, 641x479, 1000", odd[0], odd[1], 1000, *bench[2:],
+             None),
+            ("bench pair, 5 (levels of budget 0)", *bench[:2], 5,
+             *bench[2:], None),
+            ("bench pair, 1000, window and strip at the edges", *bench[:2],
+             1000, *bench[2:], "edges"),
+            ("bench pair, 1000, every best_d >= 75 (median inf)",
+             *bench[:2], 1000, *bench[2:], "unmatched"),
+            ("KITTI camera, 1241x376, 4096", *kitti[:2], 4096, *kitti[2:],
+             None),
+            ("bench pair, 1000, ties at the median", *bench[:2], 1000,
+             *bench[2:], "ties")]
 
 
-def sad_inputs(dev, left, right, n, fx, edges):
-    """The SAD kernel's inputs on the main path: the packed pyramids, the
-    level table, the left keypoints and the coarse right u of the stereo
-    association, the valid flags."""
+def sad_inputs(dev, left, right, n, bf, fx, variant):
+    """K5's inputs on the main path: the packed pyramids, the level table,
+    the left and right keypoints, K1's best distance and index of the
+    stereo association, and the left valid flags. ``variant``: None,
+    "edges", "unmatched" or "ties" (sad_cases)."""
     ext = OrbExtractor(n_features=n)
     pyr = [ext._pyramid(torch.as_tensor(im, device=dev))
            for im in (left, right)]
     fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
     scales = image.level_scales(len(pyr[0]))
     mask = stereo.association_mask(fl, fr, scales, float(np.float32(fx)))
-    _, best_j, _, _ = hamming.masked_best_two(fl.desc, fr.desc, mask)
+    best_d, best_j, _, _ = hamming.masked_best_two(fl.desc, fr.desc, mask)
     levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
                              tuple(ext.budgets), tuple(scales))
-    xy, u0 = fl.xy.clone(), fr.xy[best_j.long(), 0]
-    if edges:
+    flat_l, flat_r = orb.pack(pyr[0]), orb.pack(pyr[1])
+    xy, xy_r = fl.xy.clone(), fr.xy.clone()
+    if variant == "edges":
         h, w = pyr[0][0].shape
         k = n // 5
         xy[:k:2, 0] = 0.0
         xy[1:k:2, 1] = h - 1.0
-        u0[k:2 * k:2] = -2.0
-        u0[k + 1:2 * k:2] = w + 10.0
-    return orb.pack(pyr[0]), orb.pack(pyr[1]), levels, xy, u0, fl.valid
+        # two right keypoints off either side of the image
+        m = xy_r.shape[0]
+        xy_r = torch.cat([xy_r, torch.tensor([[-2.0, 0.0], [w + 10.0, 0.0]],
+                                             device=dev)])
+        best_j = best_j.clone()
+        best_j[k:2 * k:2] = m
+        best_j[k + 1:2 * k:2] = m + 1
+    elif variant == "unmatched":
+        best_d = torch.full_like(best_d, stereo.TH_ORB + 5)
+    elif variant == "ties":
+        _, d = sad.stereo_depth_plain(flat_l, flat_r, levels, xy, xy_r,
+                                      best_d, best_j, bf, fx)
+        best_d, best_j = best_d.clone(), best_j.clone()
+        for lv in levels:
+            good = torch.nonzero(d[lv.slot:lv.slot + lv.budget] > 0)[:, 0]
+            if good.numel() == 0:
+                continue
+            src = lv.slot + int(good[0])
+            to = torch.tensor([i for i in range(lv.slot, lv.slot + lv.budget)
+                               if i % 3 and i != src], device=dev)
+            xy[to] = xy[src].clone()
+            best_d[to] = best_d[src].clone()
+            best_j[to] = best_j[src].clone()
+    return flat_l, flat_r, levels, xy, xy_r, best_d, best_j, fl.valid
 
 
-def hold_sad(where, flat_l, flat_r, levels, xy, u0, valid):
-    """K5 against sad_refine_plain on the same card: the best shift and ok
-    identical except at near-ties (the two lowest SADs within 1e-5
-    relative of each other: the 121-term float32 sums run in another
-    order; on level 0, whose pixels are integers, every order gives the
-    same sums, and ties there are exact), which are counted on the valid
-    keypoints and stay under 0.5% of them;
-    u within 1e-4 px where both are ok at the same shift, the best SAD
-    within 1e-5 relative where both pick the same shift; two launches bit
-    for bit. Then timed per call (CUDA events) and per launch in a
-    replayed CUDA graph beside the bound and the plain version. Returns
-    (row, largest |u| difference)."""
-    got = sad.sad_refine(flat_l, flat_r, levels, xy, u0)
-    u, s, ok, best = sad.launch(sad._kernel_lib(), flat_l, flat_r, levels,
-                                xy, u0)
-    for part, a, b in zip(("u", "sad", "ok"), got, (u, s, ok)):
-        assert torch.equal(a, b), f"stereo_sad: two launches differ in " \
-            f"{part} at {where}"
-    want = sad.sad_refine_plain(flat_l, flat_r, levels, xy, u0)
-    curves = sad.sad_curves_plain(flat_l, flat_r, levels, xy, u0)
-    two = curves.topk(2, dim=1, largest=False).values
-    near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs()
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def sad_stamps(args, bf, fx, reps: int = 5) -> dict:
+    """K5's two phases in us from its stamps (block 0 reads the card's
+    globaltimer at the start, after the grid barrier that ends the
+    refinement and the per-keypoint tail, and after a second barrier that
+    ends the median's sweep), the mean over ``reps`` launches."""
+    lay = sad.layout(args[2])
+    st = torch.zeros(sad.N_STAMPS, dtype=torch.int64, device=args[0].device)
+    out = {"refine_us": 0.0, "sweep_us": 0.0}
+    for _ in range(reps):
+        sad.launch_depth(sad._kernel_lib(), lay, *args[:2], *args[3:], bf,
+                         fx, stamps=st)
+        t = (st.double() / 1e3).tolist()
+        out["refine_us"] += (t[1] - t[0]) / reps
+        out["sweep_us"] += (t[2] - t[1]) / reps
+    return out
+
+
+def hold_sad(where, flat_l, flat_r, levels, xy, xy_r, best_d, best_j, valid,
+             bf, fx, variant):
+    """K5 against stereo_depth_plain on the same card: u_right and depth in
+    bits; the best SAD, ok and the best shift in bits against
+    sad_refine_plain (the SADs sum in its order); two launches in bits.
+    The first design (csrc/stereo_sad_v1.cu) on the same coarse right u
+    against sad_refine_plain: the best shift and ok identical except at
+    near-ties (the two lowest SADs within 1e-5 relative), which stay under
+    0.5% of the valid keypoints; u within 1e-4 px where both are ok at the
+    same shift, the best SAD within 1e-5 relative where both pick it. Then
+    both timed per call (CUDA events) and per launch in a replayed CUDA
+    graph in turns (new, first design, first design, new), beside the
+    bound, the plain version and the parent's path after K1 (the first
+    design, then stereo_tail_plain's eager ops). Returns (row, largest |u|
+    difference of the first design)."""
+    args = (flat_l, flat_r, levels, xy, xy_r, best_d, best_j)
+    lay = sad.layout(levels)
+    n = lay.n
+    got = sad.stereo_depth(*args, bf, fx)
+    out = sad.launch_depth(sad._kernel_lib(), lay, flat_l, flat_r, xy, xy_r,
+                           best_d, best_j, bf, fx)
+    again = sad.outputs(out, n)
+    assert torch.equal(_bits(got[0]), _bits(again["u_right"])) and \
+        torch.equal(_bits(got[1]), _bits(again["depth"])), \
+        f"stereo_depth: two launches differ at {where}"
+    want = sad.stereo_depth_plain(*args, bf, fx)
+    u_r0 = xy_r[best_j.long(), 0]
+    ref = sad.sad_refine_plain(flat_l, flat_r, levels, xy, u_r0)
+    curves = sad.sad_curves_plain(flat_l, flat_r, levels, xy, u_r0)
+    for part, a, b in (("u_right", got[0], want[0]),
+                       ("depth", got[1], want[1]),
+                       ("best SAD", again["sad"], ref[1]),
+                       ("ok", again["ok"], ref[2]),
+                       ("best shift", again["best"].long(),
+                        curves.argmin(1))):
+        assert torch.equal(_bits(a), _bits(b)), \
+            f"stereo_depth: {part} is not the plain version's bits at " \
+            f"{where}: {int((_bits(a) != _bits(b)).sum())} differ"
+    n_good = int((want[1] > 0).sum())
+    good = again["key"] != -1
+    if variant == "unmatched":
+        assert n_good == 0 and int(good.sum()) == 0, where
+    if variant == "ties":
+        s = again["sad"][good].sort().values
+        med = s[int(good.sum()) // 2]
+        n_tied = int((s == med).sum())
+        assert n_tied >= 2, f"no tie at the median at {where}"
+    # the first design on the same coarse u
+    u, s, ok, best = sad.launch(sad._v1_kernel_lib(), flat_l, flat_r,
+                                levels, xy, u_r0)
+    two = curves.topk(2, dim=1, largest=False).values if n else curves
+    near = ((two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs() if n
+            else torch.zeros(0, dtype=torch.bool, device=xy.device))
     same = best.long() == curves.argmin(1)
     n_valid = int(valid.sum())
-    assert bool((same | near).all()), f"stereo_sad best shift at {where}"
-    assert bool(((ok == want[2]) | near).all()), f"stereo_sad ok at {where}"
+    assert bool((same | near).all()), f"stereo_sad_v1 best shift at {where}"
+    assert bool(((ok == ref[2]) | near).all()), \
+        f"stereo_sad_v1 ok at {where}"
     n_near = int((near & valid).sum())
-    assert n_near < 0.005 * n_valid, \
-        f"stereo_sad: {n_near} near-ties of {n_valid} valid at {where}"
-    both = same & ok & want[2]
-    err = float((u - want[0]).abs()[both].max()) if bool(both.any()) else 0.0
-    assert err <= 1e-4, f"stereo_sad u differs at {where}: {err}"
-    assert torch.allclose(s[same], want[1][same], rtol=1e-5, atol=0), where
-    n = xy.shape[0]
+    assert n_near <= 0.005 * n_valid, \
+        f"stereo_sad_v1: {n_near} near-ties of {n_valid} valid at {where}"
+    both = same & ok & ref[2]
+    err = float((u - ref[0]).abs()[both].max()) if bool(both.any()) else 0.0
+    assert err <= 1e-4, f"stereo_sad_v1 u differs at {where}: {err}"
+    assert torch.allclose(s[same], ref[1][same], rtol=1e-5, atol=0), where
+    v1_bits = sum(int((_bits(a) != _bits(b)).sum())
+                  for a, b in zip((u, s, ok), ref))
 
-    def run():
-        sad.sad_refine(flat_l, flat_r, levels, xy, u0)
-    bits = sum(int((a != b).sum()) for a, b in zip((u, s, ok), want))
-    row = {"problem": where, "N": n, "n_valid": n_valid, "n_ok": int(
-        ok.sum()), "near_ties": n_near, "differing_where_near": int(
-            ((~same) | (ok != want[2])).sum()), "differing_bits": bits,
-           "max_abs_err": err,
-           "ms": cuda_ms(run, 50), "device_ms": graph_ms(run),
-           "plain_ms": cuda_ms(lambda: sad.sad_refine_plain(
-               flat_l, flat_r, levels, xy, u0), 10)}
+    def new():
+        sad.stereo_depth(*args, bf, fx)
+
+    def v1():
+        sad.sad_refine(flat_l, flat_r, levels, xy, u_r0)
+
+    def parent_path():
+        ur, sb, okb = sad.sad_refine(flat_l, flat_r, levels, xy,
+                                     xy_r[best_j.long(), 0])
+        sad.stereo_tail_plain(ur, sb, okb, best_d, xy[:, 0], bf, fx)
+    turns = [(name, cuda_ms(fn, 50), graph_ms(fn))
+             for name, fn in (("new", new), ("v1", v1), ("v1", v1),
+                              ("new", new))]
+    mean = {k: (sum(t[1] for t in turns if t[0] == k) / 2,
+                sum(t[2] for t in turns if t[0] == k) / 2)
+            for k in ("new", "v1")}
+    row = {"problem": where, "N": n, "n_valid": n_valid,
+           "n_good": n_good, "max_abs_err": 0.0,
+           "grid": sad._kernel_lib().stereo_depth_grid(n) if n else 0,
+           "ms": mean["new"][0], "device_ms": mean["new"][1],
+           "turns": [[t[0], t[1], t[2]] for t in turns],
+           "baseline": {"name": "stereo_sad_v1",
+                        "source": "orb_slam2_with_comment_tpu_torch/csrc/"
+                                  "stereo_sad_v1.cu",
+                        "ms": mean["v1"][0], "device_ms": mean["v1"][1],
+                        "near_ties": n_near, "max_abs_err": err,
+                        "differing_bits": v1_bits},
+           "parent_path_ms": cuda_ms(parent_path, 20),
+           "plain_ms": cuda_ms(lambda: sad.stereo_depth_plain(*args, bf, fx),
+                               10),
+           "library_ms": None}
     row["bound_ms"], row["bound_by"] = bound_sad(n)
-    log(f"stereo_sad {where} [{n} keypoints, {n_valid} valid, "
-        f"{row['n_ok']} ok]: same as plain but {row['differing_where_near']}"
-        f" at near-ties ({n_near} on valid keypoints; max |du| {err:.2e}; "
-        f"{bits} outputs not the plain version's bits), bit-identical twice;"
-        f" kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms on"
-        f" the device; plain {row['plain_ms']:.4f}; bound "
-        f"{row['bound_ms']:.6f} ms by {row['bound_by']}")
+    if n:
+        row.update(sad_stamps(args, bf, fx))
+    log(f"stereo_depth {where} [{n} keypoints, {n_valid} valid, {n_good} "
+        f"with depth, {row['grid']} blocks]: u_right, depth, SAD, ok and best shift the plain "
+        f"version's bits, two launches too; kernel {row['ms']:.4f} ms per "
+        f"call, {row['device_ms']:.4f} ms on the device (stamps: refinement "
+        f"{row.get('refine_us', 0):.2f} us, median sweep "
+        f"{row.get('sweep_us', 0):.2f} us); stereo_sad_v1 (refinement "
+        f"alone, in turns) {mean['v1'][0]:.4f} / {mean['v1'][1]:.4f} "
+        f"({n_near} near-ties on valid keypoints, max |du| {err:.2e}, "
+        f"{v1_bits} outputs not the plain version's bits); the parent's "
+        f"path after K1 {row['parent_path_ms']:.4f} ms per call; plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
+        f"{row['bound_by']}; turns {row['turns']}")
     return row, err
 
 
 def check_sad_kernel(dev) -> dict:
-    """Phase 3, K5: the stereo SAD kernel held against its plain version
-    and timed on every case of sad_cases. Returns the kernel's row."""
+    """Phase 3, K5: the stereo match after the association held against its
+    plain version and timed on every case of sad_cases. Returns the
+    kernel's row."""
     timed, err = [], 0.0
-    for name, left, right, n, _, fx, edges in sad_cases(dev):
-        row, e = hold_sad(name, *sad_inputs(dev, left, right, n, fx, edges))
+    for name, left, right, n, bf, fx, variant in sad_cases(dev):
+        bf, fx = sad._f32(bf), sad._f32(fx)
+        ins = sad_inputs(dev, left, right, n, bf, fx, variant)
+        row, e = hold_sad(name, *ins, bf, fx, variant)
         timed.append(row)
         err = max(err, e)
     return dict(timed[0], name="stereo_sad", route="cuda",
                 source="orb_slam2_with_comment_tpu_torch/csrc/stereo_sad.cu",
                 replaces="orb_slam2_with_comment_tpu/frontend/stereo.py:34 "
                          "(_sad_refine_block, an XLA program a level, called"
-                         " at :135; not a Pallas kernel)",
-                max_abs_err=err, library_ms=None, other_problems=timed[1:])
+                         " at :135) and the tail at :141-161 (not a Pallas "
+                         "kernel)",
+                other_problems=timed[1:])
 
 
 # csrc/ba.cu's operations an LM iteration, counted from PR 13's two kernels
@@ -2332,7 +2463,7 @@ STEREO_STAGES = ((OrbExtractor, "stereo"),
                  (OrbExtractor, "_pyramid"),
                  (OrbExtractor, "_extract_from_pyramid"),
                  (stereo, "match_stereo"), (stereo, "association_mask"),
-                 (stereo, "_sad_refine"))
+                 (stereo, "_stereo_depth"))
 
 
 def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
@@ -3967,12 +4098,13 @@ def main():
     dev = torch.device("cuda", 0)
     t_run = t0 = time.perf_counter()
     libs = ["hamming", "hamming_v1", "pose_lm", "pose_lm_v1", "orb",
-            "orb_v1", "stereo_sad", "ba", "ba_v1"]
+            "orb_v1", "stereo_sad", "stereo_sad_v1", "ba", "ba_v1"]
     cuda_lib.build_all(libs)
     cuda_lib.load("hamming")
     pose_opt._kernel_lib()
     orb._kernel_lib()
     sad._kernel_lib()
+    sad._v1_kernel_lib()
     log(f"built csrc/{', csrc/'.join(libs)} (.cu) in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:

@@ -1,37 +1,72 @@
-// Stereo SAD refinement of every pyramid level of a rectified pair for
-// Hopper (sm_90a), bound through a plain C interface (ctypes): one launch a
-// stereo pair, one warp a left keypoint.
+// The stereo match after the association, for Hopper (sm_90a), bound
+// through a plain C interface (ctypes): the SAD refinement of every pyramid
+// level, the depth and the median-SAD sweep of a rectified pair in one
+// cooperative launch (K5).
 //
-// What it replaces. In the JAX package the refinement is one XLA program a
-// pyramid level, orb_slam2_with_comment_tpu/frontend/stereo.py:34
-// (_sad_refine_block, called per level from match_stereo at :135); it is
-// not a Pallas kernel. The port's plain PyTorch version (ops/sad.py
-// sad_refine_plain) issues about 25 eager launches a level, some 200 a
-// pair, while the card idles: that launch rate set the layer's time. Here
-// the pair is one launch whatever its level count.
+// What it replaces. In the JAX package this is one XLA program:
+// orb_slam2_with_comment_tpu/frontend/stereo.py:34 (_sad_refine_block, per
+// level, called at :135) and the tail at :141-161 (the gates, the depth,
+// the median of the good SADs and the threshold). It is not a Pallas
+// kernel. The port's plain version is ops/sad.py stereo_depth_plain:
+// sad_refine_plain level by level, then stereo_tail_plain's eager ops.
 //
-// What bounds it. Each keypoint reads 121 left and 231 right pixels and
-// does 11 x 121 absolute differences: some 1.4 KB and 4,000 float32
-// operations. At 2000 keypoints that is under 3 MB and 8 MFLOP, a few
-// microseconds at the card's rates; the launch and the warps' latency
-// chain (loads, a 121-term sum per lane, a shuffle) are what is left.
+// What bounds it. Each keypoint reads 121 left and 231 right pixels, its
+// xy, K1's distance and index and the right keypoint's u, and writes u and
+// depth: some 1.4 KB, and 11 x 121 absolute differences, some 6,700 float32
+// operations. At 2000 keypoints that is under 3 MB and 14 MFLOP, under a
+// microsecond at the card's rates. What is left is latency: three dependent
+// loads a keypoint (K1's index, the right u, the pixels), the sums, the
+// grid barrier, and the median, which needs every keypoint's SAD.
 //
-// What it computes, as ops/sad.py sad_refine_block does level by level:
-// the level of slot n is the table's level whose slots hold it; at its
-// scale the keypoint and the coarse right u are rounded half to even
-// (rintf on products rounded as the plain version's float32 tensors
-// round them: -fmad=false); the window and the strip are clamped into the
-// image separately, and the strip fails `inb` when clamped; every element
-// a - b of a window less its centre against the left patch less its
-// centre is formed as the plain version forms it, and the SAD of a shift
-// sums them in the plain version's order (along each row, then the row
-// sums), so the SADs, and with them everything after, are the plain
-// version's bits; the first minimum wins; the parabola is IEEE division
-// (-prec-div is the default). Lane s < 11 sums shift s; lane 0 finishes
-// and also writes the best shift, which the plain version does not give
-// (chip_smoke.py holds it against the plain version's SAD curves).
+// The design.
+// - One warp a keypoint, 8 a block, over a grid-stride loop, so that any N
+//   fits the resident grid of a cooperative launch; 64 registers a thread
+//   keep 4 blocks on an SM, 4,224 keypoints a wave. The 352 pixels are
+//   352 = 11 x 32 loads, all 11 of a lane issued before any is stored; a
+//   window row and a strip row are contiguous floats.
+// - The level of slot n: a binary search of the table's first slots, in a
+//   copy of the table in shared memory.
+// - The SADs in the plain version's order, in parallel: 121 independent
+//   (shift, row) sums of 11 terms, then lane s adds shift s's 11 row sums
+//   in row order. Lane l < 22 takes row l % 11 against half of the shifts
+//   (0-5 or 6-10): its window row and its 16 or 15 strip pixels are read
+//   from shared memory once into registers (the 22 lanes' strip rows fall
+//   in 22 distinct banks), so the sums cost the shared-memory pipe a third
+//   of the loads of a lane per (shift, row) pair. Every element a - b is
+//   formed as the plain version forms it (a window less its centre against
+//   the left patch less its centre; the left patch less its centre once,
+//   before it is stored), so the SADs are its bits. Lane 0 then reads the
+//   11 SADs, takes the first minimum and the parabola.
+// - The tail of a keypoint in the same warp: u_r0 = x_r[best_j], matched
+//   (best_d < 75), good = matched & ok, the disparity and its clamp, the
+//   disparity < fx gate. Its key for the median is the SAD's bits where it
+//   is good, kNone where it is not: SADs are >= 0, so the bits of finite
+//   ones order as the floats do.
+// - grid.sync(), then the blocks that own output slots of the final pass
+//   (ceil(N / 256) of them) each find the median, the k-th smallest good
+//   SAD with the others as +inf, k = n_good / 2, as torch.sort orders them:
+//   a finite one if k is below the finite count, else +inf (or NaN past
+//   the infinities). A finite median: the bounds of the finite keys give
+//   their common leading bits; an 8-bit radix pass from the first bit where
+//   they differ narrows the keys to one bin, more passes while the bin
+//   holds more than kCand keys; then the bin's keys are gathered in shared
+//   memory and the one whose rank among them holds k is the median. Each
+//   block applies sad <= median * 2.1f (float32(1.5 * 1.4), as PyTorch and
+//   JAX round the Python product) to its slots: u_right and depth
+//   (bf / disparity, IEEE division) or -1.
+//
+// Float operations round as the plain version's float32 tensors do:
+// -fmad=false and -prec-div (the default) in ops/cuda_lib.py's flags.
+//
+// Stamps. With a stamp buffer, block 0 writes the card's globaltimer at the
+// start, after the grid barrier that ends the refinement and the per
+// keypoint tail, and after a second barrier that ends the median's sweep.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -40,8 +75,29 @@ constexpr int kL = 5;                      // shift range
 constexpr int kPatch = 2 * kW + 1;         // 11
 constexpr int kSpan = 2 * kW + 2 * kL + 1; // 21
 constexpr int kShifts = 2 * kL + 1;        // 11
+constexpr int kWin = kPatch * kPatch;      // 121 window pixels
+constexpr int kPixels = kWin + kPatch * kSpan;  // 352 = 11 x 32
+constexpr int kLoads = kPixels / 32;       // 11 a lane
+constexpr int kPairs = kShifts * kPatch;   // 121 (shift, row) sums
+constexpr int kHalf = (kShifts + 1) / 2;   // 6 shifts a lane, 5 for the rest
+constexpr int kStripPart = kHalf + kPatch - 1;  // 16 strip pixels a lane
 constexpr int kMaxLevels = 16;
-constexpr int kWarps = 4;                  // keypoints a block
+constexpr int kWarps = 8;                  // keypoints a block at a time
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlocksPerSm = 4;            // 64 registers: 4096 keys a wave
+constexpr int kKeep = 16;                  // keys a thread keeps (N <= 4096)
+constexpr int kBins = 256;                 // an 8-bit digit
+constexpr int kCand = 128;                 // keys ranked in shared memory
+constexpr int kThOrb = 75;                 // (TH_HIGH + TH_LOW) / 2
+constexpr unsigned kInfBits = 0x7f800000u;
+constexpr unsigned kNanBits = 0x7fffffffu;
+// the key of a keypoint that is not good: no SAD's bits (a NaN the card's
+// arithmetic does not produce)
+constexpr unsigned kNone = 0xffffffffu;
+constexpr int kStamps = 3;
+
+static_assert(kPixels == kLoads * 32, "the pixels are whole loads a lane");
+static_assert(kBins == 8 * 32, "a lane of the scan reads 8 bins");
 
 struct SadLevel {
   int off;      // first pixel of the level in the packed pyramids
@@ -58,83 +114,412 @@ struct SadTable {
   SadLevel lv[kMaxLevels];
 };
 
+struct DepthArgs {
+  const float* pyr_l;
+  const float* pyr_r;
+  const float* xy_l;     // [N, 2] level-0 px
+  const float* xy_r;     // [M, 2] the right keypoints
+  const int* best_d;     // [N] K1's best distance
+  const int* best_j;     // [N] K1's best right index
+  float* out;            // the output buffer (out_floats(N) floats)
+  long long* stamps;     // null, or kStamps globaltimer stamps (ns)
+  int n_right;
+  float bf, fx;
+  SadTable t;
+};
+
+// the output buffer: u, depth, SAD, key (4 bytes each), then ok and the
+// best shift (a byte each)
+struct Out {
+  float* u;
+  float* depth;
+  float* sad;
+  unsigned* key;
+  uint8_t* ok;
+  int8_t* best;
+};
+
+__host__ __device__ inline long long out_floats(long long n) {
+  return 4 * n + (2 * n + 3) / 4;
+}
+
+__device__ __forceinline__ Out out_of(float* base, int n) {
+  Out o;
+  o.u = base;
+  o.depth = base + n;
+  o.sad = base + 2 * (long long)n;
+  o.key = reinterpret_cast<unsigned*>(base + 3 * (long long)n);
+  o.ok = reinterpret_cast<uint8_t*>(base + 4 * (long long)n);
+  o.best = reinterpret_cast<int8_t*>(o.ok + n);
+  return o;
+}
+
+__device__ __forceinline__ void stamp(long long* st, int k) {
+  if (st != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long ns = 0;
+#ifdef __CUDA_ARCH__
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+#endif
+    st[k] = (long long)ns;
+  }
+}
+
 __device__ __forceinline__ long long clampll(long long v, long long lo,
                                              long long hi) {
   // torch.clamp: min(max(v, lo), hi), so hi wins when hi < lo
   return v < lo ? (lo < hi ? lo : hi) : (v > hi ? hi : v);
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
-stereo_sad_kernel(const float* __restrict__ pyr_l,
-                  const float* __restrict__ pyr_r,
-                  const float* __restrict__ xy_l,
-                  const float* __restrict__ u_r0, float* __restrict__ u_out,
-                  float* __restrict__ sad_out, bool* __restrict__ ok_out,
-                  int8_t* __restrict__ best_out, const SadTable t) {
-  __shared__ float patch_s[kWarps][kPatch * kPatch];
-  __shared__ float strip_s[kWarps][kPatch * kSpan];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= t.n_slots) return;  // a whole warp leaves together
-  int li = 0;
-  while (li + 1 < t.n_levels && n >= t.lv[li + 1].slot) ++li;
-  const SadLevel lv = t.lv[li];
-  const float* pl = pyr_l + lv.off;
-  const float* pr = pyr_r + lv.off;
-  const float ur0 = rintf(u_r0[n] * lv.inv);
-  const long long yi = (long long)rintf(xy_l[2 * n + 1] * lv.inv);
-  const long long xi = (long long)rintf(xy_l[2 * n] * lv.inv);
-  const long long uri = (long long)ur0;
-  const long long yc = clampll(yi - kW, 0, lv.h - kPatch) + kW;
-  const long long xc = clampll(xi - kW, 0, lv.w - kPatch) + kW;
-  const long long x0 = uri - kW - kL;
-  const bool inb = x0 >= 0 && x0 + kSpan <= lv.w;
-  const long long x0c = clampll(x0, 0, lv.w - kSpan);
-  float* ps = patch_s[warp];
-  float* ss = strip_s[warp];
-  for (int i = lane; i < kPatch * kPatch; i += 32) {
-    const int r = i / kPatch, c = i - r * kPatch;
-    ps[i] = pl[(yc - kW + r) * lv.w + (xc - kW + c)];
+// the level whose slots hold slot n, of the n_levels in lv
+__device__ __forceinline__ int level_of(const SadLevel* lv, int n_levels,
+                                        int n) {
+  int lo = 0, hi = n_levels - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (n >= lv[mid].slot) lo = mid;
+    else hi = mid - 1;
   }
-  for (int i = lane; i < kPatch * kSpan; i += 32) {
-    const int r = i / kSpan, c = i - r * kSpan;
-    ss[i] = pr[(yc - kW + r) * lv.w + (x0c + c)];
-  }
-  __syncwarp();
-  float sad = 0.f;
-  if (lane < kShifts) {
-    const float cl = ps[kW * kPatch + kW];
-    const float cr = ss[kW * kSpan + lane + kW];
-    for (int r = 0; r < kPatch; ++r) {
-      float row = 0.f;
-      for (int c = 0; c < kPatch; ++c) {
-        const float a = ps[r * kPatch + c] - cl;
-        const float b = ss[r * kSpan + lane + c] - cr;
-        row = row + fabsf(a - b);
-      }
-      sad = sad + row;
+  return lo;
+}
+
+struct Smem {
+  float px[kWarps][kPixels];   // a warp's window less its centre, its strip
+  float rows[kWarps][kPairs + kShifts];  // its row sums [shift][row], SADs
+  SadLevel lv[kMaxLevels];     // the level table
+  alignas(16) unsigned hist[2][kBins];  // the select's digit counts
+  unsigned cand[kCand];        // the last bin's keys
+  // the select's counts: finite good keys, NaN ones, keys not good; the
+  // finite keys' bounds; the bin of a pass, the keys below it and in it;
+  // the keys gathered; the median
+  unsigned n_fin, n_nan, n_none, lo, hi, digit, below, in_bin, n_cand, med;
+};
+
+// keypoint n by one warp: the refinement and its own part of the tail
+__device__ __forceinline__ void keypoint(const DepthArgs& a, const Out& o,
+                                         const SadLevel* levels, int n,
+                                         int lane, float* px, float* rows) {
+  const SadLevel lv = levels[level_of(levels, a.t.n_levels, n)];
+  const float* pl = a.pyr_l + lv.off;
+  const float* pr = a.pyr_r + lv.off;
+  const float xl = a.xy_l[2 * n], yl = a.xy_l[2 * n + 1];
+  const int bd = a.best_d[n], j = a.best_j[n];
+  // K1 gives an index below M; another reads nothing and matches nothing
+  const bool in_range = j >= 0 && j < a.n_right;
+  const float ur_in = in_range ? a.xy_r[2 * (long long)j] : 0.0f;
+  const long long yi = (long long)rintf(yl * lv.inv);
+  const long long xi = (long long)rintf(xl * lv.inv);
+  const int yc = (int)clampll(yi - kW, 0, lv.h - kPatch) + kW;
+  const int xc = (int)clampll(xi - kW, 0, lv.w - kPatch) + kW;
+  // the window's loads first: they wait on xy alone, the strip's on x_r
+  float v[kLoads];
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    const int e = lane + 32 * k;
+    if (e < kWin) {
+      const int r = e / kPatch, c = e - r * kPatch;
+      v[k] = __ldg(pl + (yc - kW + r) * lv.w + (xc - kW + c));
     }
   }
-  float s[kShifts];
+  const float ur0 = rintf(ur_in * lv.inv);
+  const long long uri = (long long)ur0;
+  const long long x0 = uri - kW - kL;
+  const bool inb = x0 >= 0 && x0 + kSpan <= lv.w;
+  const int x0c = (int)clampll(x0, 0, lv.w - kSpan);
 #pragma unroll
-  for (int k = 0; k < kShifts; ++k) s[k] = __shfl_sync(0xffffffffu, sad, k);
+  for (int k = 0; k < kLoads; ++k) {
+    const int e = lane + 32 * k;
+    if (e >= kWin) {
+      const int f = e - kWin, r = f / kSpan, c = f - r * kSpan;
+      v[k] = __ldg(pr + (yc - kW + r) * lv.w + (x0c + c));
+    }
+  }
+  // the left patch less its centre (pixel 60: lane 28's second load)
+  const float cl = __shfl_sync(0xffffffffu, v[1], kW * kPatch + kW - 32);
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k)
+    if (lane + 32 * k < kWin) v[k] = v[k] - cl;
+  __syncwarp();  // the previous keypoint's reads of px and rows are done
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) px[lane + 32 * k] = v[k];
+  __syncwarp();
+  if (lane < 2 * kPatch) {
+    const int r = lane % kPatch, s0 = (lane / kPatch) * kHalf;
+    float wr[kPatch], sr[kStripPart];
+#pragma unroll
+    for (int c = 0; c < kPatch; ++c) wr[c] = px[r * kPatch + c];
+#pragma unroll
+    for (int c = 0; c < kStripPart; ++c)
+      sr[c] = s0 + c < kSpan ? px[kWin + r * kSpan + s0 + c] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const int s = s0 + j;
+      if (s < kShifts) {
+        const float cr = px[kWin + kW * kSpan + s + kW];
+        float row = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kPatch; ++c) {
+          const float bv = sr[j + c] - cr;
+          row = row + fabsf(wr[c] - bv);
+        }
+        rows[s * kPatch + r] = row;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < kShifts) {
+    float sad = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kPatch; ++r) sad = sad + rows[lane * kPatch + r];
+    rows[kPairs + lane] = sad;
+  }
+  __syncwarp();
   if (lane != 0) return;
+  float sads[kShifts];
+#pragma unroll
+  for (int k = 0; k < kShifts; ++k) sads[k] = rows[kPairs + k];
+  // the first minimum
   int best = 0;
+  float s_best = sads[0];
 #pragma unroll
   for (int k = 1; k < kShifts; ++k)
-    if (s[k] < s[best]) best = k;
-  const bool edge = best == 0 || best == 2 * kL;
+    if (sads[k] < s_best) {
+      s_best = sads[k];
+      best = k;
+    }
   const int b = best < 1 ? 1 : (best > 2 * kL - 1 ? 2 * kL - 1 : best);
-  const float d1 = s[b - 1], d2 = s[b], d3 = s[b + 1];
+  float d1 = sads[0], d2 = sads[1], d3 = sads[2];
+#pragma unroll
+  for (int k = 2; k < kShifts - 1; ++k)
+    if (b == k) {
+      d1 = sads[k - 1];
+      d2 = sads[k];
+      d3 = sads[k + 1];
+    }
+  const bool edge = best == 0 || best == 2 * kL;
   const float denom = (d1 + d3) - 2.0f * d2;
   const float delta =
-      denom > 0.f ? (d1 - d3) / (2.0f * fmaxf(denom, 1e-9f)) : 2.0f;
+      denom > 0.0f ? (d1 - d3) / (2.0f * fmaxf(denom, 1e-9f)) : 2.0f;
   const float inc = (float)(b - kL) + delta;
-  u_out[n] = (ur0 + inc) * lv.scale;
-  sad_out[n] = s[best];
-  ok_out[n] = inb && !edge && fabsf(delta) <= 1.0f;
-  best_out[n] = (int8_t)best;
+  float u = (ur0 + inc) * lv.scale;
+  const bool ok = inb && !edge && fabsf(delta) <= 1.0f;
+  bool good = in_range && bd < kThOrb && ok;
+  float disp = xl - u;
+  // disparity <= 0 is clamped to a tiny positive value (Frame.cc:650-653)
+  if (disp <= 0.0f) {
+    disp = 0.01f;
+    u = xl - 0.01f;
+  }
+  good = good && disp < a.fx;
+  o.u[n] = u;
+  o.depth[n] = disp;
+  o.sad[n] = s_best;
+  o.key[n] = good ? __float_as_uint(s_best) : kNone;
+  o.ok[n] = ok;
+  o.best[n] = (int8_t)best;
+}
+
+// count the candidate keys' digits (key >> shift) & 0xff into hist
+__device__ __forceinline__ void count_digits(const unsigned* mine,
+                                             const Out& o, int n,
+                                             unsigned prefix, unsigned pmask,
+                                             int shift, unsigned* hist) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kKeep; ++q) {
+    const int i = tid + q * kThreads;
+    if (q * kThreads >= n) break;
+    if (i < n && mine[q] < kInfBits && (mine[q] & pmask) == prefix)
+      atomicAdd(&hist[(mine[q] >> shift) & (kBins - 1)], 1u);
+  }
+  for (int i = tid + kKeep * kThreads; i < n; i += kThreads) {
+    const unsigned key = __ldcg(o.key + i);
+    if (key < kInfBits && (key & pmask) == prefix)
+      atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1u);
+  }
+}
+
+// the median's bits: the k-th smallest of the keys with the good SADs as
+// themselves and the others as +inf, k = n_good / 2, found by every thread
+// of the block. The shared counts start at zero (the kernel's start).
+__device__ __forceinline__ unsigned median_key(const Out& o, int n,
+                                               Smem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned mine[kKeep];
+  unsigned n_fin = 0, n_nan = 0, n_none = 0, lo = kNone, hi = 0;
+#pragma unroll
+  for (int q = 0; q < kKeep; ++q) {
+    const int i = tid + q * kThreads;
+    if (q * kThreads >= n) break;
+    mine[q] = i < n ? __ldcg(o.key + i) : kNone;
+  }
+  for (int i = tid + kKeep * kThreads; i < n; i += kThreads) {
+    const unsigned key = __ldcg(o.key + i);
+    n_fin += key < kInfBits;
+    n_nan += key > kInfBits && key != kNone;
+    n_none += key == kNone;
+    if (key < kInfBits) {
+      lo = min(lo, key);
+      hi = max(hi, key);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kKeep; ++q) {
+    const int i = tid + q * kThreads;
+    if (q * kThreads >= n) break;
+    const unsigned key = mine[q];
+    n_fin += i < n && key < kInfBits;
+    n_nan += i < n && key > kInfBits && key != kNone;
+    n_none += i < n && key == kNone;
+    if (i < n && key < kInfBits) {
+      lo = min(lo, key);
+      hi = max(hi, key);
+    }
+  }
+  n_fin = __reduce_add_sync(0xffffffffu, n_fin);
+  n_nan = __reduce_add_sync(0xffffffffu, n_nan);
+  n_none = __reduce_add_sync(0xffffffffu, n_none);
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) {
+    atomicAdd(&sm.n_fin, n_fin);
+    atomicAdd(&sm.n_nan, n_nan);
+    atomicAdd(&sm.n_none, n_none);
+    atomicMin(&sm.lo, lo);
+    atomicMax(&sm.hi, hi);
+  }
+  __syncthreads();
+  n_fin = sm.n_fin;
+  unsigned k = ((unsigned)n - sm.n_none) / 2;
+  // torch.sort's order: the finite SADs, the infinities (the keypoints that
+  // are not good among them), the NaNs
+  if (k >= n_fin) return k < (unsigned)n - sm.n_nan ? kInfBits : kNanBits;
+  lo = sm.lo;
+  hi = sm.hi;
+  if (lo == hi) return lo;
+  // the finite keys share the bits above the first where lo and hi differ
+  const int top = 31 - __clz(lo ^ hi);
+  unsigned pmask = top == 31 ? 0u : ~((2u << top) - 1u);
+  unsigned prefix = lo & pmask;
+  int shift = top >= 7 ? top - 7 : 0;
+  for (int pass = 0;; ++pass) {
+    unsigned* hist = sm.hist[pass & 1];
+    count_digits(mine, o, n, prefix, pmask, shift, hist);
+    // the next pass's counts start at zero (read after this pass's barriers)
+    if (tid < kBins) sm.hist[(pass + 1) & 1][tid] = 0;
+    __syncthreads();
+    if (warp == 0) {
+      // lane l holds bins 8 l .. 8 l + 7; the bin where the count passes k
+      unsigned c[kBins / 32], tot = 0;
+      const uint4* h4 = reinterpret_cast<const uint4*>(hist) + 2 * lane;
+      const uint4 h0 = h4[0], h1 = h4[1];
+      c[0] = h0.x, c[1] = h0.y, c[2] = h0.z, c[3] = h0.w;
+      c[4] = h1.x, c[5] = h1.y, c[6] = h1.z, c[7] = h1.w;
+#pragma unroll
+      for (int t = 0; t < kBins / 32; ++t) tot += c[t];
+      unsigned incl = tot;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      unsigned run = incl - tot;
+      if (run <= k && k < incl) {
+#pragma unroll
+        for (int t = 0; t < kBins / 32; ++t) {
+          if (k < run + c[t]) {
+            sm.digit = (kBins / 32) * lane + t;
+            sm.below = run;
+            sm.in_bin = c[t];
+            break;
+          }
+          run += c[t];
+        }
+      }
+    }
+    __syncthreads();
+    prefix = (prefix & ~((unsigned)(kBins - 1) << shift)) | (sm.digit << shift);
+    pmask |= (unsigned)(kBins - 1) << shift;
+    k -= sm.below;
+    if (shift == 0) return prefix;
+    if (sm.in_bin <= (unsigned)kCand) break;
+    shift = shift >= 8 ? shift - 8 : 0;
+  }
+  // gather the bin's keys, then the one whose rank holds k
+  const unsigned in_bin = sm.in_bin;
+#pragma unroll
+  for (int q = 0; q < kKeep; ++q) {
+    const int i = tid + q * kThreads;
+    if (q * kThreads >= n) break;
+    const bool take = i < n && mine[q] < kInfBits && (mine[q] & pmask) == prefix;
+    const unsigned ball = __ballot_sync(0xffffffffu, take);
+    if (ball == 0u) continue;
+    unsigned base = 0;
+    if (lane == __ffs(ball) - 1) base = atomicAdd(&sm.n_cand, __popc(ball));
+    base = __shfl_sync(0xffffffffu, base, __ffs(ball) - 1);
+    if (take) sm.cand[base + __popc(ball & ((1u << lane) - 1u))] = mine[q];
+  }
+  for (int i0 = kKeep * kThreads; i0 < n; i0 += kThreads) {
+    const int i = i0 + tid;
+    const unsigned key = i < n ? __ldcg(o.key + i) : kNone;
+    const bool take = key < kInfBits && (key & pmask) == prefix;
+    const unsigned ball = __ballot_sync(0xffffffffu, take);
+    if (ball == 0u) continue;
+    unsigned base = 0;
+    if (lane == __ffs(ball) - 1) base = atomicAdd(&sm.n_cand, __popc(ball));
+    base = __shfl_sync(0xffffffffu, base, __ffs(ball) - 1);
+    if (take) sm.cand[base + __popc(ball & ((1u << lane) - 1u))] = key;
+  }
+  __syncthreads();
+  for (unsigned m = tid; m < in_bin; m += kThreads) {
+    const unsigned v = sm.cand[m];
+    unsigned less = 0, leq = 0;
+    for (unsigned j = 0; j < in_bin; ++j) {
+      const unsigned w = sm.cand[j];
+      less += w < v;
+      leq += w <= v;
+    }
+    if (less <= k && k < leq) sm.med = v;  // equal keys write one value
+  }
+  __syncthreads();
+  return sm.med;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+stereo_depth_kernel(const DepthArgs a) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int n_slots = a.t.n_slots;
+  const Out o = out_of(a.out, n_slots);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  stamp(a.stamps, 0);
+  if (tid < a.t.n_levels) sm.lv[tid] = a.t.lv[tid];
+  if (tid < kBins) sm.hist[0][tid] = 0;
+  if (tid == 0) {
+    sm.n_fin = sm.n_nan = sm.n_none = sm.hi = sm.n_cand = 0;
+    sm.lo = kNone;
+  }
+  __syncthreads();
+  for (int n = blockIdx.x * kWarps + warp; n < n_slots;
+       n += gridDim.x * kWarps)
+    keypoint(a, o, sm.lv, n, lane, sm.px[warp], sm.rows[warp]);
+  grid.sync();
+  stamp(a.stamps, 1);
+  // the final pass: thread i of the grid takes slots i, i + the grid's
+  // threads, ...; a block that owns none has nothing more to do
+  if (blockIdx.x * kThreads < n_slots) {
+    const float th = __uint_as_float(median_key(o, n_slots, sm)) * 2.1f;
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_slots;
+         i += gridDim.x * kThreads) {
+      const bool g = __ldcg(o.key + i) != kNone && __ldcg(o.sad + i) <= th;
+      const float u = __ldcg(o.u + i), disp = __ldcg(o.depth + i);
+      o.u[i] = g ? u : -1.0f;
+      o.depth[i] = g ? a.bf / disp : -1.0f;
+    }
+  }
+  if (a.stamps != nullptr) {
+    grid.sync();  // only to time the sweep alone
+    stamp(a.stamps, 2);
+  }
 }
 
 bool valid_table(const SadTable* t) {
@@ -150,26 +535,77 @@ bool valid_table(const SadTable* t) {
   return slot == t->n_slots;
 }
 
+constexpr int kMaxDevices = 64;
+int g_resident[kMaxDevices];  // blocks resident on a device, 0 = not asked
+
+// the blocks of the card that can run at once: the cooperative limit
+int resident_blocks(int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 0 && dev < kMaxDevices && g_resident[dev] > 0) {
+    *blocks = g_resident[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, (const void*)stereo_depth_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = per_sm * sms;
+  if (*blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (dev >= 0 && dev < kMaxDevices) g_resident[dev] = *blocks;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-int stereo_sad_table_bytes() { return (int)sizeof(SadTable); }
+int stereo_depth_table_bytes() { return (int)sizeof(SadTable); }
 
-int stereo_sad(const void* pyr_l, const void* pyr_r, const void* xy_l,
-               const void* u_r0, void* u_right, void* sad, void* ok,
-               void* best, const void* table, void* stream) {
+long long stereo_depth_out_floats(long long n) { return out_floats(n); }
+
+int stereo_depth_stamps() { return kStamps; }
+
+// the grid a launch on n keypoints takes, or -(its error)
+int stereo_depth_grid(int n) {
+  int resident = 0;
+  const int err = resident_blocks(&resident);
+  if (err != 0) return -err;
+  const int blocks = (n + kWarps - 1) / kWarps;
+  return blocks < 1 ? 1 : (blocks > resident ? resident : blocks);
+}
+
+int stereo_depth(const void* table, const void* pyr_l, const void* pyr_r,
+                 const void* xy_l, const void* xy_r, const void* best_d,
+                 const void* best_j, int n_right, float bf, float fx,
+                 void* out, void* stamps, void* stream) {
   const SadTable* t = static_cast<const SadTable*>(table);
-  if (!valid_table(t)) return (int)cudaErrorInvalidValue;
+  if (!valid_table(t) || n_right < 1 ||
+      (long long)t->n_slots * 4 >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   if (t->n_slots == 0) return 0;
-  const int blocks = (t->n_slots + kWarps - 1) / kWarps;
-  stereo_sad_kernel<<<blocks, 32 * kWarps, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pyr_l), static_cast<const float*>(pyr_r),
-      static_cast<const float*>(xy_l), static_cast<const float*>(u_r0),
-      static_cast<float*>(u_right), static_cast<float*>(sad),
-      static_cast<bool*>(ok), static_cast<int8_t*>(best), *t);
-  return (int)cudaGetLastError();
+  const int blocks = stereo_depth_grid(t->n_slots);
+  if (blocks < 0) return -blocks;
+  DepthArgs a;
+  a.pyr_l = static_cast<const float*>(pyr_l);
+  a.pyr_r = static_cast<const float*>(pyr_r);
+  a.xy_l = static_cast<const float*>(xy_l);
+  a.xy_r = static_cast<const float*>(xy_r);
+  a.best_d = static_cast<const int*>(best_d);
+  a.best_j = static_cast<const int*>(best_j);
+  a.out = static_cast<float*>(out);
+  a.stamps = static_cast<long long*>(stamps);
+  a.n_right = n_right;
+  a.bf = bf;
+  a.fx = fx;
+  a.t = *t;
+  void* params[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)stereo_depth_kernel, blocks, kThreads, params, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

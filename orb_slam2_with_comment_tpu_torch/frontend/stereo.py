@@ -6,10 +6,10 @@ shapes. The association of every left keypoint with its best right
 keypoint inside the row band, the octave band and the disparity range is
 one call of ``ops.hamming.masked_best_two``: on the card the fused kernel
 reduces each row of the N_left x N_right problem without writing the
-distance matrix. Then an 11x11 SAD sweep over +-5 shifts with a parabola
-(Frame.cc:586-643) over every level's keypoints at once (ops/sad.py: one
-kernel launch a pair on the card), and the median-SAD outlier sweep
-(Frame.cc:661-674).
+distance matrix. Then one call of ``ops.sad.stereo_depth`` (one kernel
+launch a pair on the card): an 11x11 SAD sweep over +-5 shifts with a
+parabola (Frame.cc:586-643) over every level's keypoints at once, the
+depth, and the median-SAD outlier sweep (Frame.cc:661-674).
 
 The JAX package read its patches as one-hot matrix products; here they are
 plain indexed reads of the same pixels.
@@ -24,7 +24,7 @@ from ..ops import hamming, image, orb, sad
 
 W = sad.W  # SAD half-window (reference: const int w = 5, Frame.cc:593)
 L = sad.L  # shift search range (reference: const int L = 5, Frame.cc:600)
-TH_ORB = 75      # (TH_HIGH + TH_LOW) / 2 (reference: Frame.cc:540)
+TH_ORB = sad.TH_ORB  # (TH_HIGH + TH_LOW) / 2 (reference: Frame.cc:540)
 
 
 class StereoDepth(NamedTuple):
@@ -55,15 +55,17 @@ def association_mask(feats_l, feats_r, scales, fx: float) -> torch.Tensor:
             & (ur >= ul - fx) & (ur <= ul))
 
 
-def _sad_refine(feats_l, u_r0, pyr_l, pyr_r, budgets, scales, packed=None):
-    """Refinement of every level's keypoints in one call of
-    ops/sad.sad_refine (one kernel launch on the card): (right u in
-    level-0 pixels, best SAD, ok), each [N]. ``packed``: the two pyramids
-    already concatenated as ops/orb.pack gives them."""
+def _stereo_depth(feats_l, feats_r, best_d, best_j, pyr_l, pyr_r, budgets,
+                  scales, bf: float, fx: float, packed=None):
+    """Everything after the association in one call of ops/sad.stereo_depth
+    (one kernel launch on the card): (right u, depth), each [N], -1 where a
+    left keypoint has none. ``packed``: the two pyramids already
+    concatenated as ops/orb.pack gives them."""
     levels = orb.level_table(tuple(tuple(p.shape) for p in pyr_l),
                              tuple(budgets), tuple(scales))
     flat_l, flat_r = packed or (orb.pack(pyr_l), orb.pack(pyr_r))
-    return sad.sad_refine(flat_l, flat_r, levels, feats_l.xy, u_r0)
+    return sad.stereo_depth(flat_l, flat_r, levels, feats_l.xy, feats_r.xy,
+                            best_d, best_j, bf, fx)
 
 
 def match_stereo(feats_l, feats_r, pyr_l, pyr_r, budgets, bf: float,
@@ -83,23 +85,6 @@ def match_stereo(feats_l, feats_r, pyr_l, pyr_r, budgets, bf: float,
     # threshold, as the reference's 1e9 fill does
     best_d, best_j, _, _ = hamming.masked_best_two(feats_l.desc, feats_r.desc,
                                                    mask)
-    matched = best_d < TH_ORB
-    u_r0 = feats_r.xy[best_j.long(), 0]
-    u_right, sad_best, ok_all = _sad_refine(feats_l, u_r0, pyr_l, pyr_r,
-                                            budgets, scales, packed)
-    n = u_right.shape[0]
-    good = matched & ok_all
-    disparity = feats_l.xy[:, 0] - u_right
-    # disparity <= 0 is clamped to a tiny positive value (reference :650-653)
-    tiny = disparity <= 0
-    disparity = torch.where(tiny, 0.01, disparity)
-    u_right = torch.where(tiny, feats_l.xy[:, 0] - 0.01, u_right)
-    good = good & (disparity < fx)
-    # thDist = 1.5 * 1.4 * median(best SAD) (reference Frame.cc:661-674);
-    # with no good match the median is inf and nothing more is rejected
-    inf = float("inf")
-    sad_sorted = torch.sort(torch.where(good, sad_best, inf)).values
-    med = sad_sorted[(good.sum() // 2).clamp(0, n - 1)]
-    good = good & (sad_best <= 1.5 * 1.4 * med)
-    return StereoDepth(torch.where(good, u_right, -1.0),
-                       torch.where(good, bf / disparity, -1.0))
+    return StereoDepth(*_stereo_depth(feats_l, feats_r, best_d, best_j,
+                                      pyr_l, pyr_r, budgets, scales, bf, fx,
+                                      packed))

@@ -67,11 +67,12 @@ from orb_slam2_with_comment_tpu_torch.place.database import (  # noqa: E402
 STAGES = {
     "extract": (steps, "extract_rgbd_features"),
     # the stereo front end: both views' pyramids and features, then the
-    # association (mask, Hamming kernel, outlier sweep) and its SAD part
+    # association (mask, Hamming kernel) and what follows it (the SAD
+    # refinement, the depth and the median sweep: one K5 launch)
     "stereo_pyramid": (OrbExtractor, "_pyramid"),
     "stereo_extract": (OrbExtractor, "_extract_from_pyramid"),
     "match_stereo": (stereo, "match_stereo"),
-    "sad_refine": (stereo, "_sad_refine"),
+    "stereo_depth": (stereo, "_stereo_depth"),
     "match_motion_model": (steps, "_match_motion_model"),
     "match_reference_kf": (steps, "_match_reference_kf"),
     "pose_lm": (steps, "_pose_optimize_from_matches"),

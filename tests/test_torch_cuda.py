@@ -7,8 +7,12 @@ two of their launches bit for bit, three launches per extracted view and
 no host wait; the redesigned orb_cells against its plain version and
 PR 10's kernel (csrc/orb_v1.cu) bit for bit where ties and ragged cells
 live, orb_describe's gates at 2000 slots and at 1921x1081, and both
-kernels' resident blocks per SM; the stereo SAD kernel (K5) and the
-dense BA kernel (K4) against its plain version, one launch a solve, its
+kernels' resident blocks per SM; the stereo SAD kernel's first design
+(csrc/stereo_sad_v1.cu) against its plain version; K5 (csrc/stereo_sad.cu:
+the refinement, the depth and the median sweep of a pair) against
+stereo_depth_plain in bits at 500, 4096 and 8192 keypoints (more than
+the resident grid's warps), one launch a call and no host wait, its replay in a CUDA graph
+and its argument checks; the dense BA kernel (K4) against its plain version, one launch a solve, its
 factorization in shared memory (24 poses) and from global memory (64),
 the step it rejects where S is not positive definite, two solves bit for
 bit and its limits; the host tracker's
@@ -560,17 +564,18 @@ def _sad_inputs(dev, n=500):
 
 
 def test_stereo_sad_kernel_matches_plain(dev):
-    """K5 in one launch for every level against sad_refine_plain on the
-    same card: the best shift and ok identical except at near-ties (the two
+    """K5's first design (csrc/stereo_sad_v1.cu) in one launch for every
+    level against sad_refine_plain on the same card: the best shift and ok identical except at near-ties (the two
     lowest SADs within 1e-5 relative: the 121-term sums run in another
     order), at most 0.5% of the valid keypoints; u within 1e-4 px and the best
     SAD within 1e-5 relative where both pick the same shift; two launches
     bit for bit."""
     fl, fr, levels, xy, u0, valid = _sad_inputs(dev)
-    before = sad.LAUNCHES["stereo_sad"]
+    before = sad.V1_LAUNCHES["stereo_sad_v1"]
     got = sad.sad_refine(fl, fr, levels, xy, u0)
-    assert sad.LAUNCHES["stereo_sad"] == before + 1
-    u, s, ok, best = sad.launch(sad._kernel_lib(), fl, fr, levels, xy, u0)
+    assert sad.V1_LAUNCHES["stereo_sad_v1"] == before + 1
+    u, s, ok, best = sad.launch(sad._v1_kernel_lib(), fl, fr, levels, xy,
+                                u0)
     for a, b in zip(got, (u, s, ok)):
         assert torch.equal(a, b)
     want = sad.sad_refine_plain(fl, fr, levels, xy, u0)
@@ -597,6 +602,126 @@ def test_stereo_sad_checks_its_arguments(dev):
     with pytest.raises(ValueError, match="at least 11 rows"):
         sad.sad_refine(z, z, small, torch.zeros(3, 2, device=dev),
                        torch.zeros(3, device=dev))
+
+
+def _depth_inputs(dev, n):
+    """stereo_depth's inputs on the main path for a rendered 320x240 pair
+    on the card with n features: the packed pyramids, the level table, the
+    left and right keypoints, K1's best distance and index."""
+    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    world = SyntheticWorld(seed=1)
+    R, t = orbit_trajectory(16)[5]
+    t_r = np.asarray(t, np.float32) - np.array([0.08, 0, 0], np.float32)
+    ext = OrbExtractor(n_features=n)
+    pyr = [ext._pyramid(torch.as_tensor(np.clip(world.render(
+        R, tt, **cam)[0], 0, 255).astype(np.uint8)).to(dev))
+        for tt in (t, t_r)]
+    fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
+    mask = stereo.association_mask(fl, fr, ext.scales, 250.0)
+    best_d, best_j, _, _ = hamming.masked_best_two(fl.desc, fr.desc, mask)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(ext.budgets), tuple(ext.scales))
+    return (orb.pack(pyr[0]), orb.pack(pyr[1]), levels, fl.xy, fr.xy,
+            best_d, best_j)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("n", [500, 4096, 8192])
+def test_stereo_depth_kernel_matches_plain_in_bits(dev, n):
+    """K5 against stereo_depth_plain on the same card: u_right and depth in
+    bits; the best SAD, ok and the best shift in bits against
+    sad_refine_plain; two launches in bits. At 8192 keypoints the resident
+    grid's warps walk the keypoints twice."""
+    fl, fr, levels, xy, xy_r, bd, bj = args = _depth_inputs(dev, n)
+    lay = sad.layout(levels)
+    assert lay.n == n
+    if n == 8192:
+        assert sad._kernel_lib().stereo_depth_grid(n) * 8 < n
+    out = sad.launch_depth(sad._kernel_lib(), lay, *args[:2], *args[3:],
+                           20.0, 250.0)
+    got = sad.outputs(out, n)
+    u, d = sad.stereo_depth_plain(*args, 20.0, 250.0)
+    u_r0 = xy_r[bj.long(), 0]
+    _, s, ok = sad.sad_refine_plain(fl, fr, levels, xy, u_r0)
+    best = sad.sad_curves_plain(fl, fr, levels, xy, u_r0).argmin(1)
+    assert torch.equal(_bits(got["u_right"]), _bits(u))
+    assert torch.equal(_bits(got["depth"]), _bits(d))
+    assert torch.equal(_bits(got["sad"]), _bits(s))
+    assert torch.equal(got["ok"], ok)
+    assert torch.equal(got["best"].long(), best)
+    assert int((d > 0).sum()) > 40  # matches with depth were held
+    again = sad.launch_depth(sad._kernel_lib(), lay, *args[:2], *args[3:],
+                             20.0, 250.0)
+    assert torch.equal(_bits(again), _bits(out))
+
+
+def test_stereo_depth_one_launch_and_no_host_wait(dev):
+    """stereo_depth and match_stereo: one K5 launch a call, nothing read
+    back; the call replays in a CUDA graph with the same bits."""
+    args = _depth_inputs(dev, 500)
+    sad.stereo_depth(*args, 20.0, 250.0)  # built and loaded
+    torch.cuda.synchronize()
+    before = sad.LAUNCHES["stereo_sad"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, d = sad.stereo_depth(*args, 20.0, 250.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sad.LAUNCHES["stereo_sad"] == before + 1
+    want = sad.stereo_depth_plain(*args, 20.0, 250.0)
+    assert torch.equal(_bits(u), _bits(want[0]))
+    assert torch.equal(_bits(d), _bits(want[1]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gu, gd = sad.stereo_depth(*args, 20.0, 250.0)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(gu), _bits(u)) and torch.equal(_bits(gd),
+                                                            _bits(d))
+    fl, fr, levels, xy, xy_r, bd, bj = args
+    ext = OrbExtractor(n_features=500)
+    cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
+    world = SyntheticWorld(seed=1)
+    R, t = orbit_trajectory(16)[5]
+    t_r = np.asarray(t, np.float32) - np.array([0.08, 0, 0], np.float32)
+    imgs = [torch.as_tensor(np.clip(world.render(R, tt, **cam)[0], 0,
+                                    255).astype(np.uint8)).to(dev)
+            for tt in (t, t_r)]
+    before = sad.LAUNCHES["stereo_sad"]
+    feats, sd = ext.stereo(*imgs, 20.0, 250.0)
+    assert sad.LAUNCHES["stereo_sad"] == before + 1
+    assert torch.equal(_bits(sd.u_right), _bits(u))
+    assert torch.equal(_bits(sd.depth), _bits(d))
+
+
+def test_stereo_depth_checks_its_arguments(dev):
+    fl, fr, levels, xy, xy_r, bd, bj = _depth_inputs(dev, 100)
+    with pytest.raises(ValueError, match="xy_l must be torch.float32"):
+        sad.stereo_depth(fl, fr, levels, xy.double(), xy_r, bd, bj, 20.0,
+                         250.0)
+    with pytest.raises(ValueError, match="best_j must be torch.int32"):
+        sad.stereo_depth(fl, fr, levels, xy, xy_r, bd, bj.long(), 20.0,
+                         250.0)
+    with pytest.raises(ValueError, match="best_d must be"):
+        sad.stereo_depth(fl, fr, levels, xy, xy_r, bd[1:], bj, 20.0, 250.0)
+    with pytest.raises(ValueError, match="xy_r must be"):
+        sad.stereo_depth(fl, fr, levels, xy, xy_r[:0], bd, bj, 20.0, 250.0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sad.stereo_depth(fl, fr, levels, xy, xy_r.cpu(), bd, bj, 20.0,
+                         250.0)
+    with pytest.raises(ValueError, match="packed levels"):
+        sad.stereo_depth(fl[:100], fr, levels, xy, xy_r, bd, bj, 20.0,
+                         250.0)
+    small = orb.level_table(((40, 20),), (3,), (1.0,))
+    z = torch.zeros(800, device=dev)
+    zi = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at least 11 rows"):
+        sad.stereo_depth(z, z, small, torch.zeros(3, 2, device=dev),
+                         torch.zeros(3, 2, device=dev), zi, zi, 20.0, 250.0)
 
 
 BA_CAM = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)

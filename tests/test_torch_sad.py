@@ -1,7 +1,13 @@
-"""K5, the stereo SAD refinement of every pyramid level (ops/sad.py), on the
-CPU: ``sad_refine_plain`` for all levels in one call against the JAX
-package's ``_sad_refine_block`` level by level, on the same numpy
-pyramids, keypoints and coarse right u.
+"""K5, the stereo match after the association (ops/sad.py), on the CPU:
+``sad_refine_plain`` for all levels in one call against the JAX package's
+``_sad_refine_block`` level by level, on the same numpy pyramids,
+keypoints and coarse right u; ``stereo_tail_plain`` against a
+transcription of the JAX package's tail (frontend/stereo.py:141-161) in
+jax.numpy, u_right and depth bit for bit, on synthetic refinement outputs
+(a disparity <= 0 and >= fx, no good keypoint, one, an even and an odd
+count, ties at the median); ``stereo_depth`` on CPU tensors against
+match_stereo's tail as it was written before ops/sad.py held it, and its
+argument checks; the level layout's cache.
 
 Cases: an orbit frame at 640x480 with 1000 features (SyntheticWorld's
 pair at the bench's 8 cm baseline; the keypoints and coarse right u of the
@@ -16,10 +22,13 @@ of the sums gives the same values and the first minimum must win).
 
 Tolerance, as tests/test_torch_stereo.py holds the per-level function:
 ``ok`` identical, the best SAD within 1e-3 relative, the refined right u
-within 1e-3 px where ok. The 121-term float32 sums of the non-integer
+within 1e-3 px where ok. The tail is held in bits: the same float32
+operations on the same inputs. The 121-term float32 sums of the non-integer
 pixels of levels >= 1 are added in another order than the JAX package's
 one-hot products.
 """
+import ctypes
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -210,3 +219,205 @@ def test_sad_table_limits():
     assert t.lv[1].slot == 600 and t.lv[1].off == 480 * 640
     assert t.lv[1].inv == np.float32(1 / 1.2)
     assert t.lv[1].scale == np.float32(1.2)
+
+
+def _jax_tail(u_right, sad_best, ok_all, best_d, x_l, bf, fx: float):
+    """The JAX package's tail of match_stereo (frontend/stereo.py:141-161),
+    transcribed: the refinement's outputs in, (u_out, depth) out."""
+    n = u_right.shape[0]
+    matched = best_d < jstereo.TH_ORB
+    good = matched & ok_all
+    disparity = x_l - u_right
+    tiny = disparity <= 0
+    disparity = jnp.where(tiny, 0.01, disparity)
+    u_right = jnp.where(tiny, x_l - 0.01, u_right)
+    good &= disparity < fx
+    sad_sorted = jnp.sort(jnp.where(good, sad_best, jnp.inf))
+    n_good = jnp.sum(good)
+    med = sad_sorted[jnp.clip(n_good // 2, 0, n - 1)]
+    th = 1.5 * 1.4 * med
+    good &= sad_best <= th
+    depth = jnp.where(good, bf / disparity, -1.0)
+    u_out = jnp.where(good, u_right, -1.0)
+    return u_out, depth
+
+
+FX, BF = 500.0, np.float32(40.0)
+
+
+def _tail_inputs(case, n=400):
+    """Synthetic refinement outputs (u_right, SAD, ok, best_d, x_l) for one
+    case of TAIL_CASES, from a seed."""
+    rng = np.random.RandomState(list(TAIL_CASES).index(case))
+    x_l = rng.uniform(0, 640, n).astype(np.float32)
+    u = (x_l - rng.uniform(0.3, 120, n)).astype(np.float32)
+    sad_best = rng.uniform(20, 3000, n).astype(np.float32)
+    ok = rng.uniform(size=n) < 0.8
+    best_d = rng.randint(0, 120, n).astype(np.int32)
+    if case == "disparity <= 0":
+        k = n // 4
+        u[:k] = x_l[:k] + rng.uniform(0, 3, k).astype(np.float32)
+        u[k:k + 8] = x_l[k:k + 8]  # exactly 0
+        best_d[:k + 8] = 10
+        ok[:k + 8] = True
+    elif case == "disparity >= fx":
+        k = n // 4
+        u[:k] = x_l[:k] - rng.uniform(FX, FX + 200, k).astype(np.float32)
+        best_d[:k] = 10
+        ok[:k] = True
+    elif case == "no good keypoint":
+        best_d[:] = rng.randint(75, 200, n)
+    elif case in ("one good keypoint", "even good count", "odd good count"):
+        count = {"one good keypoint": 1, "even good count": 120,
+                 "odd good count": 121}[case]
+        best_d[:] = 90
+        pick = rng.choice(n, count, replace=False)
+        best_d[pick] = 3
+        ok[pick] = True
+    elif case == "ties at the median":
+        sad_best = (np.round(sad_best / 400) * 400 + 17.25).astype(
+            np.float32)
+    return u, sad_best, ok, best_d, x_l
+
+
+TAIL_CASES = {
+    "random": None, "disparity <= 0": None, "disparity >= fx": None,
+    "no good keypoint": 0, "one good keypoint": 1, "even good count": 120,
+    "odd good count": 121, "ties at the median": None,
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_stereo_tail_matches_jax_in_bits(case):
+    """u_right and depth of stereo_tail_plain are the JAX package's tail's
+    bits; the depth is one IEEE division, as the JAX package's bf /
+    disparity is (a Python float over a tensor would be
+    disparity.reciprocal() * bf, which rounds twice)."""
+    u, s, ok, bd, x_l = _tail_inputs(case)
+    got = [a.numpy() for a in sad.stereo_tail_plain(
+        *(torch.as_tensor(a) for a in (u, s, ok, bd, x_l)), float(BF), FX)]
+    fn = jax.jit(lambda *a: _jax_tail(*a, FX))
+    want = [np.asarray(a) for a in fn(u, s, ok, bd, x_l, jnp.float32(BF))]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    # what each case is about holds on these inputs
+    disparity = np.where(x_l - u <= 0, np.float32(0.01), x_l - u)
+    good = (bd < 75) & ok & (disparity < np.float32(FX))
+    n_good = int(good.sum())
+    with_depth = got[1] > 0
+    if TAIL_CASES[case] is not None:
+        assert n_good == TAIL_CASES[case]
+    if case == "no good keypoint":
+        assert not with_depth.any()
+    elif case == "disparity <= 0":
+        tiny = (x_l - u <= 0) & with_depth
+        assert tiny.sum() > 10 and (got[0][tiny] == x_l[tiny]
+                                    - np.float32(0.01)).all()
+    elif case == "disparity >= fx":
+        assert ((x_l - u >= FX) & (bd < 75) & ok).sum() > 50
+        assert not with_depth[(x_l - u >= FX)].any()
+    elif case == "ties at the median":
+        med = np.sort(s[good])[n_good // 2]
+        assert (s[good] == med).sum() > 5
+        assert (with_depth == good & (s <= med * np.float32(2.1))).all()
+    elif case == "random":
+        # the data tells the division apart from a reciprocal and a product
+        recip = (torch.as_tensor(disparity).reciprocal() * float(BF)).numpy()
+        assert (recip.view(np.int32) != (BF / disparity).view(
+            np.int32)).sum() > 10
+    if n_good:
+        assert 0 < with_depth.sum() <= n_good
+
+
+def _orbit_depth_inputs():
+    """Orbit frame 5 and its right view at 8 cm through the port's
+    extractor and stereo association on the CPU: stereo_depth's inputs."""
+    R, t = orbit_trajectory(16)[5]
+    world = SyntheticWorld(seed=1)
+    views = [np.clip(world.render(R, tt)[0], 0, 255).astype(np.uint8)
+             for tt in (t, np.asarray(t, np.float32)
+                        - np.float32([0.08, 0, 0]))]
+    ext = OrbExtractor(n_features=1000)
+    pyr = [ext._pyramid(torch.as_tensor(v)) for v in views]
+    fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
+    mask = stereo.association_mask(fl, fr, ext.scales, 500.0)
+    best_d, best_j, _, _ = stereo.hamming.masked_best_two(fl.desc, fr.desc,
+                                                          mask)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr[0]),
+                             tuple(ext.budgets), tuple(ext.scales))
+    return (orb.pack(pyr[0]), orb.pack(pyr[1]), levels, fl.xy, fr.xy,
+            best_d, best_j)
+
+
+def _former_tail(flat_l, flat_r, levels, xy_l, xy_r, best_d, best_j, bf,
+                 fx):
+    """match_stereo from K1's outputs on, as frontend/stereo.py wrote it
+    before ops/sad.py held the tail (with the depth's one division)."""
+    matched = best_d < stereo.TH_ORB
+    u_r0 = xy_r[best_j.long(), 0]
+    u_right, sad_best, ok_all = sad.sad_refine_plain(flat_l, flat_r, levels,
+                                                     xy_l, u_r0)
+    n = u_right.shape[0]
+    good = matched & ok_all
+    disparity = xy_l[:, 0] - u_right
+    tiny = disparity <= 0
+    disparity = torch.where(tiny, 0.01, disparity)
+    u_right = torch.where(tiny, xy_l[:, 0] - 0.01, u_right)
+    good = good & (disparity < fx)
+    inf = float("inf")
+    sad_sorted = torch.sort(torch.where(good, sad_best, inf)).values
+    med = sad_sorted[(good.sum() // 2).clamp(0, n - 1)]
+    good = good & (sad_best <= 1.5 * 1.4 * med)
+    return (torch.where(good, u_right, -1.0),
+            torch.where(good, torch.div(torch.tensor(bf), disparity), -1.0))
+
+
+def test_stereo_depth_takes_plain_on_cpu_and_checks():
+    """stereo_depth on CPU tensors is the plain version, launches nothing,
+    and gives match_stereo's former tail's bits on the rendered orbit
+    pair; it raises on a wrong type or shape and on mixed devices."""
+    args = _orbit_depth_inputs()
+    bf, fx = sad._f32(40.0), sad._f32(500.0)
+    before = dict(sad.LAUNCHES)
+    got = sad.stereo_depth(*args, bf, fx)
+    assert sad.LAUNCHES == before
+    want = _former_tail(*args, bf, fx)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int((got[1] > 0).sum()) > 300
+    fl, fr, levels, xy, xy_r, bd, bj = args
+    bad = {
+        "xy_l must be torch.float32": (fl, fr, levels, xy.double(), xy_r, bd,
+                                       bj),
+        "best_d must be torch.int32": (fl, fr, levels, xy, xy_r, bd.long(),
+                                       bj),
+        "best_j must be torch.int32": (fl, fr, levels, xy, xy_r, bd, bj[1:]),
+        "xy_r must be": (fl, fr, levels, xy, xy_r[:, :1], bd, bj),
+        "flat_r must be float32": (fl, fr.double(), levels, xy, xy_r, bd,
+                                   bj),
+        "flat_l must be the packed levels": (fl[:100], fr, levels, xy, xy_r,
+                                             bd, bj),
+        "one CUDA device": (fl, fr, levels, xy, xy_r.to("meta"), bd, bj),
+    }
+    for match, call in bad.items():
+        with pytest.raises(ValueError, match=match):
+            sad.stereo_depth(*call, bf, fx)
+
+
+def test_sad_layout_cache():
+    """A level layout's table is built once per levels tuple and holds what
+    a fresh table holds; a list of the same levels gives the same."""
+    levels = orb.level_table(((480, 640), (400, 533), (333, 444)),
+                             (400, 350, 250), (1.0, 1.2, 1.44))
+    lay = sad.layout(levels)
+    assert sad.layout(levels) is lay and lay.levels is levels
+    assert (lay.n, lay.size) == (1000, 480 * 640 + 400 * 533 + 333 * 444)
+    fresh = sad._table(levels)
+    assert bytes(lay.table) == bytes(fresh)
+    assert lay.address == ctypes.addressof(lay.table)
+    again = sad.layout(list(levels))
+    assert bytes(again.table) == bytes(fresh) and again.n == lay.n
+    small = orb.level_table(((40, 20),), (3,), (1.0,))
+    bad = sad.layout(small)
+    assert bad.table is None and "at least 11 rows" in bad.error
+    assert bad.n == 3 and bad.size == 800
