@@ -163,12 +163,14 @@ Phases (any failure raises and the script exits nonzero without the final
 9. Stereo at the bench configuration (bench.py's stereo figure): 640x480,
    1000 features, bf = 40, fx = 500, MapConfig(24, 1000, 8000, 8), the
    60-frame orbit with the right view rendered at the 8 cm baseline, the
-   default AutoTrackerConfig(), built, its first 20 frames re-tracked (the
-   whole orbit before the monocular phase came), then the next 10 frames
-   with stage timers. Initialized, never lost, every frame valid,
+   default AutoTrackerConfig(), built, then its first 10 frames again
+   with stage timers (phase 17 re-tracks the figure and holds the
+   re-tracking passes to these checks). Initialized, never lost, every
+   frame valid,
    at least 3 keyframes, median translation error < 0.03 m, more than 200
    features with depth on frame 0, one ``masked_best_two`` launch by the
-   stereo association in every frame, at least one launch per frame
+   stereo association in every frame of the build pass, at least one
+   launch per frame
    more than the default RGB-D tracker of phase 6 made over the same 60
    poses, and at least two K3 launches per tracked frame (phase 10 too).
    Prints ms per frame and the stage times of the front end: both
@@ -176,25 +178,28 @@ Phases (any failure raises and the script exits nonzero without the final
 10. Stereo at the KITTI 00-02 camera (bench.py's KITTI-shape figure):
    1241x376, 2000 features, fx = fy = 718.856, cx = 607.1928,
    cy = 185.2157, bf = 386.1448, MapConfig(24, 2000, 8000, 8), fps = 10,
-   30 frames, built, the first 10 re-tracked (all 30 before the monocular
-   phase came), then the next 10 frames with stage timers. Initialized, not lost, every frame valid. Prints the same times
+   30 frames, built, then the first 10 again with stage timers.
+   Initialized, not lost, every frame valid. Prints the same times
    and ``trajectory_kitti()``'s line count. (The scene stays well tracked
    from the first keyframe, so this run inserts no second one and its only
    kernel is ``masked_best_two``.)
 11. Monocular at the bench configuration (bench.py's mono figure): 640x480,
    2000 features, min_init_features=200, min_init_matches=60,
    MapConfig(24, 2000, 8000, 8), fps=30, the default AutoTrackerConfig(),
-   the 60 images of the orbit built then re-tracked once. Initialized,
-   never lost, every frame after the bootstrap frame valid in both
-   passes, at least 3 keyframes, similarity-aligned (scale + SE3) ATE
-   below 0.03 m in either pass, the median scene depth of keyframe 0
-   equal to 1 within 1e-3 right after the bootstrap, ``masked_best_two``
-   launched by search_for_initialization and by search_for_triangulation,
-   both kernels launched over the two passes. Prints the bootstrap frame,
-   the number of two-view landmarks, whether H or F won, ms per frame of
-   both passes and the stage times of the bootstrap frame. Both passes
-   keep the newest inputs of every (calling function, shape) they gave
-   either kernel; afterwards each of these problems, the local-map search
+   the 60 images of the orbit, one pass (phase 17 re-tracks the same
+   configuration as the bench's mono figure). Initialized, never lost,
+   every frame after the bootstrap frame valid, at least 3 keyframes,
+   similarity-aligned (scale + SE3) ATE below 0.03 m, the median scene
+   depth of keyframe 0 equal to 1 within 1e-3 right after the bootstrap,
+   ``masked_best_two`` launched by search_for_initialization and by
+   search_for_triangulation. Prints the bootstrap frame, the number of
+   two-view landmarks, whether H or F won, ms per frame and the stage
+   times of the bootstrap frame. The pass keeps the newest inputs of
+   every (calling function, shape) it gave either kernel. After phase 17,
+   both kernels were launched over this pass and the bench's mono figure
+   (build and re-tracking passes: this pass alone seldom reaches the
+   duplicate merge, distance_matrix), and the newest problem of every
+   (calling function, shape) of the two, the local-map search
    at [4096,2000] among them, and the epipolar mask of the run's keyframes
    1 and 0 at [2000,2000] join phase 3: bit-exact against the plain
    version and the baseline kernel, and timed like the others. Last, the
@@ -325,10 +330,25 @@ Phases (any failure raises and the script exits nonzero without the final
    e. examples.run_fixture_eval --skip-run over phase 14's run
       directories: its ATE and RPE equal phase 14's scores within 1e-6
       and its ATE cells read the same.
+17. The port's bench (orb_slam2_with_comment_tpu_torch/bench.py, the
+   counterpart of the repository's bench.py) at bench.py's full
+   configuration: RGB-D 60 frames built then re-tracked 3 times, a
+   from-scratch map-building pass, stereo and the KITTI camera and mono
+   each built then re-tracked twice, timed with CUDA events, driven a
+   figure at a time through the bench's own functions (figures, track,
+   report). Its JSON line is logged; it must have no error and every
+   figure. Every timed frame of every figure is valid (and each timed
+   pass within the bench's pose gates); each timed pass launches K3 at
+   least twice a tracked frame; every stereo frame, build and re-tracking
+   passes, is one ``masked_best_two`` launch of the stereo association;
+   on each figure's timed frames K1 launches, each K2 kernel once a view,
+   K5 once a stereo frame and never elsewhere, and K4 on every figure but
+   the KITTI camera's (run_bench). The mono figure's problems join phase
+   11's (above).
    Every stereo path refined each pair it extracted on the card with one
    K5 launch (check_k5_per_pair), and every dense BA solve on the card
    was one ba_solve launch; the paths that keep a map (4, 6, 9, 11, 13a,
-   16c) ran solves (check_k4_per_solve).
+   16c, 17) ran solves (check_k4_per_solve).
    Every (calling function, shape) phases 4, 9-10, 13a, 13c and 14-16 gave
    the kernels (the local-map window at [min(4096, l_max), n_feat] before
    and after growth among them) is then held bit-exact against the plain
@@ -369,7 +389,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from orb_slam2_with_comment_tpu_torch import Sensor, System, checkpoint
+from orb_slam2_with_comment_tpu_torch import Sensor, System, bench, checkpoint
 from orb_slam2_with_comment_tpu_torch.dataio import (
     datasets, fixtures, native_loader, png, synthetic)
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
@@ -1191,24 +1211,24 @@ def sad_cases(dev):
     odd = render_job((0.0, [pose] + right_view([pose], BENCH_BASELINE),
                       dict(fx=500.0, fy=500.0, cx=320.5, cy=239.5,
                            width=641, height=479), "image"), dev)
-    kitti = (kl, kr, KITTI_BF, KITTI_CAM["fx"])
-    bench = (left, right, 40.0, 500.0)
-    return [("bench pair, 640x480, 1000", *bench[:2], 1000, *bench[2:],
+    kitti = (kl, kr, bench.KITTI_BF, bench.KITTI_CAM["fx"])
+    pair = (left, right, 40.0, 500.0)
+    return [("bench pair, 640x480, 1000", *pair[:2], 1000, *pair[2:],
              None),
             ("KITTI camera, 1241x376, 2000", *kitti[:2], 2000, *kitti[2:],
              None),
-            ("odd size, 641x479, 1000", odd[0], odd[1], 1000, *bench[2:],
+            ("odd size, 641x479, 1000", odd[0], odd[1], 1000, *pair[2:],
              None),
-            ("bench pair, 5 (levels of budget 0)", *bench[:2], 5,
-             *bench[2:], None),
-            ("bench pair, 1000, window and strip at the edges", *bench[:2],
-             1000, *bench[2:], "edges"),
+            ("bench pair, 5 (levels of budget 0)", *pair[:2], 5,
+             *pair[2:], None),
+            ("bench pair, 1000, window and strip at the edges", *pair[:2],
+             1000, *pair[2:], "edges"),
             ("bench pair, 1000, every best_d >= 75 (median inf)",
-             *bench[:2], 1000, *bench[2:], "unmatched"),
+             *pair[:2], 1000, *pair[2:], "unmatched"),
             ("KITTI camera, 1241x376, 4096", *kitti[:2], 4096, *kitti[2:],
              None),
-            ("bench pair, 1000, ties at the median", *bench[:2], 1000,
-             *bench[2:], "ties")]
+            ("bench pair, 1000, ties at the median", *pair[:2], 1000,
+             *pair[2:], "ties")]
 
 
 def sad_inputs(dev, left, right, n, bf, fx, variant):
@@ -1895,7 +1915,7 @@ def check_k5_per_pair(by_phase: dict):
 # the paths whose keyframe maintenance surely runs a local BA: each
 # inserts keyframes that share landmarks
 K4_PATHS = ("4 rgbd slice", "6 default rgbd", "9 stereo bench",
-            "11 mono bench", "13a system rgbd", "16c street")
+            "11 mono bench", "13a system rgbd", "16c street", "17 bench")
 
 
 def check_k4_per_solve(by_phase: dict):
@@ -1949,9 +1969,6 @@ def synced_ms(fn) -> float:
 
 REDUCED_CAM = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320,
                    height=240)
-KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
-                 width=1241, height=376)  # Examples/Stereo/KITTI00-02.yaml
-KITTI_BF = 386.1448
 BENCH_BASELINE = 40.0 / 500.0  # bf / fx of the bench configuration
 MONO_SEQ = "orbit60"  # the sequence phase 11 tracks (its images only)
 MULTI_FRAMES = 20  # the frames phase 15a tracks in each of its two worlds
@@ -1983,9 +2000,10 @@ def sequences() -> dict:
         "loop18_shifted": (0.0, lap + right_view(lap[:4], 0.15), {}, "raw"),
         "pressure40": (0.0, orbit_trajectory(n_frames=40), {}, "rgbd"),
         "noisy40": (0.02, orbit60[:40], {}, "rgbd"),
-        "kitti30_left": (0.0, kitti30, KITTI_CAM, "image"),
+        "kitti30_left": (0.0, kitti30, bench.KITTI_CAM, "image"),
         "kitti30_right": (0.0, right_view(
-            kitti30, KITTI_BF / KITTI_CAM["fx"]), KITTI_CAM, "image"),
+            kitti30, bench.KITTI_BF / bench.KITTI_CAM["fx"]),
+            bench.KITTI_CAM, "image"),
         # phase 15a's second world: the orbit's first frames, seed 0
         "orbit_seed0": (0.0, orbit60[:MULTI_FRAMES], {}, "rgbd", 0),
     }
@@ -2065,33 +2083,6 @@ def render_all(workers: int, chunk: int = 5, names=None, device=None):
                          for f in part]
 
 
-def pose_errors(out, poses, offset=0):
-    n = len(poses)
-    t_err = [np.linalg.norm(out["t"][offset + i] - poses[i][1])
-             for i in range(n)]
-    r_err = [np.degrees(np.arccos(np.clip(
-        (np.trace(out["R"][offset + i] @ poses[i][0].T) - 1) / 2, -1, 1)))
-        for i in range(n)]
-    return float(np.median(t_err)), float(np.median(r_err))
-
-
-def timed_pass(process, frames):
-    """(CUDA-event ms, host-clock ms) per frame of process(frame) over
-    ``frames``."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    for frame in frames:
-        process(frame)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return (start.elapsed_time(end) / len(frames),
-            1000 * wall / len(frames))
-
-
 def run_slice(dev):
     """Phase 4: the full-width RGB-D slice, counted launches, timed passes.
     Returns (the launches, the newest problem of each calling function and
@@ -2104,8 +2095,8 @@ def run_slice(dev):
     reset_launches()
     with captured_problems() as problems:
         for k, count in enumerate((n, n_again)):
-            ms, wall = timed_pass(lambda f: tracker.process_rgbd(*f),
-                                  frames[:count])
+            ms, wall = bench.timed_pass(tracker, tracker.process_rgbd,
+                                        frames[:count])
             log(f"slice pass {k + 1} ({count} frames): {ms:.3f} ms/frame "
                 f"(CUDA events), {wall:.3f} ms/frame (host clock)")
     launches = launch_counts()
@@ -2119,7 +2110,7 @@ def run_slice(dev):
         "not every frame of both passes valid"
     assert 3 <= out["n_keyframes"] <= 24, out["n_keyframes"]
     for p, count in enumerate((n, n_again)):
-        t_med, r_med = pose_errors(out, poses[:count], offset=p * n)
+        t_med, r_med = bench.pose_errors(out, poses[:count], offset=p * n)
         log(f"pass {p + 1}: median t err {t_med:.5f} m, rot err "
             f"{r_med:.4f} deg")
         assert t_med < 0.02 and r_med < 1.0, "pose error gate"
@@ -2445,7 +2436,7 @@ def run_compaction(dev):
             tracker.process_rgbd(img, depth)
         launches = launch_counts()
         out = tracker.finalize()
-        t_med, r_med = pose_errors(out, poses)
+        t_med, r_med = bench.pose_errors(out, poses)
         log(f"compaction ({name}): n_compact_lm={out['n_compact_lm']} "
             f"n_compact_kf={out['n_compact_kf']} "
             f"valid={int(out['valid'].sum())}/{len(frames)} keyframe slots "
@@ -2466,12 +2457,33 @@ STEREO_STAGES = ((OrbExtractor, "stereo"),
                  (stereo, "_stereo_depth"))
 
 
-def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
-    """Phases 9 and 10: the default tracker on rectified pairs, built, its
-    first ``n_again`` frames re-tracked, then the ``n_staged`` frames after
-    them with stage timers. Returns (first pass launches, finalize()'s
-    result, the tracker, (median t error, frame 0's features with depth),
-    the first pass's problems for the kernels)."""
+@contextlib.contextmanager
+def association_launches():
+    """Within the block, each stereo association (frontend/stereo.py
+    match_stereo) appends its masked_best_two launches to the yielded
+    list: one a stereo frame."""
+    out = []
+    match_stereo = stereo.match_stereo
+
+    def counted_match(*a, **kw):
+        before = hamming.LAUNCHES["masked_best_two"]
+        r = match_stereo(*a, **kw)
+        out.append(hamming.LAUNCHES["masked_best_two"] - before)
+        return r
+
+    stereo.match_stereo = counted_match
+    try:
+        yield out
+    finally:
+        stereo.match_stereo = match_stereo
+
+
+def run_stereo(dev, label, cfg, pairs, poses, n_staged=10):
+    """Phases 9 and 10: the default tracker on rectified pairs, built, then
+    its first ``n_staged`` frames again with stage timers (the bench's
+    stereo figures time the re-tracking passes). Returns (first pass
+    launches, finalize()'s result, the tracker, (median t error, frame 0's
+    features with depth), the first pass's problems for the kernels)."""
     n = len(pairs)
     # frame 0's features with depth, outside the counted run
     feats, sd = OrbExtractor(n_features=cfg.n_features).stereo(
@@ -2480,39 +2492,24 @@ def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
     tracker = AutoTracker(cfg, AutoTrackerConfig(traj_capacity=8 * n),
                           device=dev)
     reset_launches()
-    # the stereo association's own launches, one per frame
-    match_launches = []
-    match_stereo = stereo.match_stereo
-
-    def counted_match(*a, **kw):
-        before = hamming.LAUNCHES["masked_best_two"]
-        out = match_stereo(*a, **kw)
-        match_launches.append(hamming.LAUNCHES["masked_best_two"] - before)
-        return out
-
-    stereo.match_stereo = counted_match
-    try:
+    with association_launches() as match_launches:
         with captured_problems() as problems:
-            build = timed_pass(lambda p: tracker.process_stereo(*p), pairs)
+            build = bench.timed_pass(tracker, tracker.process_stereo,
+                                     pairs)
         first_launches = launch_counts()
-        again = timed_pass(lambda p: tracker.process_stereo(*p),
-                           pairs[:n_again])
-    finally:
-        stereo.match_stereo = match_stereo
     with stage_ms(*STEREO_STAGES) as staged:
-        for pair in pairs[n_again:n_again + n_staged]:
+        for pair in pairs[:n_staged]:
             tracker.process_stereo(*pair)
     out = tracker.finalize()
-    t_med, r_med = pose_errors(out, poses)
+    t_med, r_med = bench.pose_errors(out, poses)
     log(f"{label}: initialized={out['initialized']} lost_at={out['lost_at']} "
-        f"valid={int(out['valid'].sum())}/{n + n_again + n_staged} keyframes="
+        f"valid={int(out['valid'].sum())}/{n + n_staged} keyframes="
         f"{out['n_keyframes']} loops={out['n_loops_closed']} inserted at "
         f"{np.nonzero(out['stats'][:n, 6])[0].tolist()} median t err "
         f"{t_med:.5f} m, rot err {r_med:.4f} deg; features with depth on "
         f"frame 0: {n_depth0}")
     log(f"{label}: build pass {build[0]:.3f} ms/frame (CUDA events), "
-        f"{build[1]:.3f} (host clock); re-tracking pass ({n_again} frames) "
-        f"{again[0]:.3f} and {again[1]:.3f}")
+        f"{build[1]:.3f} (host clock)")
     log(f"{label}: front end by stage, ms per frame over {n_staged} frames "
         f"(synced; nested stages count in their callers): "
         f"{ {k: round(v / n_staged, 3) for k, v in staged.items()} }")
@@ -2520,7 +2517,7 @@ def run_stereo(dev, label, cfg, pairs, poses, n_again, n_staged=10):
         f"stereo association per frame {sorted(set(match_launches))}")
     assert out["initialized"] and out["lost_at"] == -1, "tracking lost"
     assert out["valid"].all(), "not every frame valid"
-    assert match_launches == [1] * (n + n_again), \
+    assert match_launches == [1] * n, \
         "the stereo association is not one masked_best_two launch per frame"
     assert first_launches["pose_lm"] >= 2 * (n - 1), \
         "fewer than two pose LM launches per tracked frame"
@@ -2542,8 +2539,9 @@ def stereo_kitti_setup():
     """bench.py's KITTI-shape stereo figure: (config, pairs, poses)."""
     cfg = TrackerConfig(
         sensor="stereo", n_features=2000, min_init_features=200,
-        bf=KITTI_BF, map_cfg=MapConfig(k_max=24, n_feat=2000, l_max=8000,
-                                       d_max=8), fps=10, **KITTI_CAM)
+        bf=bench.KITTI_BF, map_cfg=MapConfig(k_max=24, n_feat=2000,
+                                             l_max=8000, d_max=8),
+        fps=10, **bench.KITTI_CAM)
     pairs = list(zip(frames_of("kitti30_left"), frames_of("kitti30_right")))
     return cfg, pairs, orbit_trajectory(n_frames=60)[:30]
 
@@ -2552,7 +2550,7 @@ def run_stereo_bench(dev, rgbd_build_launches):
     """Phase 9: stereo at the bench configuration."""
     cfg, pairs, poses = stereo_bench_setup()
     launches, out, _, (t_med, n_depth0), problems = run_stereo(
-        dev, "stereo (bench)", cfg, pairs, poses, n_again=20)
+        dev, "stereo (bench)", cfg, pairs, poses)
     assert out["n_keyframes"] >= 3, out["n_keyframes"]
     assert t_med < 0.03, "pose error gate (tests/test_auto.py:183-185)"
     assert n_depth0 > 200, "too few features with depth on frame 0"
@@ -2570,7 +2568,7 @@ def run_stereo_kitti(dev):
     """Phase 10: stereo at the KITTI 00-02 camera."""
     cfg, pairs, poses = stereo_kitti_setup()
     launches, out, tracker, _, problems = run_stereo(
-        dev, "stereo (KITTI camera)", cfg, pairs, poses, n_again=10)
+        dev, "stereo (KITTI camera)", cfg, pairs, poses)
     lines = tracker.trajectory_kitti()
     log(f"stereo (KITTI camera): trajectory_kitti() gives {len(lines)} "
         f"lines of {len(lines[0].split())} numbers")
@@ -2683,23 +2681,11 @@ def captured_problems():
         ba.ba_solve = saved_ba
 
 
-def sim_ate(out, poses, offset=0):
-    """Similarity-aligned (scale + SE3) ATE RMSE over the valid frames of
-    one pass, in metres of the ground truth."""
-    n = len(poses)
-    sel = out["valid"][offset:offset + n]
-    gt = camera_centers(np.stack([p[0] for p in poses])[sel],
-                        np.stack([p[1] for p in poses])[sel])
-    est = camera_centers(out["R"][offset:offset + n][sel],
-                         out["t"][offset:offset + n][sel])
-    return ate_rmse(est, gt, with_scale=True)
-
-
 def run_mono(dev):
     """Phase 11: the monocular tracker at the bench configuration, the
-    default AutoTrackerConfig(), over the 60-frame orbit, then re-tracked
-    once. Returns (launches of both passes, the tracker, the newest
-    problem of each shape either pass gave the kernels)."""
+    default AutoTrackerConfig(), over the 60-frame orbit (the bench's mono
+    figure times the re-tracking passes). Returns (the pass's launches,
+    the tracker, the newest problem of each shape it gave the kernels)."""
     n = 60
     poses = sequences()[MONO_SEQ][1]
     frames = [f[0] if isinstance(f, tuple) else f
@@ -2734,12 +2720,8 @@ def run_mono(dev):
                             frame=i, ms=build_ms[-1], stages=dict(staged),
                             n_lm=int(m.n_lm),
                             depth0=float(steps.scene_median_depth(m, 0)))
-                first_launches = launch_counts()
-            again = timed_pass(tracker.process_mono, frames)
     finally:
         initializer.initialize_from_samples = first_init
-    # the phase is both passes: the build pass inserts so often that its
-    # maintenance cycles seldom reach the duplicate merge (distance_matrix)
     launches = launch_counts()
     out = tracker.finalize()
     assert out["initialized"] and "frame" in boot, "never bootstrapped"
@@ -2753,31 +2735,25 @@ def run_mono(dev):
         f"{[round(v, 2) for v in build_ms[:b]]}), by stage (ms, synced): "
         f"{boot['stages']}")
     log(f"mono (bench): initialized={out['initialized']} "
-        f"lost_at={out['lost_at']} valid={int(out['valid'].sum())}/{2 * n} "
+        f"lost_at={out['lost_at']} valid={int(out['valid'].sum())}/{n} "
         f"keyframes={out['n_keyframes']} loops={out['n_loops_closed']} "
         f"inserted at {np.nonzero(out['stats'][:n, 6] == 1)[0].tolist()}")
     log(f"mono (bench): build pass {np.mean(tracked):.3f} ms/frame after the "
         f"bootstrap (host clock, synced per frame; median "
-        f"{np.median(tracked):.3f}); re-tracking pass {again[0]:.3f} ms/frame "
-        f"(CUDA events), {again[1]:.3f} (host clock)")
-    log(f"mono (bench): launches in both passes {launches}, in the build "
-        f"pass {first_launches}, of masked_best_two by function there "
+        f"{np.median(tracked):.3f})")
+    log(f"mono (bench): launches {launches}, of masked_best_two by function "
         f"{by_fn}")
     assert out["lost_at"] == -1, "tracking lost"
-    assert out["valid"][b:n].all() and out["valid"][n:].all(), \
+    assert out["valid"][b:].all(), \
         "a frame after the bootstrap frame is invalid"
     assert not out["valid"][:b].any()
     assert out["n_keyframes"] >= 3, out["n_keyframes"]
     assert abs(boot["depth0"] - 1.0) < 1e-3, "the gauge is not depth 1"
-    for p in range(2):
-        rmse = sim_ate(out, poses, offset=p * n)
-        log(f"mono (bench) pass {p + 1}: similarity-aligned ATE "
-            f"{rmse:.5f} m")
-        assert rmse < 0.03, "ATE gate (tests/test_auto.py:310-311)"
+    rmse = bench.sim_ate(out, poses)
+    log(f"mono (bench): similarity-aligned ATE {rmse:.5f} m")
+    assert rmse < 0.03, "ATE gate (tests/test_auto.py:310-311)"
     assert by_fn["search_for_initialization"] > 0
     assert by_fn["search_for_triangulation"] > 0
-    assert not missing(launches), \
-        f"kernels {missing(launches)} never launched on the mono path"
     return launches, tracker, problems
 
 
@@ -2840,8 +2816,9 @@ def check_mono_problems(dev, tracker, problems, rows):
     against the plain versions and the baseline kernel and timed like the
     others: the epipolar mask of the run's keyframes 1 and 0 at
     [2000, 2000], and the newest problem of every (calling function,
-    shape) that phase 11 gave either kernel, the local-map search at
-    [4096, 2000] among them. Appended to the kernels' rows."""
+    shape) that phase 11 and the bench's mono figure (phase 17) gave the
+    kernels, the local-map search at [4096, 2000] among them. Appended to
+    the kernels' rows."""
     m = tracker.state.map
     k1, k2 = steps._kf_featureset(m, 1), steps._kf_featureset(m, 0)
     F12, e2 = steps.epipolar_geometry(m, tracker.cfg.cam, 1, 0)
@@ -3813,12 +3790,12 @@ def run_localization(dev, mapper, root):
     black = (np.zeros((480, 640), np.uint8), np.zeros((480, 640), np.uint16))
     reset_launches()
     with captured_problems() as problems:
-        ms, wall = timed_pass(lambda f: loc.process_rgbd(*f), frames)
+        ms, wall = bench.timed_pass(loc, loc.process_rgbd, frames)
         launches = launch_counts()
         for img, depth in [black] * 3 + frames[2:5]:
             loc.process_rgbd(img, depth)
     out = loc.finalize()
-    t_med, r_med = pose_errors(out, poses, offset=start)
+    t_med, r_med = bench.pose_errors(out, poses, offset=start)
     seg = slice(start, start + n)
     r = start + n + 3  # the first revisit frame
     k1_per_frame = k1_launches(launches) / n
@@ -4080,6 +4057,81 @@ def check_results_table(root, outcomes):
     assert set(res) == {p[0] for p in pairs}, sorted(res)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: the port's bench
+# ---------------------------------------------------------------------------
+
+# the figures whose timed passes run a local BA (K4): every one but the
+# KITTI camera's, whose map keeps one keyframe
+K4_FIGURES = ("tracking_fps", "map_building_fps", "stereo_fps", "mono_fps")
+
+
+def run_bench(dev):
+    """Phase 17: the port's bench (orb_slam2_with_comment_tpu_torch/bench.py)
+    at bench.py's full configuration, driven as bench.run drives it
+    (figures, track, report; the kernels are built already), a figure at a
+    time so that the phase can watch each. Its JSON line is logged; it
+    must have no error, a headline above 0 and every sub-figure. Every
+    timed frame of every figure is valid; each timed pass launches K3 at
+    least twice a tracked frame; every stereo frame (build and timed
+    passes) is one masked_best_two launch of the stereo association; per
+    timed frame K1 launches, each K2 kernel once a view, K5 once a stereo
+    frame and never elsewhere, K4 on the figures of K4_FIGURES. The mono
+    figure keeps the newest inputs of every (calling function, shape) it
+    gave the kernels (the copies are made inside its timed passes, so its
+    logged times include them). Returns (the run's launches, the mono
+    figure's launches over its build and timed passes, its problems)."""
+    figs = bench.figures(60, dev)
+    runs, mono = [], None
+    reset_launches()
+    with association_launches() as per_stereo_frame:
+        for fig in figs:
+            before = launch_counts()
+            with (captured_problems() if fig.cfg.sensor == "mono"
+                  else contextlib.nullcontext({})) as problems:
+                runs.append(bench.track(fig, dev))
+            if fig.cfg.sensor == "mono":
+                mono = ({k: v - before[k] for k, v in launch_counts().items()},
+                        problems)
+    launches = launch_counts()
+    result = bench.report(figs, runs, dev)
+    log(f"bench: {json.dumps(result)}")
+    assert "error" not in result and "errors" not in result, result
+    assert result["value"] > 0
+    passes = result["extra"]["passes"]
+    assert set(passes) == {bench.HEADLINE, *bench.SUB_FIGURES}, sorted(passes)
+    stereo_frames = 0
+    for fig, fig_run in zip(figs, runs):
+        n = len(fig.frames)
+        log(f"bench {fig.name}: each timed pass's ms a frame by CUDA events "
+            f"and by the host clock {fig_run.times}, its K4 launches "
+            f"{[p['ba_solve'] for p in fig_run.launches]}, its K1 launches "
+            f"{[k1_launches(p) for p in fig_run.launches]}")
+        timed = fig_run.tracker.finalize()["valid"][n if fig.build else 0:]
+        assert timed.shape == (fig.passes * n,) and timed.all(), \
+            f"{fig.name}: not every timed frame valid"
+        # a pass from scratch tracks every frame but the first
+        tracked = n - (not fig.build)
+        assert all(p["pose_lm"] >= 2 * tracked for p in fig_run.launches), \
+            f"{fig.name}: fewer than two pose LM launches per tracked frame"
+        views = 1 + (fig.cfg.sensor == "stereo")
+        stereo_frames += (views - 1) * (fig.build + fig.passes) * n
+        per = passes[fig.name]["launches_per_frame"]
+        assert per["masked_best_two"] > 0 and per["pose_lm"] > 0, \
+            (fig.name, per)
+        for k in orb.LAUNCHES:
+            assert per[k] == views, (fig.name, k, per[k])
+        assert per["stereo_sad"] == views - 1, (fig.name, per["stereo_sad"])
+        if fig.name in K4_FIGURES:
+            assert per["ba_solve"] > 0, (fig.name, per["ba_solve"])
+    assert per_stereo_frame == [1] * stereo_frames, \
+        "the stereo association is not one masked_best_two launch per frame"
+    log("bench launches per timed frame: " + str(
+        {name: p["launches_per_frame"] for name, p in passes.items()}))
+    return launches, *mono
+
+
 def main():
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -4139,7 +4191,6 @@ def main():
         dev, rgbd_build)
     by_phase["10 stereo kitti"], kitti_problems = run_stereo_kitti(dev)
     by_phase["11 mono bench"], mono_tracker, mono_problems = run_mono(dev)
-    check_mono_problems(dev, mono_tracker, mono_problems, rows)
     compare_initializer(dev)
     for k_max, fix_scale in ((96, True), (300, True), (300, False)):
         key = f"12 loop k_max {k_max}" + ("" if fix_scale else " free scale")
@@ -4182,6 +4233,20 @@ def main():
             run_vocab_eval(dev, renders)
         check_results_table(root, outcomes)
         log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    by_phase["17 bench"], bench_mono, bench_mono_problems = run_bench(dev)
+    log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
+    # the mono path's kernels over phase 11's pass and the bench's mono
+    # figure: phase 11's build pass inserts so often that its maintenance
+    # cycles seldom reach the duplicate merge (distance_matrix)
+    mono_launches = {k: c + bench_mono[k]
+                     for k, c in by_phase["11 mono bench"].items()}
+    log(f"mono path: launches of phase 11 and the bench's mono figure "
+        f"{mono_launches}")
+    assert not missing(mono_launches), \
+        f"kernels {missing(mono_launches)} never launched on the mono path"
+    check_mono_problems(dev, mono_tracker,
+                        {**mono_problems, **bench_mono_problems}, rows)
     # K4 on the dense BA problems of phases 4 and 9-11 (phase 11's in
     # check_mono_problems); the later paths give it the same shapes
     later = [row for row in (

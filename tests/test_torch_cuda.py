@@ -17,7 +17,9 @@ factorization in shared memory (24 poses) and from global memory (64),
 the step it rejects where S is not positive definite, two solves bit for
 bit and its limits; the host tracker's
 non-blocking readback, System on the card by default, and the map loader
-and AutoTracker.sync() on the card.
+and AutoTracker.sync() on the card; the port's bench
+(orb_slam2_with_comment_tpu_torch/bench.py) at BENCH_FRAMES 20 with no
+error and each kernel launched on its paths.
 
 The kernels' bit-exact comparison with their plain versions, and the slice
 on the card against the CPU, are phases of ``chip_smoke.py`` and are not
@@ -37,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from orb_slam2_with_comment_tpu_torch import Sensor, System
+from orb_slam2_with_comment_tpu_torch import Sensor, System, bench
 from orb_slam2_with_comment_tpu_torch.dataio.synthetic import (
     POSE_CASES, SyntheticWorld, ba_problem, orbit_trajectory, pose_problem)
 from orb_slam2_with_comment_tpu_torch.frontend import stereo
@@ -879,3 +881,27 @@ def test_ba_kernels_check_their_limits(dev):
     wide = _ba(dev, P=8, L=10, D=33, n_fixed=2)
     with pytest.raises(ValueError, match="1 to 32 observation slots"):
         ba.ba_solve(BA_CAM, wide)
+
+
+def test_bench_runs_on_the_card(dev):
+    """The port's bench at BENCH_FRAMES 20: no error, every figure timed by
+    CUDA events, and on each figure's timed frames K1 and K3 launch, each
+    K2 kernel once a view, K5 once a stereo frame and never elsewhere;
+    K4 on the map-building pass (a map built from scratch). (At 12 frames
+    the orbit moves about 0.2 m a frame and the monocular bootstrap finds
+    too few matches on the card with its random draws.)"""
+    out = bench.run(dev, 20)
+    assert "error" not in out and "errors" not in out, out
+    assert out["value"] > 0
+    assert set(out["extra"]) == {*bench.SUB_FIGURES, "passes", "card"}
+    passes = out["extra"]["passes"]
+    assert set(passes) == {bench.HEADLINE, *bench.SUB_FIGURES}
+    for name, p in passes.items():
+        assert all(ms > 0 for ms in p["events_ms_per_frame"]), name
+        per = p["launches_per_frame"]
+        views = 2 if "stereo" in name else 1
+        assert per["masked_best_two"] > 0 and per["pose_lm"] > 0, (name, per)
+        for k in orb.LAUNCHES:
+            assert per[k] == views, (name, k, per)
+        assert per["stereo_sad"] == views - 1, (name, per)
+    assert passes["map_building_fps"]["launches_per_frame"]["ba_solve"] > 0
