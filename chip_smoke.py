@@ -119,7 +119,24 @@ Phases (any failure raises and the script exits nonzero without the final
    ba_solve_plain, each phase's ms from the kernel's stamps, and
    torch.linalg.solve_ex on the same float64 S beside the factorize
    phase. The dense BA problems phases 4 and 9-11 give the solver
-   (captured_problems) join them after those phases.
+   (captured_problems) join them after those phases. Every solve hold_ba
+   holds also counts the iterations whose float64 accept decision a
+   float32 comparison of the same two chi2s (the JAX package's test)
+   would not take (ACCEPT_TEST, logged at the end).
+   Then every kernel beyond its first variant's shapes (check_variants),
+   each a row of the kernels line: K4 at P 24 / L 8192 with 48 and 64
+   slots, the observations spread over every slot (the wide variant,
+   hold_ba); K3 at [1,65536] and [3,65536] (a cluster of 16 blocks) and
+   [1,131072] (the edges from global memory; hold_pose); K2 at 24 levels
+   (the table in device memory), with 30 px cells, 24 levels of 30 px
+   cells and 16 px cells of 4 (orb_cells_any, the pair read from the
+   table) and with 140,000 features at 2560x1440 (orb_select through global
+   scratch): candidates and selection bit for bit, hold_describe's gates,
+   the chain against the plain chain and twice in bits; K5 at 24 levels
+   of the KITTI pair and of the bench pair with a 4 px margin (levels
+   under 11 rows, their reads clamped), in bits against its plain
+   version; K1 at [4,4194321] (the 64-bit key), bit-exact. Each timed
+   beside its bound and its plain version.
 4. Run the RGB-D slice at the bench configuration (640x480, 1000 features,
    MapConfig(24, 1000, 8000, 8), loop_closing=False) over the 60-frame
    synthetic orbit, then re-track its first 30 frames once more (the whole
@@ -216,8 +233,9 @@ Phases (any failure raises and the script exits nonzero without the final
    there the corrected keyframes' scale returns to within 5% of 1 and the
    position error falls below 0.5 of its value (the JAX package on the
    same frames on the CPU: 0.450). Prints the stage times of the firing
-   step, its edge count, its launches, and how far the same step run
-   twice differs (index_add_ sums in no fixed order on the card).
+   step, its edge count and its launches. (Phase 7's second run of the
+   firing step from the same input is not repeated here: at 300 slots it
+   takes 6-9 s, which pays for phase 18.)
 
 13. The System façade and the host-driven Tracker:
    a. System(cfg, Sensor.RGBD) at the bench configuration with the
@@ -356,10 +374,22 @@ Phases (any failure raises and the script exits nonzero without the final
    N) they gave K3 (the batched B = 3 solve of track_frame_core,
    track_local_map, track_reference_keyframe, the relocalization) is held
    to hold_pose's gates and timed. The kernels line's launches are phase
-   16c's; launches_by_phase and launches_per_frame_by_phase list every
+   16c's (a variant's row: phase 18's); launches_by_phase and launches_per_frame_by_phase list every
    path's. Every path must have launched each K2 kernel once per view it
    extracted on the card (check_k2_per_view: 3 per view, 6 per stereo
    frame). The last log line before it gives the whole run's time.
+18. The configurations beyond the kernels' first variants, through the
+   entry points a user calls (run_beyond): (a) the bench's RGB-D
+   configuration with MapConfig(d_max=48) over 30 orbit frames, phase 4's
+   tracking gates, every dense BA solve in K4's wide variant; (b) the
+   KITTI-camera pair through OrbExtractor(n_features=2000, n_levels=24,
+   cell=30).stereo on the card and on the CPU: the left features to phase
+   3's K2 gates, right u and depth the same bits on all but 1% of the
+   keypoints with a depth; (c) OrbExtractor(n_features=140000) on the
+   2560x1440 frame, optimize_pose at [1,65536] and [1,131072],
+   masked_best_two at [4,4194321]. Every variant of every kernel must
+   have launched; a variant's row of the kernels line counts phase 18's
+   launches.
 
     python3 chip_smoke.py --kernels-only
 
@@ -528,7 +558,8 @@ class BaselineOrb:
     def __init__(self):
         self.lib = orb._bind(ctypes.CDLL(cuda_lib.build("orb_v1")),
                              ORB_V1_FUNCTIONS)
-        got, want = self.lib.orb_table_bytes(), ctypes.sizeof(orb._OrbTable)
+        # its OrbTable: the package's up to the device level pointers
+        got, want = self.lib.orb_table_bytes(), orb.V1_TABLE_BYTES
         assert got == want, (got, want)
 
     def cells(self, flat, levels):
@@ -905,22 +936,26 @@ ORB_CIRCLE = int(sum(2 * orientation.UMAX[abs(v)] + 1
                                     orientation.HALF_PATCH + 1)))
 
 
-def bound_orb(kernel: str, levels, margin: int = 16):
-    """(bound_ms, bound_by) of one launch of an ORB kernel on ``levels``:
-    each input read once and each output written once (orb_describe's
-    reads are the patches its slots need, at most each buffer once),
-    against the float32 operations of csrc/orb.cu at 67 TFLOP/s."""
+def bound_orb(kernel: str, levels, margin: int = 16,
+              per_cell: int = orb.PER_CELL):
+    """(bound_ms, bound_by) of one launch of an ORB kernel on ``levels``
+    with ``per_cell`` candidates a cell: each input read once and each
+    output written once (orb_describe's reads are the patches its slots
+    need, at most each buffer once), against the float32 operations of
+    csrc/orb.cu at 67 TFLOP/s."""
     px = sum(lv.h * lv.w for lv in levels)
     lo = max(3, margin)
     scored = sum(max(lv.h - 2 * lo, 0) * max(lv.w - 2 * lo, 0)
                  for lv in levels)
     cells, slots = orb.n_cells(levels), orb.n_slots(levels)
+    cand = 4 * 2 * per_cell * cells  # the candidates' values and indices
     if kernel == "orb_cells":
-        return bound_of(3 * 4 * px + 64 * cells,
+        return bound_of(3 * 4 * px + cand,
                         ORB_OPS_SCORED * scored + ORB_OPS_PIXEL * px)
     if kernel == "orb_select":
-        return bound_of(64 * cells + 13 * slots,
-                        ORB_OPS_KEY * 8 * cells + ORB_OPS_SLOT_SELECT * slots)
+        return bound_of(cand + 13 * slots,
+                        ORB_OPS_KEY * per_cell * cells
+                        + ORB_OPS_SLOT_SELECT * slots)
     return bound_of(min(4 * ORB_CIRCLE * slots, 4 * px)
                     + min(4 * 512 * slots, 4 * px) + min(20 * slots, 4 * px)
                     + (8 + 48) * slots,
@@ -1231,12 +1266,13 @@ def sad_cases(dev):
              *pair[2:], "ties")]
 
 
-def sad_inputs(dev, left, right, n, bf, fx, variant):
+def sad_inputs(dev, left, right, n, bf, fx, variant, **kw):
     """K5's inputs on the main path: the packed pyramids, the level table,
     the left and right keypoints, K1's best distance and index of the
     stereo association, and the left valid flags. ``variant``: None,
-    "edges", "unmatched" or "ties" (sad_cases)."""
-    ext = OrbExtractor(n_features=n)
+    "edges", "unmatched" or "ties" (sad_cases); ``kw``: more OrbExtractor
+    keywords."""
+    ext = OrbExtractor(n_features=n, **kw)
     pyr = [ext._pyramid(torch.as_tensor(im, device=dev))
            for im in (left, right)]
     fl, fr = (ext._extract_from_pyramid(p) for p in pyr)
@@ -1485,6 +1521,32 @@ def bound_ba(prob, iters: int):
     return bound_of(read + write, iters * per_iter)
 
 
+# K4's accept test compares its two chi2 sums in float64; the JAX package
+# compares float32 sums. Over every solve hold_ba holds: the solves, their
+# iterations, and those where a float32 strict < of the two sums rounded to
+# float32 (the trace's values) parts from the float64 comparison (the
+# trace's fourth column): where the two sums round to one float32
+ACCEPT_TEST = {"solves": 0, "iterations": 0, "f32_differs": 0}
+
+
+def accept_f32_differs(trace: torch.Tensor, accept_all: bool) -> int:
+    """The iterations of a K4 trace [iters, 4] (chi2_old, chi2_new as
+    float32, accepted, chi2_new < chi2_old in float64) whose float32 and
+    float64 comparisons of the two chi2s part."""
+    if accept_all or not len(trace):
+        return 0
+    f32 = (trace[:, 1] < trace[:, 0]).float()
+    return int((f32 != trace[:, 3]).sum())
+
+
+def tally_accept_test(trace: torch.Tensor, accept_all: bool) -> int:
+    n = accept_f32_differs(trace, accept_all)
+    ACCEPT_TEST["solves"] += 1
+    ACCEPT_TEST["iterations"] += 0 if accept_all else len(trace)
+    ACCEPT_TEST["f32_differs"] += n
+    return n
+
+
 def damping_after(accepted, lam, accept_all: bool) -> float:
     """The damping an accept sequence leads to, as the kernel computes it."""
     lam = np.float32(lam)
@@ -1709,6 +1771,7 @@ def hold_ba(where: str, args, plain_reps: int = 3, time_baseline=True):
             f"K4 accept sequence {mine[:, 2].tolist()} against " \
             f"{plain[:, 2].tolist()} at {where}"
     flips = int((mine[:, 2] != plain[:, 2]).sum())
+    f32_differs = tally_accept_test(mine, accept_all)
     lam_f = float(torch.as_tensor(lam0))
     assert float(got.final_lambda) == damping_after(
         mine[:, 2].tolist(), lam_f, accept_all), where
@@ -1731,7 +1794,8 @@ def hold_ba(where: str, args, plain_reps: int = 3, time_baseline=True):
         base_ba().solve(cam, prob, iters, robust, lam0, accept_all)
 
     row = {"problem": where, "P": P, "L": L, "D": D, **counts,
-           "iters": iters, "accept_flips": flips, "vs_f64": err64,
+           "iters": iters, "accept_flips": flips,
+           "accept_f32_differs": f32_differs, "vs_f64": err64,
            "plain_f32_vs_f64": floor, "resolved_by_float32": resolved,
            "first_S_err": e_S, "S_scale": scale,
            "S_plain_f32_vs_f64": S_floor,
@@ -1820,6 +1884,296 @@ def check_ba_kernel(dev) -> dict:
                 other_problems=rows[1:])
 
 
+# ---------------------------------------------------------------------------
+# phase 3, every kernel beyond its first variant's shapes (csrc/*.cu's
+# variants, chosen by shape in the wrappers)
+# ---------------------------------------------------------------------------
+
+SRC = "orb_slam2_with_comment_tpu_torch/csrc/"
+ORB_REPLACES = ("orb_slam2_with_comment_tpu/frontend/extractor.py:118 (XLA "
+                "ops, :118-203, on ops/{fast,image,orientation,brief}.py; "
+                "not a Pallas kernel)")
+SAD_REPLACES = ("orb_slam2_with_comment_tpu/frontend/stereo.py:34 "
+                "(_sad_refine_block, an XLA program a level, called at "
+                ":135) and the tail at :141-161 (not a Pallas kernel)")
+POSE_REPLACES = ("orb_slam2_with_comment_tpu/optim/pose_opt.py:82 (an XLA "
+                 "program, :82-176; not a Pallas kernel)")
+# the extractor of phase 18's stereo front end: 24 levels of upstream
+# ORB-SLAM2's 30 px cells, at the KITTI camera
+BEYOND_EXT = dict(n_features=2000, n_levels=24, cell=30)
+
+
+def hold_best_two_key64(dev) -> dict:
+    """K1 above 2^22 targets ([4 x 4,194,321], about 1% admissible, two
+    columns tied on either side of 2^22, a row with no candidate): the
+    64-bit key's instantiation against masked_best_two_plain bit for bit,
+    then timed beside its bound and the plain version."""
+    gen = torch.Generator().manual_seed(17)
+    n = hamming.NARROW_TARGETS + 17
+    dq = random_desc(gen, 4).to(dev)
+    dt = random_desc(gen, n).to(dev)
+    mask = torch.rand((4, n), generator=gen).lt(0.01).to(dev)
+    dt[n - 5] = dq[0]
+    dt[7] = dq[0]
+    mask[0, [7, n - 5]] = True
+    mask[3] = False
+    before = hamming.VARIANT_LAUNCHES["masked_best_two_key64"]
+    got = hamming.masked_best_two(dq, dt, mask)
+    assert hamming.VARIANT_LAUNCHES["masked_best_two_key64"] == before + 1
+    want = hamming.masked_best_two_plain(dq, dt, mask)
+    err = assert_same("masked_best_two (64-bit key)", got, want,
+                      f"[4,{n}]")
+    assert int(got[1][0]) == 7 and int(got[3][0]) == n - 5
+    row = {"problem": f"random [4,{n}], 1%", "max_abs_err": err,
+           "ms": cuda_ms(lambda: hamming.masked_best_two(dq, dt, mask), 20),
+           "device_ms": graph_ms(lambda: hamming.masked_best_two(
+               dq, dt, mask), launches=5, reps=4),
+           "plain_ms": cuda_ms(lambda: hamming.masked_best_two_plain(
+               dq, dt, mask), 3)}
+    row["bound_ms"], row["bound_by"] = bound_best_two(dq, dt, mask,
+                                                      popc_per_s())
+    log(f"masked_best_two, 64-bit key, [4,{n}]: bit-exact; " +
+        f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} on the "
+        f"device; plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} "
+        f"ms by {row['bound_by']}")
+    return dict(row, name="hamming_masked_best_two_key64", route="cuda",
+                variant_key="masked_best_two_key64", source=SRC + "hamming.cu",
+                replaces="orb_slam2_with_comment_tpu/ops/hamming_pallas.py:59",
+                library_ms=None)
+
+
+def bound_orb_chain(levels, per_cell: int) -> tuple:
+    """The three ORB kernels' bounds of one view, summed (each a launch
+    after the other), by the one that bounds the most of them."""
+    parts = [bound_orb(k, levels, per_cell=per_cell) for k in orb.LAUNCHES]
+    by = max(("bytes", "operations"),
+             key=lambda b: sum(ms for ms, w in parts if w == b))
+    return sum(ms for ms, _ in parts), by
+
+
+def hold_orb_variant(name, pyr, ext, variant_key) -> tuple:
+    """K2 at a shape beyond its first variant's: orb_cells (or
+    orb_cells_any) and orb_select against their plain versions bit for bit,
+    orb_describe to hold_describe's gates with the angles held on the valid
+    slots (the keypoints; at 140,000 slots, 139,000 of them invalid at
+    zero-candidate positions, an invalid slot's angle differed by 1.6e-4
+    where its moments keep 1e-3 of their terms: the 1e-4 gate bounds the
+    samples of a thousand slots, not the float32 rounding of any slot; the
+    invalid slots' largest difference is logged), the chain against the
+    plain chain and two chains bit for bit; the chain then timed per view
+    beside the plain chain. Returns (row, largest held angle
+    difference)."""
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales), ext.cell)
+    flat = orb.pack(pyr)
+    pc = ext.per_cell
+    before = orb.VARIANT_LAUNCHES[variant_key]
+    want = orb.cells_plain(flat, levels, per_cell=pc)
+    got = orb.cells(flat, levels, per_cell=pc)
+    for part, a, b in zip(("score", "blurred"), got[:2], want[:2]):
+        for lv in levels:
+            assert torch.equal(orb._view(a, lv), orb._view(b, lv)), \
+                f"orb_cells {part} differs at {name}, level {lv.lvl}"
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]), \
+        f"orb_cells candidates differ at {name}"
+    score, blurred, cand_v, cand_i = want
+    want_s = orb.select_plain(cand_v, cand_i, levels)
+    for part, a, b in zip(("yx", "response", "valid"),
+                          orb.select(cand_v, cand_i, levels), want_s):
+        assert torch.equal(a, b), f"orb_select {part} differs at {name}"
+    yx, valid = want_s[0], want_s[2]
+    kept = orb.moment_cancellation(flat, yx, levels) >= 1e-3
+    err, dang, rows, bits, n_rows = hold_describe(
+        "orb_describe", orb.describe(flat, score, blurred, yx, levels),
+        orb.describe_plain(flat, score, blurred, yx, levels), valid,
+        kept & valid, True, name)
+    out = kept & ~valid
+    err_invalid = float(dang[out].max()) if bool(out.any()) else 0.0
+    assert orb.VARIANT_LAUNCHES[variant_key] > before, \
+        f"{variant_key} not launched at {name}"
+
+    def chain():
+        return orb.extract_levels(pyr, ext.budgets, ext.scales, ext.margin,
+                                  ext.th_high, ext.th_low, flat, ext.cell,
+                                  pc)
+    a, b = chain(), chain()
+    plain = orb.extract_levels_plain(flat, levels, ext.margin, ext.th_high,
+                                     ext.th_low, pc)
+    for part, x, y, z in zip(("xy", "response", "octave", "angle", "desc",
+                              "valid"), a, b, plain):
+        assert torch.equal(x, y), f"two ORB chains differ in {part} at {name}"
+        if part in ("xy", "response", "octave", "valid"):
+            assert torch.equal(x, z), f"the ORB chain's {part} at {name}"
+    row = {"problem": name, "levels": len(levels), "cell": ext.cell,
+           "per_cell": pc, "slots": orb.n_slots(levels),
+           "largest_budget": max(lv.budget for lv in levels),
+           "n_valid": int(valid.sum()), "max_abs_err": err,
+           "invalid_slots_angle_err": err_invalid,
+           "differing_valid_descriptor_rows": n_rows,
+           "ms": cuda_ms(chain, 20), "device_ms": graph_ms(chain, 10, 5),
+           "plain_ms": cuda_ms(lambda: orb.extract_levels_plain(
+               flat, levels, ext.margin, ext.th_high, ext.th_low, pc), 3)}
+    row["bound_ms"], row["bound_by"] = bound_orb_chain(levels, pc)
+    log(f"K2 {name} [{len(levels)} levels, cell {ext.cell}, {pc} a cell, "
+        f"largest budget {row['largest_budget']}]: candidates, yx, "
+        f"response, valid, octave and xy identical, two chains identical, "
+        f"coarser angles within {err:.3g} on valid slots ({err_invalid:.3g} "
+        f"on the invalid ones), descriptor rows differing "
+        f"{int(rows.sum())} ({n_rows} valid, at most "
+        f"{int(bits.max()) if len(bits) else 0} bits); the chain "
+        f"{row['ms']:.4f} ms per view, {row['device_ms']:.4f} on the device;"
+        f" plain chain {row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} "
+        f"ms by {row['bound_by']}")
+    return row, err
+
+
+def hold_sad_variant(where, args, bf, fx) -> dict:
+    """K5 at a shape beyond its first instantiation's (more than 16 levels,
+    levels under 11 x 21): u_right and depth against stereo_depth_plain in
+    bits, the best SAD, ok and the best shift against sad_refine_plain in
+    bits, two launches in bits; then timed beside the plain version."""
+    flat_l, flat_r, levels, xy, xy_r, best_d, best_j = args
+    lay = sad.layout(levels)
+    n = lay.n
+    got = sad.stereo_depth(*args, bf, fx)
+    out = sad.launch_depth(sad._kernel_lib(), lay, flat_l, flat_r, xy, xy_r,
+                           best_d, best_j, bf, fx)
+    inter = sad.outputs(out, n)
+    want = sad.stereo_depth_plain(*args, bf, fx)
+    u_r0 = xy_r[best_j.long(), 0]
+    ref = sad.sad_refine_plain(flat_l, flat_r, levels, xy, u_r0)
+    curves = sad.sad_curves_plain(flat_l, flat_r, levels, xy, u_r0)
+    for part, a, b in (("u_right", got[0], want[0]),
+                       ("depth", got[1], want[1]),
+                       ("u_right again", inter["u_right"], want[0]),
+                       ("best SAD", inter["sad"], ref[1]),
+                       ("ok", inter["ok"], ref[2]),
+                       ("best shift", inter["best"].long(),
+                        curves.argmin(1))):
+        assert torch.equal(_bits(a), _bits(b)), \
+            f"stereo_depth: {part} is not the plain version's bits at {where}"
+    small = [lv for lv in levels if lv.h < sad.PATCH or lv.w < sad.SPAN]
+    row = {"problem": where, "N": n, "levels": len(levels),
+           "small_levels": len(small), "n_good": int((want[1] > 0).sum()),
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: sad.stereo_depth(*args, bf, fx), 50),
+           "device_ms": graph_ms(lambda: sad.stereo_depth(*args, bf, fx)),
+           "plain_ms": cuda_ms(lambda: sad.stereo_depth_plain(*args, bf, fx),
+                               5)}
+    row["bound_ms"], row["bound_by"] = bound_sad(n)
+    log(f"stereo_depth {where} [{n} keypoints, {len(levels)} levels, "
+        f"{len(small)} under 11 x 21, {row['n_good']} with depth]: the "
+        f"plain version's bits, two launches too; {row['ms']:.4f} ms per "
+        f"call, {row['device_ms']:.4f} on the device; plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms by "
+        f"{row['bound_by']}")
+    return row
+
+
+def check_variants(dev) -> list:
+    """Phase 3, each kernel beyond its first variant's shapes, held with
+    its kernel's gates and timed: K4 at P 24 / L 8192 with D 48 and D 64,
+    the observations spread over every slot (the wide variant, hold_ba);
+    K3 at [1 x 65,536] and [3 x 65,536] (a cluster of 16) and [1 x
+    131,072] (the edges from global memory; hold_pose); K2 at 24 levels
+    (the table in device memory), at 30 px cells and at 16 px cells of 4
+    (orb_cells_any), 24 levels of 30 px cells (BEYOND_EXT), and 140,000
+    features at 2560x1440 (level 0's 30,427 slots above orb_select's
+    shared memory: its global scratch); K5 at 24 levels of the KITTI pair
+    (the table in device memory, levels 20-23 under 11 rows) and at 24
+    levels with a 4 px margin at 640x480 (keypoints on levels under 11
+    rows); K1 at [4 x 4,194,321] (the 64-bit key). Returns one row a
+    variant."""
+    rows = []
+    timed, err = [], 0.0
+    for D in (48, 64):
+        p = synthetic.ba_problem("mixed", 20 + D, P=24, L=8192, D=D,
+                                 spread=True)
+        prob = ba.BAProblem(*(torch.as_tensor(p[f]).to(dev)
+                              for f in ba.BAProblem._fields))
+        before = ba.VARIANT_LAUNCHES["ba_solve_wide"]
+        row, e = hold_ba(f"random, 24 poses, 8192 landmarks, {D} slots "
+                         "spread", (POSE_CAM, prob, 5, True, 1e-4, False),
+                         time_baseline=False)
+        assert ba.VARIANT_LAUNCHES["ba_solve_wide"] > before
+        timed.append(row)
+        err = max(err, e)
+    rows.append(dict(timed[0], name="ba_solve_wide", route="cuda",
+                     variant_key="ba_solve_wide", source=SRC + "ba.cu",
+                     replaces=BA_REPLACES, library_ms=None, max_abs_err=err,
+                     other_problems=timed[1:]))
+    for key, shapes in (("pose_lm_cluster16", ((1, 65536), (3, 65536))),
+                        ("pose_lm_stream", ((1, 131072),))):
+        timed, err = [], 0.0
+        for i, (b, n) in enumerate(shapes):
+            p = pose_problem("outliers", 500 + i, b, n)
+            args = (POSE_CAM, *(torch.as_tensor(p[k]).to(dev) for k in (
+                "R0", "t0", "Xw", "obs_uvr", "inv_sigma2", "valid")))
+            before = pose_opt.VARIANT_LAUNCHES[key]
+            row, e = hold_pose(f"random {b}x{n}", args)
+            assert pose_opt.VARIANT_LAUNCHES[key] > before, key
+            timed.append(row)
+            err = max(err, e)
+        rows.append(dict(timed[0], name=key, route="cuda", variant_key=key,
+                         source=SRC + "pose_lm.cu", replaces=POSE_REPLACES,
+                         max_abs_err=err, library_ms=None,
+                         other_problems=timed[1:]))
+    kitti = first_frames("kitti30_left", 1)[0]
+    f0 = first_frames("orbit60", 1)[0][0]
+    w, h = 2560, 1440
+    f = 500.0 * w / 640.0
+    big = render_job((0.0, [orbit_trajectory(n_frames=60)[7]],
+                      dict(fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h),
+                      "image"), dev)[0]
+    for key, cases in (
+            ("orb_far", [("KITTI camera, 1241x376, 2000, 24 levels", kitti,
+                          dict(n_features=2000, n_levels=24))]),
+            ("orb_cells_any", [
+                ("KITTI camera, 1241x376, 2000, 30 px cells", kitti,
+                 dict(n_features=2000, cell=30)),
+                ("KITTI camera, 1241x376, 2000, 24 levels of 30 px cells",
+                 kitti, BEYOND_EXT),
+                ("orbit frame 0, 640x480, 1000, 16 px cells of 4", f0,
+                 dict(n_features=1000, cell=16, per_cell=4))]),
+            ("orb_select_global", [("2560x1440, 140000", big,
+                                    dict(n_features=140000))])):
+        timed, err = [], 0.0
+        for name, img, kw in cases:
+            ext = OrbExtractor(**kw)
+            pyr = ext._pyramid(torch.as_tensor(img, device=dev))
+            row, e = hold_orb_variant(name, pyr, ext, key)
+            timed.append(row)
+            err = max(err, e)
+        rows.append(dict(timed[0], name=key, route="cuda", variant_key=key,
+                         source=SRC + "orb.cu", replaces=ORB_REPLACES,
+                         max_abs_err=err, library_ms=None,
+                         other_problems=timed[1:]))
+    kl, kr = (first_frames(s, 1)[0] for s in ("kitti30_left",
+                                              "kitti30_right"))
+    left = first_frames("orbit60", 1)[0][0]
+    right = first_frames("orbit60_right", 1)[0]
+    timed = []
+    for where, l_img, r_img, bf, fx, kw in (
+            ("KITTI camera, 1241x376, 2000, 24 levels of 30 px cells", kl,
+             kr, bench.KITTI_BF, bench.KITTI_CAM["fx"], BEYOND_EXT),
+            ("bench pair, 640x480, 2000, 24 levels, 4 px margin", left,
+             right, 40.0, 500.0, dict(n_levels=24, margin=4))):
+        bf, fx = sad._f32(bf), sad._f32(fx)
+        n = kw.get("n_features", 2000)
+        kw = {k: v for k, v in kw.items() if k != "n_features"}
+        ins = sad_inputs(dev, l_img, r_img, n, bf, fx, None, **kw)
+        before = dict(sad.VARIANT_LAUNCHES)
+        timed.append(hold_sad_variant(where, ins[:7], bf, fx))
+        assert all(sad.VARIANT_LAUNCHES[k] > before[k]
+                   for k in sad.VARIANT_LAUNCHES), where
+    rows.append(dict(timed[0], name="stereo_sad_far", route="cuda",
+                     variant_key="stereo_sad_far", source=SRC +
+                     "stereo_sad.cu", replaces=SAD_REPLACES, library_ms=None,
+                     other_problems=timed[1:]))
+    rows.append(hold_best_two_key64(dev))
+    return rows
+
+
 def fmt_times(row: dict) -> str:
     return (f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms "
             f"on the device; baseline kernel {row['prev_ms']:.4f} and "
@@ -1839,12 +2193,16 @@ def launch_counts() -> dict:
     views extracted on the card, "pairs": the stereo pairs among them,
     "ba_solves": the dense BA solves on the card."""
     return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **orb.LAUNCHES,
-            **sad.LAUNCHES, **ba.LAUNCHES, **FRAMES}
+            **sad.LAUNCHES, **ba.LAUNCHES, **hamming.VARIANT_LAUNCHES,
+            **pose_opt.VARIANT_LAUNCHES, **orb.VARIANT_LAUNCHES,
+            **sad.VARIANT_LAUNCHES, **ba.VARIANT_LAUNCHES, **FRAMES}
 
 
 def set_launches(counts: dict):
     for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, orb.LAUNCHES,
-              sad.LAUNCHES, ba.LAUNCHES, FRAMES):
+              sad.LAUNCHES, ba.LAUNCHES, hamming.VARIANT_LAUNCHES,
+              pose_opt.VARIANT_LAUNCHES, orb.VARIANT_LAUNCHES,
+              sad.VARIANT_LAUNCHES, ba.VARIANT_LAUNCHES, FRAMES):
         for k in c:
             c[k] = counts[k]
 
@@ -2279,7 +2637,7 @@ LOOP_MAP = MapConfig(k_max=20, n_feat=1000, l_max=10000, d_max=8)
 
 def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
                         label="controlled loop", seq="loop18",
-                        drift_gate=0.35):
+                        drift_gate=0.35, rerun=True):
     """Phases 7 and 12: tests/test_auto_loop.py's controlled loop at full
     width, through keyframe_step + close_loop_step. With fix_scale=False
     the map is monocular (no right coordinates; its landmarks still come
@@ -2289,7 +2647,9 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
     its scale. The keyframes after them keep that scale. ``seq`` names
     the 18 frames: the free-scale run takes the lap revisited from 15 cm
     aside ("loop18_shifted"), because a revisit from the very same camera
-    center makes the Sim3's scale unobservable to its refinement."""
+    center makes the Sim3's scale unobservable to its refinement.
+    ``rerun``: the firing step run once more from the same input and draws
+    (its stages and how far it lands from the first)."""
     cfg = TrackerConfig(n_features=1000, min_init_features=200,
                         map_cfg=map_cfg, fps=30, depth_factor=1.0)
     poses = sequences()[seq][1]
@@ -2376,14 +2736,17 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
                 fire_launches = {k: v - before_close[k]
                                  for k, v in launch_counts().items()}
                 scale_before = scale_now
-                # the same step again from the same input and draws
-                stages["again"] = warm_rerun(close, loop.gen, gen_state,
-                                             LOOP_STAGES)
-                # index_add_ sums in no fixed order on the card: what the
-                # same step from the same input and draws gives twice
-                again = box["r"][0]
-                rerun_diff = (float((again.kf_t - m.kf_t).abs().max()),
-                              float((again.lm_pw - m.lm_pw).abs().max()))
+                if rerun:
+                    # the same step again from the same input and draws
+                    stages["again"] = warm_rerun(close, loop.gen, gen_state,
+                                                 LOOP_STAGES)
+                    # index_add_ sums in no fixed order on the card: what
+                    # the same step from the same input and draws gives
+                    # twice
+                    again = box["r"][0]
+                    rerun_diff = (
+                        float((again.kf_t - m.kf_t).abs().max()),
+                        float((again.lm_pw - m.lm_pw).abs().max()))
     launches = launch_counts()
     assert events, "no loop closed over a perfect revisit"
     k0 = events[0]
@@ -2396,8 +2759,10 @@ def run_controlled_loop(dev, map_cfg=LOOP_MAP, fix_scale=True,
         f"{n_edges[0][0]} valid edges of {n_edges[0][1]} listed; launches "
         f"{launches}, of them in the firing step {fire_launches}")
     log(f"{label}: the firing step by stage (ms, synced): {stages}")
-    log(f"{label}: the firing step run twice differs by {rerun_diff[0]:.2e} m"
-        f" on keyframe translations, {rerun_diff[1]:.2e} m on landmarks")
+    if rerun:
+        log(f"{label}: the firing step run twice differs by "
+            f"{rerun_diff[0]:.2e} m on keyframe translations, "
+            f"{rerun_diff[1]:.2e} m on landmarks")
     if not fix_scale:
         after = {k: round(kf_scale(m, k), 4) for k in range(8, k0 + 1)}
         log(f"{label}: scale of keyframe {k0}'s landmarks {scale_before:.4f} "
@@ -4132,6 +4497,174 @@ def run_bench(dev):
     return launches, *mono
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the configurations beyond the kernels' first variants
+# ---------------------------------------------------------------------------
+
+BEYOND_MAP = MapConfig(k_max=24, n_feat=1000, l_max=8000, d_max=48)
+
+
+def beyond_rgbd(dev) -> dict:
+    """Phase 18a: the bench's RGB-D configuration with MapConfig(d_max=48)
+    over the first 30 orbit frames through AutoTracker on the card, held to
+    phase 4's tracking gates; every dense BA solve takes K4's wide variant.
+    Returns the launches."""
+    n = 30
+    poses = orbit_trajectory(n_frames=60)[:n]
+    tracker = AutoTracker(bench_cfg(BEYOND_MAP), AutoTrackerConfig(
+        traj_capacity=4 * n, loop_closing=False), device=dev)
+    ms, wall = bench.timed_pass(tracker, tracker.process_rgbd,
+                                frames_of("orbit60")[:n])
+    launches = launch_counts()
+    out = tracker.finalize()
+    t_med, r_med = bench.pose_errors(out, poses)
+    tracked = int(out["valid"].sum()) - 1
+    log(f"beyond, RGB-D d_max 48: {ms:.3f} ms/frame (CUDA events), "
+        f"{wall:.3f} (host clock); initialized={out['initialized']} "
+        f"lost_at={out['lost_at']} valid={int(out['valid'].sum())}/{n} "
+        f"keyframes={out['n_keyframes']}; median t err {t_med:.5f} m, rot "
+        f"err {r_med:.4f} deg; K4 {launches['ba_solve']} solves, "
+        f"{launches['ba_solve_wide']} in the wide variant; launches "
+        f"{launches}")
+    assert out["initialized"] and out["lost_at"] == -1, "tracking lost"
+    assert out["valid"].all(), "not every frame valid"
+    assert 3 <= out["n_keyframes"] <= 24, out["n_keyframes"]
+    assert t_med < 0.02 and r_med < 1.0, "pose error gate"
+    assert not missing(launches), \
+        f"kernels {missing(launches)} never launched at d_max 48"
+    assert launches["pose_lm"] >= 2 * tracked, \
+        "fewer than two pose LM launches per tracked frame"
+    assert launches["ba_solve"] > 0, "no dense BA solve at d_max 48"
+    assert launches["ba_solve_wide"] == launches["ba_solve"], \
+        "a solve at d_max 48 not in K4's wide variant"
+    return launches
+
+
+def beyond_stereo(dev):
+    """Phase 18b: the KITTI-camera pair through
+    OrbExtractor(BEYOND_EXT).stereo on the card (24 levels of 30 px cells:
+    levels 20-23 under 11 rows). The left features against the plain chain
+    on the call's own pyramid (image.build_pyramid on the card, what the
+    call builds), with phase 3's K2 gates (hold_describe's, the angles on
+    the valid slots); the right u and depth against stereo_depth_plain on
+    the call's own association (the right view through the same
+    extractor, K1 on the association mask) in bits, phase 3's K5 gate. Then
+    against the same call on the CPU, whose pyramid rounds otherwise (the
+    resize products sum in another order): the keypoints with a depth on
+    one side and not the other at most 5% of those with one, and 95% of
+    the depths both give within 1e-3 relative."""
+    kl, kr = (torch.as_tensor(first_frames(s, 1)[0], device=dev)
+              for s in ("kitti30_left", "kitti30_right"))
+    bf, fx = bench.KITTI_BF, bench.KITTI_CAM["fx"]
+    ext = OrbExtractor(**BEYOND_EXT)
+    before = {**orb.VARIANT_LAUNCHES, **sad.VARIANT_LAUNCHES}
+    t0 = time.perf_counter()
+    feats, sd = ext.stereo(kl, kr, bf, fx)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for k in ("orb_cells_any", "orb_far"):
+        assert orb.VARIANT_LAUNCHES[k] > before[k], k
+    for k in sad.VARIANT_LAUNCHES:
+        assert sad.VARIANT_LAUNCHES[k] > before[k], k
+    name = "KITTI pair, 24 levels of 30 px cells"
+    pyr = image.build_pyramid(kl.to(torch.float32), ext.n_levels,
+                              ext.scale_factor)
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales), ext.cell)
+    n_small = sum(lv.h < sad.PATCH for lv in levels)
+    assert len(levels) == 24 and n_small >= 4
+    flat = orb.pack(pyr)
+    plain = (ext.margin, ext.th_high, ext.th_low, ext.per_cell)
+    want = orb.extract_levels_plain(flat, levels, *plain)
+    for part, a, b in zip(("xy", "response", "octave"), feats[:3],
+                          want[:3]):
+        assert torch.equal(a, b), f"stereo front end beyond: {part}"
+    assert torch.equal(feats.valid, want[5]), "stereo front end beyond: valid"
+    yx = orb.select_plain(*orb.cells_plain(flat, levels, *plain)[2:],
+                          levels)[0]
+    kept = (orb.moment_cancellation(flat, yx, levels) >= 1e-3) & want[5]
+    err, _, rows, bits, n_rows = hold_describe(
+        "the stereo front end beyond",
+        (feats.xy, feats.octave, feats.angle, feats.desc),
+        (want[0], want[2], want[3], want[4]), want[5], kept, True, name)
+    right = ext(kr)  # the right view through the same kernels
+    f32 = sad._f32
+    mask = stereo.association_mask(feats, right, ext.scales, f32(fx))
+    best_d, best_j, _, _ = hamming.masked_best_two(feats.desc, right.desc,
+                                                   mask)
+    pyr_r = image.build_pyramid(kr.to(torch.float32), ext.n_levels,
+                                ext.scale_factor)
+    u, d = sad.stereo_depth_plain(flat, orb.pack(pyr_r), levels, feats.xy,
+                                  right.xy, best_d, best_j, f32(bf), f32(fx))
+    assert torch.equal(_bits(sd.u_right), _bits(u)) and \
+        torch.equal(_bits(sd.depth), _bits(d)), \
+        "stereo front end beyond: right u or depth not the plain bits"
+    t0 = time.perf_counter()
+    _, want_sd = ext.stereo(kl.cpu(), kr.cpu(), bf, fx)
+    cpu_s = time.perf_counter() - t0
+    dc, dp = sd.depth.cpu(), want_sd.depth
+    either, both = (dc > 0) | (dp > 0), (dc > 0) & (dp > 0)
+    one_side = int((either & ~both).sum())
+    close = ((dc - dp).abs() <= 1e-3 * dp.abs())[both]
+    log(f"beyond, stereo front end ({name}, {n_small} levels under 11 "
+        f"rows): card {card_s:.3f} s, CPU {cpu_s:.3f} s; features the "
+        f"plain chain's on the call's pyramid, angles within {err:.3g} on "
+        f"valid slots, descriptor rows differing {int(rows.sum())} "
+        f"({n_rows} valid, at most {int(bits.max()) if len(bits) else 0} "
+        f"bits); right u and depth stereo_depth_plain's bits "
+        f"({int((d > 0).sum())} with a depth); against the CPU call: "
+        f"{int(either.sum())} with a depth on either side, {one_side} on one "
+        f"side only, {int(close.sum())} of {int(both.sum())} within 1e-3")
+    assert int((d > 0).sum()) > 300, "too few stereo matches"
+    assert one_side <= 0.05 * int(either.sum())
+    assert int(close.sum()) >= 0.95 * int(both.sum())
+
+
+def beyond_entry_points(dev):
+    """Phase 18c: the other lifted shapes through their entry points:
+    OrbExtractor(n_features=140000) on the 2560x1440 frame (orb_select's
+    global scratch), optimize_pose at [1 x 65,536] and [1 x 131,072] (a
+    cluster of 16; the edges from global memory), masked_best_two at
+    [4 x 4,194,321] (the 64-bit key); each variant launched, the results
+    finite (phase 3 held each against its plain version)."""
+    w, h = 2560, 1440
+    f = 500.0 * w / 640.0
+    big = render_job((0.0, [orbit_trajectory(n_frames=60)[7]],
+                      dict(fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h),
+                      "image"), dev)[0]
+    feats = OrbExtractor(n_features=140000)(torch.as_tensor(big, device=dev))
+    assert int(feats.valid.sum()) > 500
+    for i, n in enumerate((65536, 131072)):
+        p = pose_problem("outliers", 600 + i, 1, n)
+        out = pose_opt.optimize_pose(POSE_CAM, *(
+            torch.as_tensor(p[k]).to(dev) for k in (
+                "R0", "t0", "Xw", "obs_uvr", "inv_sigma2", "valid")))
+        assert int(out.n_inliers[0]) > 0.7 * n and \
+            bool(torch.isfinite(out.R).all())
+    gen = torch.Generator().manual_seed(18)
+    n = hamming.NARROW_TARGETS + 17
+    dq, dt = random_desc(gen, 4).to(dev), random_desc(gen, n).to(dev)
+    mask = torch.rand((4, n), generator=gen).lt(0.01).to(dev)
+    best = hamming.masked_best_two(dq, dt, mask)[0]
+    assert bool((best <= 256).all())
+
+
+def run_beyond(dev) -> dict:
+    """Phase 18 (a-c). Returns the launches of the three parts: every
+    variant of every kernel among them."""
+    reset_launches()
+    launches = beyond_rgbd(dev)
+    beyond_stereo(dev)
+    beyond_entry_points(dev)
+    launches = launch_counts()
+    variants = {**hamming.VARIANT_LAUNCHES, **pose_opt.VARIANT_LAUNCHES,
+                **orb.VARIANT_LAUNCHES, **sad.VARIANT_LAUNCHES,
+                **ba.VARIANT_LAUNCHES}
+    log(f"beyond: the variants' launches {variants}")
+    assert all(variants.values()), f"a variant never launched: {variants}"
+    return launches
+
+
 def main():
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
@@ -4177,7 +4710,10 @@ def main():
     rows = (check_kernels(dev) + [check_pose_kernel(dev)]
             + check_orb_kernels(dev) + [check_sad_kernel(dev)]
             + [check_ba_kernel(dev)])
-    log(f"phase 3 in {time.perf_counter() - t3:.1f} s")
+    t3b = time.perf_counter()
+    rows += check_variants(dev)
+    log(f"phase 3 in {time.perf_counter() - t3:.1f} s (the variants "
+        f"{time.perf_counter() - t3b:.1f} s)")
     if kernels_only:
         log(json.dumps({"kernels": rows}))
         return
@@ -4201,7 +4737,7 @@ def main():
             dev, MapConfig(k_max, 1000, 10000, 8), fix_scale,
             label="loop above 64 slots",
             seq="loop18" if fix_scale else "loop18_shifted",
-            drift_gate=0.35 if fix_scale else 0.5)
+            drift_gate=0.35 if fix_scale else 0.5, rerun=False)
     by_phase["13a system rgbd"], system_problems = run_system_rgbd(dev)
     by_phase["13b host loop"] = run_host_loop(dev)
     by_phase["13c lifecycle"], life_problems = run_lifecycle(dev)
@@ -4236,6 +4772,9 @@ def main():
     t17 = time.perf_counter()
     by_phase["17 bench"], bench_mono, bench_mono_problems = run_bench(dev)
     log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    by_phase["18 beyond"] = run_beyond(dev)
+    log(f"phase 18 in {time.perf_counter() - t18:.1f} s")
     # the mono path's kernels over phase 11's pass and the bench's mono
     # figure: phase 11's build pass inserts so often that its maintenance
     # cycles seldom reach the duplicate merge (distance_matrix)
@@ -4263,7 +4802,17 @@ def main():
     check_k2_per_view(by_phase)
     check_k5_per_pair(by_phase)
     check_k4_per_solve(by_phase)
+    log(f"K4 accept test: over {ACCEPT_TEST['solves']} held solves, "
+        f"{ACCEPT_TEST['f32_differs']} of {ACCEPT_TEST['iterations']} "
+        f"iterations where a float32 comparison of the two chi2s parts from "
+        f"the float64 one the kernel takes")
     for row in rows:
+        if "variant_key" in row:
+            # a variant's path is phase 18's
+            key = row["variant_key"]
+            row["launches"] = by_phase["18 beyond"][key]
+            row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
+            continue
         # the newest slice's main path is phase 16c's street circuit;
         # every other path's count is listed beside it. Each phase has
         # failed already if a kernel of its path was not launched (phase 10

@@ -26,7 +26,9 @@
 //                     order (p == q: the unordered pairs of the landmark's
 //                     observations of p, each once).
 //   linearize         a lane an observation slot (a group of the next power
-//                     of two >= D lanes a landmark): residual, Jacobians,
+//                     of two >= D lanes a landmark; above 32 slots a warp a
+//                     landmark, each lane its slots d, d + 32, ...: the
+//                     wide variant below): residual, Jacobians,
 //                     the Huber weight; the landmark's Hll and bl summed
 //                     over its lanes by a fixed shuffle tree; Hll's damped
 //                     inverse; Y = wJp^T Jl and Y Hll^-1 per observation,
@@ -50,8 +52,9 @@
 //                     again: dX = -Hll^-1 (bl + sum Y^T dxi), the candidate's
 //                     chi2; then, after a barrier, every block sums the
 //                     blocks' partials in the same order and takes the same
-//                     decision (chi2_new < chi2_old, everything finite; the
-//                     damping x0.5 / x5 clipped to [1e-9, 1e8]).
+//                     decision (chi2_new < chi2_old on the two float64
+//                     sums, everything finite; the damping x0.5 / x5
+//                     clipped to [1e-9, 1e8]).
 //   finish            the poses orthonormalized, the per-observation chi2.
 // Four grid barriers an iteration. Every block of threads keeps the poses
 // and the damping itself; a landmark is read and written by the same block
@@ -75,11 +78,19 @@
 // Everything in float32 is formed as the plain version forms it
 // (-fmad=false: no product is fused into an add); the float64 sums and the
 // factorization use fma() where the product is exact or float64 anyway.
-// Limits: at most 64 poses (the pose mask), 32 slots a landmark, L * D and
-// the pair count below 2^31.
+// Two variants of the one kernel, chosen by the problem's shape on the host
+// (ba_kernel<kWide>): up to 32 slots a landmark and fewer than 2^31 pairs,
+// the first; else the wide one, whose landmark takes a whole warp, each lane
+// a slot of every chunk of 32 (its Hll and bl summed over its chunks in
+// chunk order, then over the warp by the same tree), and whose pair offsets
+// and counts are 64-bit. At most 64 poses (the pose mask); no other shape
+// limit: the scratch (256 bytes an observation slot, 8 a pair) is allocated
+// before the launch, so L * D beyond 2^31 fails there, for want of memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -88,7 +99,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPoses = 64;
-constexpr int kMaxSlots = 32;
+constexpr int kMaxSlots = 32;  // slots a landmark of the first variant
 constexpr int kMaxGrid = 1024;
 // free poses whose system block 0 factorizes in shared memory
 constexpr int kSharedFree = 28;
@@ -124,7 +135,8 @@ struct BaArgs {
   float* X;    // [L, 3]
   float* lam;  // [1]
   // the results
-  float* trace;     // [iters, 3] chi2_old, chi2_new, accepted
+  float* trace;     // [iters, 4] chi2_old, chi2_new (float32), accepted,
+                    // and whether chi2_new < chi2_old in float64
   float* obs_chi2;  // [L, D]
   float* chi2;      // [1]
   double* step0;    // [6P] the first iteration's solution of S x = b_s
@@ -148,6 +160,7 @@ struct BaArgs {
   int* plist;             // [L * D] each free pose's landmarks, pose by pose
   int* counts;            // [P (P + 1) / 2, kMaxRanges] pairs of each block
                           // of S in each range of its first pose's list
+                          // (64-bit in the wide variant)
   int* done;              // [P (P + 1) / 2] chunks of each block summed
   int* pairs;             // [L D (D + 1) / 2, 2] observation pairs, block by
                           // block
@@ -186,7 +199,7 @@ __host__ __device__ inline int take(int* at, int bytes) {
   return here;
 }
 
-__host__ __device__ inline Layout layout(int P) {
+__host__ __device__ inline Layout layout(int P, bool wide) {
   Layout s;
   const int nfs = shared_free(P);
   const int nb = P * (P + 1) / 2;
@@ -206,7 +219,7 @@ __host__ __device__ inline Layout layout(int P) {
   s.fidx = take(&at, 4 * P);
   s.nzl = take(&at, 4 * P);
   s.poff = take(&at, 4 * (P + 1));
-  s.off = take(&at, 4 * (nb + 1));
+  s.off = take(&at, (wide ? 8 : 4) * (nb + 1));
   s.cstart = take(&at, 4 * (nb + 1));
   s.tp = take(&at, nb);
   s.tq = take(&at, nb);
@@ -223,13 +236,14 @@ struct Smem {
   float *R, *t, *Rn, *tn, *dxi;
   double* red;
   int *fidx, *nzl, *poff, *off, *cstart, *misc;
+  long long* off64;  // the wide variant's off
   // block k of the upper triangle, row by row: (tp, tq); block b, column by
   // column: (cp, cq)
   unsigned char *tp, *tq, *cp, *cq;
 };
 
-__device__ inline Smem carve(unsigned char* base, int P) {
-  const Layout l = layout(P);
+__device__ inline Smem carve(unsigned char* base, int P, bool wide) {
+  const Layout l = layout(P, wide);
   Smem s;
   s.fac = reinterpret_cast<double*>(base + l.fac);
   s.y = reinterpret_cast<double*>(base + l.y);
@@ -248,6 +262,7 @@ __device__ inline Smem carve(unsigned char* base, int P) {
   s.poff = reinterpret_cast<int*>(base + l.poff);
   s.fidx = reinterpret_cast<int*>(base + l.fidx);
   s.off = reinterpret_cast<int*>(base + l.off);
+  s.off64 = reinterpret_cast<long long*>(base + l.off);
   s.cstart = reinterpret_cast<int*>(base + l.cstart);
   s.misc = reinterpret_cast<int*>(base + l.misc);
   s.tp = base + l.tp;
@@ -310,26 +325,27 @@ __device__ double partials_total(const double* v, int n, double* red) {
 
 // the block's exclusive scan of in[0..n) into out[0..n] (out[n] the total),
 // out in shared memory; every thread of the block calls it
-__device__ void block_scan(const int* in, int n, int* out, int* red) {
+template <typename T>
+__device__ void block_scan(const T* in, int n, T* out, T* red) {
   // in and out may be one array
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int seg = (n + kThreads - 1) / kThreads;
   const int lo = threadIdx.x * seg;
   const int hi = lo + seg < n ? lo + seg : n;
-  int own = 0;
+  T own = 0;
   for (int k = lo; k < hi; ++k) own += in[k];
-  int inc = own;
+  T inc = own;
   for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, inc, off);
+    const T v = __shfl_up_sync(0xffffffffu, inc, off);
     if (lane >= off) inc += v;
   }
   if (lane == 31) red[warp] = inc;
   __syncthreads();
-  int base = 0;
+  T base = 0;
   for (int w = 0; w < warp; ++w) base += red[w];
-  int run = base + inc - own;
+  T run = base + inc - own;
   for (int k = lo; k < hi; ++k) {
-    const int v = in[k];
+    const T v = in[k];
     out[k] = run;
     run += v;
   }
@@ -501,9 +517,21 @@ __device__ __forceinline__ int pairs_of(const BaArgs& a, int l,
   return fp == fq ? cp * (cp + 1) / 2 : cp * cq;
 }
 
+// the pair offsets' and counts' type: 64-bit in the wide variant
+template <bool kWide>
+using Off = typename std::conditional<kWide, long long, int>::type;
+
+// S's pair list offset k (s.off, or s.off64 in the wide variant)
+template <bool kWide>
+__device__ __forceinline__ Off<kWide> pair_off(const Smem& s, int k) {
+  if constexpr (kWide) return s.off64[k];
+  else return s.off[k];
+}
+
 // writes landmark l's pairs for block (fp, fq) from pairs[at]
+template <typename O>
 __device__ void fill_pairs(const BaArgs& a, int l, unsigned long long w,
-                           int fp, int fq, int at) {
+                           int fp, int fq, O at) {
   const int o0 = l * a.D;
   for (int d = 0; d < a.D; ++d) {
     if (slot_pose(a, l, w, d) != fp) continue;
@@ -537,8 +565,9 @@ __device__ int pose_walk(const BaArgs& a, int f, int lo, int hi, bool fill,
 // time in order, the next 32 masks and words loaded ahead: their count or,
 // from pairs[at], the pairs themselves (fill). Every lane of the warp calls
 // it
-__device__ int walk(const BaArgs& a, const int* list, int fp, int fq, int lo,
-                    int hi, bool fill, int at) {
+template <typename O>
+__device__ O walk(const BaArgs& a, const int* list, int fp, int fq, int lo,
+                  int hi, bool fill, O at) {
   const int lane = threadIdx.x & 31;
   int ln = lo + lane < hi ? list[lo + lane] : 0;
   unsigned long long m = 0ull, w = 0ull;
@@ -546,7 +575,7 @@ __device__ int walk(const BaArgs& a, const int* list, int fp, int fq, int lo,
     m = a.mask[ln];
     w = spose_word(a, ln);
   }
-  int run = at;
+  O run = at;
   for (int i0 = lo; i0 < hi; i0 += 32) {
     const int i = i0 + lane, l = ln;
     const unsigned long long mc = m, wc = w;
@@ -557,9 +586,9 @@ __device__ int walk(const BaArgs& a, const int* list, int fp, int fq, int lo,
       w = spose_word(a, ln);
     }
     const int c = i < hi ? pairs_of(a, l, mc, wc, fp, fq) : 0;
-    int inc = c;
+    O inc = c;
     for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, inc, off);
+      const O v = __shfl_up_sync(0xffffffffu, inc, off);
       if (lane >= off) inc += v;
     }
     if (fill && c > 0) fill_pairs(a, l, wc, fp, fq, run + inc - c);
@@ -582,6 +611,134 @@ __device__ __forceinline__ int ranges_of(int L, int nb) {
 // the linearization, a lane an observation slot
 // ---------------------------------------------------------------------------
 
+// one observation slot's linearization: its residual, Jacobians and robust
+// weight (all zero where the slot is not active), its free pose, and its
+// chi2 at the state for the sums (obs_e2_sum)
+struct Slot {
+  float e[3], Jp[18], Jl[9], w;
+  int p;
+  double term;
+};
+
+__device__ __forceinline__ void slot_terms(const BaArgs& a, int l, long long o,
+                                           bool act, const Smem& s, Slot& z) {
+  z.w = 0.f;
+  z.term = 0.0;
+  z.p = 0;
+  for (int k = 0; k < 3; ++k) z.e[k] = 0.f;
+  for (int k = 0; k < 18; ++k) z.Jp[k] = 0.f;
+  for (int k = 0; k < 9; ++k) z.Jl[k] = 0.f;
+  if (!act) return;
+  const float w_obs = a.obs_w[o];
+  const int p = (int)a.obs_pose[o];
+  z.p = p;
+  const float* R = s.R + 9 * p;
+  const float* X = a.X + 3 * l;
+  float xc[3];
+  to_camera(R, s.t + 3 * p, X, xc);
+  const float x = xc[0], y = xc[1], zc = xc[2];
+  const float iz = 1.0f / zc;
+  const float iz2 = iz * iz;
+  const float* uvr = a.obs_uvr + 3 * o;
+  const bool stereo = uvr[2] >= 0.f;
+  const float srow = stereo ? 1.f : 0.f;
+  const float u = a.fx * x * iz + a.cx;
+  const float v = a.fy * y * iz + a.cy;
+  const float ur = u - a.bf * iz;
+  z.e[0] = uvr[0] - u;
+  z.e[1] = uvr[1] - v;
+  z.e[2] = (uvr[2] - ur) * srow;
+  const float chi2_i =
+      ((z.e[0] * z.e[0] + z.e[1] * z.e[1]) + z.e[2] * z.e[2]) * w_obs;
+  z.term = obs_e2_sum(a, R, s.t + 3 * p, X, o) * (double)w_obs;
+  float w_rob = 1.f;
+  if (a.robust) {
+    const float delta = stereo ? a.huber_stereo : a.huber_mono;
+    const float abs_e = sqrtf(fmaxf(chi2_i, 1e-12f));
+    w_rob = abs_e <= delta ? 1.f : delta / abs_e;
+  }
+  z.w = w_obs * w_rob;
+  // d(u, v, u_r) / d(camera point), rows of the mono observation zero
+  const float J[9] = {a.fx * iz, 0.f, -a.fx * x * iz2,
+                      0.f, a.fy * iz, -a.fy * y * iz2,
+                      (a.fx * iz) * srow, 0.f,
+                      (-a.fx * x * iz2 + a.bf * iz2) * srow};
+  const float free = s.fidx[p] < 0 ? 0.f : 1.f;
+  for (int r = 0; r < 3; ++r) {
+    const float j0 = J[3 * r], j1 = J[3 * r + 1], j2 = J[3 * r + 2];
+    // -(Jproj @ [I, -hat(Xc)])
+    z.Jp[6 * r + 0] = -((j0 * 1.f + j1 * 0.f) + j2 * 0.f) * free;
+    z.Jp[6 * r + 1] = -((j0 * 0.f + j1 * 1.f) + j2 * 0.f) * free;
+    z.Jp[6 * r + 2] = -((j0 * 0.f + j1 * 0.f) + j2 * 1.f) * free;
+    z.Jp[6 * r + 3] = -((j0 * 0.f + j1 * -zc) + j2 * y) * free;
+    z.Jp[6 * r + 4] = -((j0 * zc + j1 * 0.f) + j2 * -x) * free;
+    z.Jp[6 * r + 5] = -((j0 * -y + j1 * x) + j2 * 0.f) * free;
+    for (int c = 0; c < 3; ++c)
+      z.Jl[3 * r + c] = -((j0 * R[c] + j1 * R[3 + c]) + j2 * R[6 + c]);
+  }
+}
+
+// the slot's terms of the landmark's Hll (entry i, j) and bl (entry i)
+__device__ __forceinline__ float hll_term(const Slot& z, int i, int j) {
+  return ((z.Jl[i] * z.w) * z.Jl[j] + (z.Jl[3 + i] * z.w) * z.Jl[3 + j]) +
+         (z.Jl[6 + i] * z.w) * z.Jl[6 + j];
+}
+
+__device__ __forceinline__ float bl_term(const Slot& z, int i) {
+  return ((z.Jl[i] * z.w) * z.e[0] + (z.Jl[3 + i] * z.w) * z.e[1]) +
+         (z.Jl[6 + i] * z.w) * z.e[2];
+}
+
+// Hll's damped inverse into Hi from the landmark's sums H and bl; the lane
+// of slot 0 (write) stores it and bl
+__device__ __forceinline__ void landmark_inverse(const BaArgs& a, int l,
+                                                 bool valid, bool write,
+                                                 const float* H,
+                                                 const float* bl, float lam,
+                                                 float* Hi) {
+  // the damped diagonal (clamped at 1e-6); the identity for an invalid one
+  float Hd[9];
+  for (int k = 0; k < 9; ++k) Hd[k] = valid ? H[k] : (k % 4 == 0 ? 1.f : 0.f);
+  if (valid)
+    for (int i = 0; i < 3; ++i) Hd[4 * i] = H[4 * i] + lam * fmaxf(H[4 * i], 1e-6f);
+  inv3x3(Hd, Hi);
+  if (write) {
+    for (int k = 0; k < 9; ++k) a.hinv[9 * l + k] = Hi[k];
+    for (int k = 0; k < 3; ++k) a.bl[3 * l + k] = bl[k];
+  }
+}
+
+// the record of an active observation o of a free pose: Y, Y Hll^-1, Jp, e,
+// w, written 16 bytes at a time
+__device__ __forceinline__ void write_record(const BaArgs& a, long long o,
+                                             const Slot& z, const float* Hi) {
+  float r[60];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      r[kY + 3 * i + j] = ((z.Jp[i] * z.w) * z.Jl[j] +
+                           (z.Jp[6 + i] * z.w) * z.Jl[3 + j]) +
+                          (z.Jp[12 + i] * z.w) * z.Jl[6 + j];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      r[kYH + 3 * i + k] = (r[kY + 3 * i] * Hi[k] +
+                            r[kY + 3 * i + 1] * Hi[3 + k]) +
+                           r[kY + 3 * i + 2] * Hi[6 + k];
+#pragma unroll
+  for (int k = 0; k < 18; ++k) r[kJp + k] = z.Jp[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r[kE + k] = z.e[k];
+  r[kWt] = z.w;
+  r[58] = r[59] = 0.f;
+  float4* rec = reinterpret_cast<float4*>(a.rec + o * kRec);
+#pragma unroll
+  for (int k = 0; k < 15; ++k)
+    rec[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+}
+
 // landmark l (lanes of group g, this lane's slot d): writes the records of
 // its active observations of free poses, Hll^-1 and bl; returns this lane's
 // observation's chi2 at the state for the sums (obs_e2_sum)
@@ -591,107 +748,59 @@ __device__ double linearize(const BaArgs& a, int l, int d, int g,
   const bool valid = lv && a.point_valid[l];
   const long long o = (long long)l * a.D + d;
   const bool act = valid && d < a.D && a.obs_w[o] > 0.f;
-  float chi2_i = 0.f, w = 0.f;
-  double term = 0.0;
-  float e[3] = {0.f, 0.f, 0.f}, Jp[18], Jl[9];
-  for (int k = 0; k < 18; ++k) Jp[k] = 0.f;
-  for (int k = 0; k < 9; ++k) Jl[k] = 0.f;
-  int p = 0;
-  if (act) {
-    const float w_obs = a.obs_w[o];
-    p = (int)a.obs_pose[o];
-    const float* R = s.R + 9 * p;
-    const float* X = a.X + 3 * l;
-    float xc[3];
-    to_camera(R, s.t + 3 * p, X, xc);
-    const float x = xc[0], y = xc[1], z = xc[2];
-    const float iz = 1.0f / z;
-    const float iz2 = iz * iz;
-    const float* uvr = a.obs_uvr + 3 * o;
-    const bool stereo = uvr[2] >= 0.f;
-    const float srow = stereo ? 1.f : 0.f;
-    const float u = a.fx * x * iz + a.cx;
-    const float v = a.fy * y * iz + a.cy;
-    const float ur = u - a.bf * iz;
-    e[0] = uvr[0] - u;
-    e[1] = uvr[1] - v;
-    e[2] = (uvr[2] - ur) * srow;
-    chi2_i = ((e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]) * w_obs;
-    term = obs_e2_sum(a, R, s.t + 3 * p, X, o) * (double)w_obs;
-    float w_rob = 1.f;
-    if (a.robust) {
-      const float delta = stereo ? a.huber_stereo : a.huber_mono;
-      const float abs_e = sqrtf(fmaxf(chi2_i, 1e-12f));
-      w_rob = abs_e <= delta ? 1.f : delta / abs_e;
-    }
-    w = w_obs * w_rob;
-    // d(u, v, u_r) / d(camera point), rows of the mono observation zero
-    const float J[9] = {a.fx * iz, 0.f, -a.fx * x * iz2,
-                        0.f, a.fy * iz, -a.fy * y * iz2,
-                        (a.fx * iz) * srow, 0.f,
-                        (-a.fx * x * iz2 + a.bf * iz2) * srow};
-    const float free = s.fidx[p] < 0 ? 0.f : 1.f;
-    for (int r = 0; r < 3; ++r) {
-      const float j0 = J[3 * r], j1 = J[3 * r + 1], j2 = J[3 * r + 2];
-      // -(Jproj @ [I, -hat(Xc)])
-      Jp[6 * r + 0] = -((j0 * 1.f + j1 * 0.f) + j2 * 0.f) * free;
-      Jp[6 * r + 1] = -((j0 * 0.f + j1 * 1.f) + j2 * 0.f) * free;
-      Jp[6 * r + 2] = -((j0 * 0.f + j1 * 0.f) + j2 * 1.f) * free;
-      Jp[6 * r + 3] = -((j0 * 0.f + j1 * -z) + j2 * y) * free;
-      Jp[6 * r + 4] = -((j0 * z + j1 * 0.f) + j2 * -x) * free;
-      Jp[6 * r + 5] = -((j0 * -y + j1 * x) + j2 * 0.f) * free;
-      for (int c = 0; c < 3; ++c)
-        Jl[3 * r + c] = -((j0 * R[c] + j1 * R[3 + c]) + j2 * R[6 + c]);
-    }
-  }
+  Slot z;
+  slot_terms(a, l, o, act, s, z);
   // the landmark's Hll and bl over its lanes
   float H[9], bl[3];
   for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j)
-      H[3 * i + j] = group_sum(((Jl[i] * w) * Jl[j] +
-                                (Jl[3 + i] * w) * Jl[3 + j]) +
-                                   (Jl[6 + i] * w) * Jl[6 + j], g);
-    bl[i] = group_sum(((Jl[i] * w) * e[0] + (Jl[3 + i] * w) * e[1]) +
-                          (Jl[6 + i] * w) * e[2], g);
+    for (int j = 0; j < 3; ++j) H[3 * i + j] = group_sum(hll_term(z, i, j), g);
+    bl[i] = group_sum(bl_term(z, i), g);
   }
-  // the damped diagonal (clamped at 1e-6); the identity for an invalid one
-  float Hd[9];
-  for (int k = 0; k < 9; ++k) Hd[k] = valid ? H[k] : (k % 4 == 0 ? 1.f : 0.f);
-  if (valid)
-    for (int i = 0; i < 3; ++i) Hd[4 * i] = H[4 * i] + lam * fmaxf(H[4 * i], 1e-6f);
   float Hi[9];
-  inv3x3(Hd, Hi);
-  if (lv && d == 0) {
-    for (int k = 0; k < 9; ++k) a.hinv[9 * l + k] = Hi[k];
-    for (int k = 0; k < 3; ++k) a.bl[3 * l + k] = bl[k];
+  landmark_inverse(a, l, valid, lv && d == 0, H, bl, lam, Hi);
+  if (act && s.fidx[z.p] >= 0) write_record(a, o, z, Hi);
+  return z.term;
+}
+
+// the wide variant's landmark l, a warp (g = 32 lanes), lane d its slots d,
+// d + 32, ...: the lane's terms of Hll and bl summed over its chunks in
+// chunk order, then over the warp by group_sum's tree; the records written
+// in a second walk over the chunks. Returns the lane's chi2 sum
+__device__ double linearize_wide(const BaArgs& a, int l, int d, int g,
+                                 const Smem& s, float lam) {
+  const bool lv = l < a.L;
+  const bool valid = lv && a.point_valid[l];
+  const int chunks = (a.D + g - 1) / g;
+  float H[9], bl[3];
+  double term = 0.0;
+  for (int c = 0; c < chunks; ++c) {
+    const int ds = d + g * c;
+    const long long o = (long long)l * a.D + ds;
+    const bool act = valid && ds < a.D && a.obs_w[o] > 0.f;
+    Slot z;
+    slot_terms(a, l, o, act, s, z);
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) {
+        const float h = hll_term(z, i, j);
+        H[3 * i + j] = c == 0 ? h : H[3 * i + j] + h;
+      }
+      const float b = bl_term(z, i);
+      bl[i] = c == 0 ? b : bl[i] + b;
+    }
+    term += z.term;
   }
-  if (act && s.fidx[p] >= 0) {
-    // the record: Y, Y Hll^-1, Jp, e, w, written 16 bytes at a time
-    float r[60];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        r[kY + 3 * i + j] = ((Jp[i] * w) * Jl[j] +
-                             (Jp[6 + i] * w) * Jl[3 + j]) +
-                            (Jp[12 + i] * w) * Jl[6 + j];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        r[kYH + 3 * i + k] = (r[kY + 3 * i] * Hi[k] +
-                              r[kY + 3 * i + 1] * Hi[3 + k]) +
-                             r[kY + 3 * i + 2] * Hi[6 + k];
-#pragma unroll
-    for (int k = 0; k < 18; ++k) r[kJp + k] = Jp[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) r[kE + k] = e[k];
-    r[kWt] = w;
-    r[58] = r[59] = 0.f;
-    float4* rec = reinterpret_cast<float4*>(a.rec + o * kRec);
-#pragma unroll
-    for (int k = 0; k < 15; ++k)
-      rec[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
+  for (int k = 0; k < 9; ++k) H[k] = group_sum(H[k], g);
+  for (int k = 0; k < 3; ++k) bl[k] = group_sum(bl[k], g);
+  float Hi[9];
+  landmark_inverse(a, l, valid, lv && d == 0, H, bl, lam, Hi);
+  for (int c = 0; c < chunks; ++c) {
+    const int ds = d + g * c;
+    const long long o = (long long)l * a.D + ds;
+    const bool act = valid && ds < a.D && a.obs_w[o] > 0.f;
+    if (!act) continue;
+    Slot z;
+    slot_terms(a, l, o, act, s, z);
+    if (s.fidx[z.p] >= 0) write_record(a, o, z, Hi);
   }
   return term;
 }
@@ -794,14 +903,16 @@ __device__ __forceinline__ int block_of_chunk(const Smem& s, int c, int nb) {
 // chunk c of the pair lists: its sums into part[c]; the warp that sums a
 // block's last chunk (an integer count of the block's chunks done) combines
 // the block's chunks
+template <bool kWide>
 __device__ void schur_chunk(const BaArgs& a, const Smem& s, int c, int nb,
                             int nf, double lam) {
+  using O = Off<kWide>;
   const int lane = threadIdx.x & 31;
   const int k = block_of_chunk(s, c, nb);
   const bool diag = s.tp[k] == s.tq[k];
-  const int first = s.off[k] + (c - s.cstart[k]) * kChunk;
-  const int last = first + kChunk < s.off[k + 1] ? first + kChunk
-                                                  : s.off[k + 1];
+  const O first = pair_off<kWide>(s, k) + (O)(c - s.cstart[k]) * kChunk;
+  const O end = pair_off<kWide>(s, k + 1);
+  const O last = first + kChunk < end ? first + kChunk : end;
   const int grp = lane / 6, i = lane % 6;
   double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   double hp[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
@@ -810,7 +921,7 @@ __device__ void schur_chunk(const BaArgs& a, const Smem& s, int c, int nb,
     int oa[kSteps], ob[kSteps];
 #pragma unroll
     for (int st = 0; st < kSteps; ++st) {
-      const int j = first + grp + kPairGroups * st;
+      const O j = first + grp + kPairGroups * st;
       oa[st] = j < last ? a.pairs[2ll * j] : -1;
       ob[st] = j < last ? a.pairs[2ll * j + 1] : -1;
     }
@@ -1132,10 +1243,14 @@ __device__ void write_system(const BaArgs& a, const Smem& s, const double* B,
 // the kernel
 // ---------------------------------------------------------------------------
 
+// kWide: more than kMaxSlots slots a landmark, or 2^31 pairs or more (the
+// wide variant of the header)
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
+  using O = Off<kWide>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem s = carve(smem, a.P);
+  const Smem s = carve(smem, a.P, kWide);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool assemble = a.mode & kAssemble;
   const bool accept_all = a.mode & kAcceptAll;
@@ -1151,13 +1266,22 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
   __syncthreads();
   const int nf = s.misc[0];
   const int nb = nf * (nf + 1) / 2;
-  const int G = group_of(a.D), per_warp = 32 / G;
+  // a landmark's lanes, and the chunks of its slots a lane takes (1 but in
+  // the wide variant)
+  const int G = kWide ? min(group_of(a.D), 32) : group_of(a.D);
+  const int per_warp = 32 / G;
+  const int chunks = kWide ? (a.D + G - 1) / G : 1;
   const int lm_stride = gridDim.x * kWarps * per_warp;
   const int lm_first = (blockIdx.x * kWarps + warp) * per_warp;
   const int gl = lane / G, d = lane % G;
   float lam = a.lam[0];
 
   if (iters > 0) {
+    // the pair lists' offsets (shared) and counts (global), int or 64-bit
+    O* off;
+    O* counts = reinterpret_cast<O*>(a.counts);
+    if constexpr (kWide) off = s.off64;
+    else off = s.off;
     // the structure: the tables of the blocks of S; free poses of the
     // active observations, the masks
     for (int k = tid; k < nb; k += kThreads) {
@@ -1229,19 +1353,22 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
       const int span = ((len + R - 1) / R + 31) & ~31;
       const int lo = s.poff[fp] + (t % R) * span;
       const int hi = lo + span < s.poff[fp + 1] ? lo + span : s.poff[fp + 1];
-      const int n = walk(a, a.plist, fp, s.tq[k], lo, hi, false, 0);
-      if (lane == 0) a.counts[t] = n;
+      const O n = walk(a, a.plist, fp, s.tq[k], lo, hi, false, (O)0);
+      if (lane == 0) counts[t] = n;
     }
     grid.sync();
     for (int k = tid; k < nb; k += kThreads) {
-      int n = 0;
-      for (int r = 0; r < R; ++r) n += __ldcg(a.counts + k * R + r);
-      s.off[k] = n;
+      O n = 0;
+      for (int r = 0; r < R; ++r) n += __ldcg(counts + k * R + r);
+      off[k] = n;
     }
     __syncthreads();
-    block_scan(s.off, nb, s.off, s.misc + 4);
+    if constexpr (kWide)
+      block_scan(off, nb, off, reinterpret_cast<long long*>(s.red));
+    else
+      block_scan(off, nb, off, s.misc + 4);
     for (int k = tid; k < nb; k += kThreads)
-      s.cstart[k] = (s.off[k + 1] - s.off[k] + kChunk - 1) / kChunk;
+      s.cstart[k] = (int)((off[k + 1] - off[k] + kChunk - 1) / kChunk);
     __syncthreads();
     block_scan(s.cstart, nb, s.cstart, s.misc + 4);
     for (int t = blockIdx.x * kWarps + warp; t < nb * R;
@@ -1251,8 +1378,8 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
       const int span = ((len + R - 1) / R + 31) & ~31;
       const int lo = s.poff[fp] + (t % R) * span;
       const int hi = lo + span < s.poff[fp + 1] ? lo + span : s.poff[fp + 1];
-      int at = s.off[k];
-      for (int r = 0; r < t % R; ++r) at += __ldcg(a.counts + k * R + r);
+      O at = off[k];
+      for (int r = 0; r < t % R; ++r) at += __ldcg(counts + k * R + r);
       walk(a, a.plist, fp, s.tq[k], lo, hi, true, at);
     }
     if (blockIdx.x == 0) {
@@ -1262,7 +1389,7 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
         unsigned long long m = 1ull << p;
         for (int q = p + 1; q < nf; ++q) {
           const int k = tri(p, q, nf);
-          if (s.off[k + 1] > s.off[k]) m |= 1ull << q;
+          if (off[k + 1] > off[k]) m |= 1ull << q;
         }
         s.rmask[p] = m;
       }
@@ -1290,7 +1417,8 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
     // linearize
     double chi2 = 0.0;
     for (int l0 = lm_first; l0 < a.L; l0 += lm_stride)
-      chi2 += linearize(a, l0 + gl, d, G, s, lam);
+      chi2 += kWide ? linearize_wide(a, l0 + gl, d, G, s, lam)
+                    : linearize(a, l0 + gl, d, G, s, lam);
     const double tot = block_total(chi2, s.red);
     if (tid == 0) a.partial[blockIdx.x] = tot;
     grid.sync();
@@ -1299,7 +1427,7 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
     // the Schur sums, each block of S combined by the warp of its last chunk
     for (int c = blockIdx.x * kWarps + warp; c < n_chunks;
          c += gridDim.x * kWarps)
-      schur_chunk(a, s, c, nb, nf, (double)lam);
+      schur_chunk<kWide>(a, s, c, nb, nf, (double)lam);
     grid.sync();
     stamp(a, st + 1);
     if (blockIdx.x == 0) {
@@ -1335,23 +1463,27 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
               s.tn + 3 * p);
     __syncthreads();
     // back-substitution and the candidate's chi2, a lane an observation
+    // (each of its chunks' in the wide variant)
     double chi2n = 0.0, nonfinite = 0.0;
     for (int l0 = lm_first; l0 < a.L; l0 += lm_stride) {
       const int l = l0 + gl;
       const bool lv = l < a.L;
-      const long long o = (long long)l * a.D + d;
       const bool valid = lv && a.point_valid[l];
-      const bool act = valid && d < a.D && a.obs_w[o] > 0.f;
-      const int p = act ? (int)a.obs_pose[o] : 0;
       float sv[3] = {0.f, 0.f, 0.f};
-      if (act && s.fidx[p] >= 0) {
-        float Y[20];
-        load_y(a.rec + o * kRec, Y);
-        const float* x = s.dxi + 6 * p;
-        for (int j = 0; j < 3; ++j) {
-          float yx = 0.f;
-          for (int i = 0; i < 6; ++i) yx += Y[3 * i + j] * x[i];
-          sv[j] = yx;
+      for (int c = 0; c < chunks; ++c) {
+        const int ds = d + G * c;
+        const long long o = (long long)l * a.D + ds;
+        const bool act = valid && ds < a.D && a.obs_w[o] > 0.f;
+        const int p = act ? (int)a.obs_pose[o] : 0;
+        if (act && s.fidx[p] >= 0) {
+          float Y[20];
+          load_y(a.rec + o * kRec, Y);
+          const float* x = s.dxi + 6 * p;
+          for (int j = 0; j < 3; ++j) {
+            float yx = 0.f;
+            for (int i = 0; i < 6; ++i) yx += Y[3 * i + j] * x[i];
+            sv[j] = c == 0 ? yx : sv[j] + yx;
+          }
         }
       }
       for (int j = 0; j < 3; ++j) sv[j] = group_sum(sv[j], G);
@@ -1371,9 +1503,16 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
           if (d == 0) a.Xn[3 * l + i] = Xn[i];
         }
       }
-      if (act)
-        chi2n += obs_e2_sum(a, s.Rn + 9 * p, s.tn + 3 * p, Xn, o) *
-                 (double)a.obs_w[o];
+      for (int c = 0; c < chunks; ++c) {
+        const int ds = d + G * c;
+        const long long o = (long long)l * a.D + ds;
+        const bool act = valid && ds < a.D && a.obs_w[o] > 0.f;
+        if (act) {
+          const int p = (int)a.obs_pose[o];
+          chi2n += obs_e2_sum(a, s.Rn + 9 * p, s.tn + 3 * p, Xn, o) *
+                   (double)a.obs_w[o];
+        }
+      }
     }
     const double part = block_total(chi2n, s.red);
     const double nf_part = block_total(nonfinite, s.red);
@@ -1388,11 +1527,13 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
                                           s.red);
     const double bad = partials_total(a.partial + 2 * kMaxGrid, gridDim.x,
                                      s.red);
-    ok = accept_all || (chi2_new < chi2_old && finite && bad == 0.0);
+    const bool lower64 = chi2_new < chi2_old;
+    ok = accept_all || (lower64 && finite && bad == 0.0);
     if (blockIdx.x == 0 && tid == 0) {
-      a.trace[3 * it] = (float)chi2_old;
-      a.trace[3 * it + 1] = (float)chi2_new;
-      a.trace[3 * it + 2] = ok ? 1.f : 0.f;
+      a.trace[4 * it] = (float)chi2_old;
+      a.trace[4 * it + 1] = (float)chi2_new;
+      a.trace[4 * it + 2] = ok ? 1.f : 0.f;
+      a.trace[4 * it + 3] = lower64 ? 1.f : 0.f;
     }
     if (!accept_all)
       lam = fminf(fmaxf(ok ? lam * 0.5f : lam * 5.0f, 1e-9f), 1e8f);
@@ -1422,15 +1563,18 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
   double chi2 = 0.0;
   for (int l0 = lm_first; l0 < a.L; l0 += lm_stride) {
     const int l = l0 + gl;
-    const long long o = (long long)l * a.D + d;
-    if (l >= a.L || d >= a.D) continue;
-    float c = 0.f;
-    if (a.point_valid[l] && a.obs_w[o] > 0.f) {
-      const int p = (int)a.obs_pose[o];
-      c = obs_e2(a, s.Rn + 9 * p, s.t + 3 * p, a.X + 3 * l, o) * a.obs_w[o];
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int ds = d + G * ch;
+      const long long o = (long long)l * a.D + ds;
+      if (l >= a.L || ds >= a.D) continue;
+      float c = 0.f;
+      if (a.point_valid[l] && a.obs_w[o] > 0.f) {
+        const int p = (int)a.obs_pose[o];
+        c = obs_e2(a, s.Rn + 9 * p, s.t + 3 * p, a.X + 3 * l, o) * a.obs_w[o];
+      }
+      a.obs_chi2[o] = c;
+      chi2 += c;
     }
-    a.obs_chi2[o] = c;
-    chi2 += c;
   }
   const double tot = block_total(chi2, s.red);
   if (tid == 0) a.partial[blockIdx.x] = tot;
@@ -1442,44 +1586,57 @@ __global__ void __launch_bounds__(kThreads, 2) ba_kernel(const BaArgs a) {
   stamp(a, kStampsFixed - 1 + kStampsIter * iters);
 }
 
-bool g_attr = false;
+// the wide variant (ba_kernel<true>) for more than kMaxSlots slots a
+// landmark or 2^31 pairs or more, the first variant else
+bool is_wide(const BaArgs* a) {
+  const long long pairs = (long long)a->L * a->D * (a->D + 1) / 2;
+  return a->D > kMaxSlots || pairs >= (1ll << 31);
+}
+
+const void* kernel_of(bool wide) {
+  return wide ? (const void*)ba_kernel<true> : (const void*)ba_kernel<false>;
+}
+
+bool g_attr[2] = {false, false};
 
 // the grid of a launch: as many blocks as its work has (the landmarks'
 // lanes, the pose pairs, the chunks' warps), at most the resident limit.
 // It depends on the problem's shape alone, so the sums' order, and two
 // launches' bits, do too.
 int grid_of(const BaArgs* a, int* blocks, int* smem) {
-  if (a->P < 1 || a->P > kMaxPoses || a->D < 1 || a->D > kMaxSlots ||
-      a->L < 0 || a->iters < 0 || (long long)a->L * a->D >= (1ll << 31) ||
+  if (a->P < 1 || a->P > kMaxPoses || a->D < 0 || a->L < 0 || a->iters < 0 ||
       a->chunk_cap < 0)
     return (int)cudaErrorInvalidValue;
-  *smem = layout(a->P).bytes;
+  const bool wide = is_wide(a);
+  const void* kernel = kernel_of(wide);
+  *smem = layout(a->P, wide).bytes;
   cudaError_t err = cudaSuccess;
-  if (!g_attr) {
-    err = cudaFuncSetAttribute((const void*)ba_kernel,
+  if (!g_attr[wide]) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               layout(kMaxPoses).bytes);
+                               layout(kMaxPoses, wide).bytes);
     if (err != cudaSuccess) return (int)err;
-    g_attr = true;
+    g_attr[wide] = true;
   }
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, (const void*)ba_kernel, kThreads, *smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, *smem);
   if (err != cudaSuccess) return (int)err;
   const int resident = per_sm * sms < kMaxGrid ? per_sm * sms : kMaxGrid;
   int g = 1;
-  while (g < a->D) g <<= 1;
-  int work = (int)(((long long)a->L * g + kThreads - 1) / kThreads);
+  while (g < a->D && g < 32) g <<= 1;
+  const long long lanes = (long long)a->L * g;
+  long long work = (lanes + kThreads - 1) / kThreads;
   const int pairs = a->P * (a->P + 1) / 2;
   if (pairs > work) work = pairs;
   const int chunk_blocks = (a->chunk_cap + kWarps - 1) / kWarps;
   if (chunk_blocks > work) work = chunk_blocks;
   if (work < 1) work = 1;
-  *blocks = work < resident ? work : resident;
+  *blocks = work < resident ? (int)work : resident;
   return *blocks > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
@@ -1502,7 +1659,7 @@ int ba_solve(const void* args, void* stream) {
   const int err = grid_of(a, &blocks, &smem);
   if (err != 0) return err;
   void* params[] = {const_cast<BaArgs*>(a)};
-  return (int)cudaLaunchCooperativeKernel((const void*)ba_kernel, blocks,
+  return (int)cudaLaunchCooperativeKernel(kernel_of(is_wide(a)), blocks,
                                           kThreads, params, (size_t)smem,
                                           static_cast<cudaStream_t>(stream));
 }

@@ -50,10 +50,16 @@
 //   candidate goes through at half and quarter rate, is what a dense
 //   problem is bound by: there the warp first packs the row's admissible
 //   columns into shared memory and then takes them 32 at a time, every
-//   lane busy. A candidate is one 32-bit key, distance << 22 | column: at
-//   most 2^22 targets (the wrapper refuses more).
+//   lane busy. A candidate is one 32-bit key, distance << 22 | column, up
+//   to 2^22 targets; above, a second instantiation keeps a 64-bit key,
+//   distance << 32 | column, and 64-bit column offsets (the host picks by
+//   N). Either key orders candidates by distance, then column, so the
+//   smaller column wins a tie in both. 2^32 targets would take 128 GB of
+//   descriptors: device memory ends the range first.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -129,11 +135,18 @@ constexpr int kDenseRow = 64;  // admissible columns from which a row is packed
 
 // key = distance << kColBits | column: the smaller key is the smaller
 // distance, then the lower column, so (first, second) is the lexicographic
-// top-2. A distance is at most 256, so 32 bits hold columns below 2^22.
-constexpr int kColBits = 22;
-constexpr uint32_t kNone = 0xffffffffu;  // no candidate yet
+// top-2. A distance is at most 256, so 32 bits hold columns below 2^22; the
+// 64-bit key holds columns below 2^32.
+template <typename Key>
+constexpr int kColBits = sizeof(Key) == 4 ? 22 : 32;
+template <typename Key>
+constexpr Key kNone = ~Key(0);  // no candidate yet
+// a column offset: int with the 32-bit key, 64-bit with the other
+template <typename Key>
+using Col = typename std::conditional<sizeof(Key) == 4, int, long long>::type;
 
-__device__ __forceinline__ void push(uint32_t k, uint32_t& k1, uint32_t& k2) {
+template <typename Key>
+__device__ __forceinline__ void push(Key k, Key& k1, Key& k2) {
   if (k < k1) {
     k2 = k1;
     k1 = k;
@@ -200,25 +213,27 @@ __device__ __forceinline__ uint32_t chunk_bits(const uint4& m) {
 
 // Distance of the query words to tile column lc (local to the tile), pushed
 // with its global column.
+template <typename Key>
 __device__ __forceinline__ void consider(const uint4* __restrict__ tile,
                                          const uint4& a0, const uint4& a1,
-                                         int lc, int t0, uint32_t& k1,
-                                         uint32_t& k2) {
+                                         int lc, Col<Key> t0, Key& k1,
+                                         Key& k2) {
   const int slot = 2 * lc + (lc >> 4);
   const int d = distance8(a0, a1, tile[slot], tile[slot + 1]);
-  push(((uint32_t)d << kColBits) | (uint32_t)(t0 + lc), k1, k2);
+  push(((Key)d << kColBits<Key>) | (Key)(t0 + lc), k1, k2);
 }
 
 // Dense rows: the warp packs the admissible columns of half a segment into
 // shared memory, then reduces them 32 at a time. `bits` marks them within
 // this lane's chunk, which starts at tile column `base`; `edge` is this
 // lane's head or tail column, or -1.
+template <typename Key>
 __device__ __forceinline__ void scan_packed(uint32_t bits, int base, int edge,
                                             uint16_t* __restrict__ packed,
-                                            int lane, int t0,
+                                            int lane, Col<Key> t0,
                                             const uint4* __restrict__ tile,
                                             const uint4& a0, const uint4& a1,
-                                            uint32_t& k1, uint32_t& k2) {
+                                            Key& k1, Key& k2) {
   const int cnt = __popc(bits) + (edge >= 0 ? 1 : 0);
   int upto = cnt;  // inclusive prefix sum over the lanes
 #pragma unroll
@@ -240,12 +255,13 @@ __device__ __forceinline__ void scan_packed(uint32_t bits, int base, int edge,
   __syncwarp();
 }
 
+template <typename Key>
 __device__ __forceinline__ void seg_scan(const Seg& s, const uint8_t* p,
-                                         int len, int lane, int t0,
+                                         int len, int lane, Col<Key> t0,
                                          const uint4* __restrict__ tile,
                                          uint16_t* __restrict__ packed,
                                          const uint4& a0, const uint4& a1,
-                                         uint32_t& k1, uint32_t& k2) {
+                                         Key& k1, Key& k2) {
   int head, chunks, tail;
   seg_geometry(p, len, head, chunks, tail);
   int edge = -1;
@@ -273,26 +289,28 @@ __device__ __forceinline__ void seg_scan(const Seg& s, const uint8_t* p,
 }
 
 // R query rows per warp; warp w of block b owns rows (b * 8 + w) * R ...
-template <int R>
+// Key: uint32_t up to 2^22 targets, uint64_t above
+template <int R, typename Key>
 __global__ void __launch_bounds__(32 * kBtWarps)
 masked_best_two_kernel(const uint4* __restrict__ dq,
                        const uint4* __restrict__ dt,
                        const uint8_t* __restrict__ mask,
                        int32_t* __restrict__ best, int32_t* __restrict__ idx,
                        int32_t* __restrict__ second,
-                       int32_t* __restrict__ idx2, int q_rows, int n) {
+                       int32_t* __restrict__ idx2, int q_rows, Col<Key> n) {
+  constexpr Key kEmpty = kNone<Key>;
   __shared__ uint4 tile[kTileSlots];
   __shared__ uint16_t packed_cols[kBtWarps][kPacked];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint16_t* packed = packed_cols[warp];
   const int row0 = (blockIdx.x * kBtWarps + warp) * R;
-  uint32_t k1[R], k2[R];
+  Key k1[R], k2[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) k1[r] = k2[r] = kNone;
+  for (int r = 0; r < R; ++r) k1[r] = k2[r] = kEmpty;
 
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int len = min(kTile, n - t0);
+  for (Col<Key> t0 = 0; t0 < n; t0 += kTile) {
+    const int len = (int)min((Col<Key>)kTile, n - t0);
     // the first row's mask is in flight while the tile is staged
     Seg cur = seg_empty();
     if (row0 < q_rows) cur = seg_load(mask + (size_t)row0 * n + t0, len, lane);
@@ -320,11 +338,11 @@ masked_best_two_kernel(const uint4* __restrict__ dq,
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    uint32_t a = k1[r], b = k2[r];
+    Key a = k1[r], b = k2[r];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const uint32_t o1 = __shfl_xor_sync(0xffffffffu, a, off);
-      const uint32_t o2 = __shfl_xor_sync(0xffffffffu, b, off);
+      const Key o1 = __shfl_xor_sync(0xffffffffu, a, off);
+      const Key o2 = __shfl_xor_sync(0xffffffffu, b, off);
       // merge two sorted pairs; keys of distinct columns are distinct
       if (o1 < a) {
         b = (a < o2) ? a : o2;
@@ -338,12 +356,12 @@ masked_best_two_kernel(const uint4* __restrict__ dq,
       // Every column that is not admissible counts as (kBig, column): with
       // no admissible column the best is column 0, and with fewer than two
       // the second is the lowest column other than the best.
-      const uint32_t cols = (1u << kColBits) - 1u;
-      const bool e1 = a == kNone, e2 = b == kNone;
+      const Key cols = ((Key)1 << kColBits<Key>) - 1u;
+      const bool e1 = a == kEmpty, e2 = b == kEmpty;
       const int i1 = e1 ? 0 : (int)(a & cols);
-      best[q] = e1 ? kBig : (int)(a >> kColBits);
+      best[q] = e1 ? kBig : (int)(a >> kColBits<Key>);
       idx[q] = i1;
-      second[q] = e2 ? kBig : (int)(b >> kColBits);
+      second[q] = e2 ? kBig : (int)(b >> kColBits<Key>);
       idx2[q] = e2 ? ((i1 == 0 && n > 1) ? 1 : 0) : (int)(b & cols);
     }
   }
@@ -385,9 +403,10 @@ int hamming_distance_matrix(const void* d1, const void* d2, void* out,
 
 int hamming_masked_best_two(const void* dq, const void* dt, const void* mask,
                             void* best, void* idx, void* second, void* idx2,
-                            int q_rows, int n, void* stream) {
+                            int q_rows, long long n, void* stream) {
   if (q_rows == 0) return 0;
-  if (n > (1 << kColBits)) return (int)cudaErrorInvalidValue;
+  // the 32-bit key up to 2^22 targets, the 64-bit one above
+  const bool wide = n > (1ll << kColBits<uint32_t>);
   // rows per warp: as many as still leave every SM a couple of blocks
   const int want = 2 * sm_count() * kBtWarps;
   const int r = q_rows >= 4 * want ? 4 : (q_rows >= 2 * want ? 2 : 1);
@@ -395,17 +414,25 @@ int hamming_masked_best_two(const void* dq, const void* dt, const void* mask,
   const dim3 grid((q_rows + per_block - 1) / per_block);
   const dim3 block(32 * kBtWarps);
   cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(R)                                                          \
-  masked_best_two_kernel<R><<<grid, block, 0, s>>>(                        \
+#define LAUNCH(R, K)                                                       \
+  masked_best_two_kernel<R, K><<<grid, block, 0, s>>>(                     \
       (const uint4*)dq, (const uint4*)dt, (const uint8_t*)mask,            \
       (int32_t*)best, (int32_t*)idx, (int32_t*)second, (int32_t*)idx2,     \
-      q_rows, n)
-  if (r == 4) {
-    LAUNCH(4);
+      q_rows, (Col<K>)n)
+  if (wide) {
+    if (r == 4) {
+      LAUNCH(4, uint64_t);
+    } else if (r == 2) {
+      LAUNCH(2, uint64_t);
+    } else {
+      LAUNCH(1, uint64_t);
+    }
+  } else if (r == 4) {
+    LAUNCH(4, uint32_t);
   } else if (r == 2) {
-    LAUNCH(2);
+    LAUNCH(2, uint32_t);
   } else {
-    LAUNCH(1);
+    LAUNCH(1, uint32_t);
   }
 #undef LAUNCH
   return (int)cudaGetLastError();

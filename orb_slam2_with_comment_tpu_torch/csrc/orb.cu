@@ -131,6 +131,24 @@
 // atan2 call for float32; chip_smoke.py holds the angles and descriptors
 // against the plain version on the card.
 //
+// Other shapes, each built or instantiated at first use beside the above
+// (ops/orb.py picks by shape; the plain version is never taken for a CUDA
+// tensor):
+//   - another cell side or candidate count (OrbTable::cell_side and
+//     per_cell, read at run time): orb_cells_any in place of orb_cells, one
+//     256-thread block a cell, its scores with a 1 px halo and its kept
+//     values staged in global scratch, each kept value ranked by counting
+//     the cell's keys above it, the ranks left filled with the zero values
+//     in index order by one thread: the same keys and order as the strip
+//     kernel, for any cell and any count up to cell^2. orb_select reads the
+//     pair from the table too.
+//   - more than kMaxLevels levels: the table's levels lie in device memory
+//     (OrbTable::levels, and host_levels for the host's grid sizes), read
+//     there by every kernel (the kFar instantiations).
+//   - a level budget above kMaxBudget: orb_select writes its winners to
+//     global scratch and ranks them through shared memory in tiles of
+//     kMaxBudget keys (the kGlobalWin instantiation): the same ranks.
+//
 // Determinism: no float atomics and fixed-order reductions: two launches
 // on the same inputs give the same bits. orb_select's integer atomics
 // count (the histogram, exact) or claim a place in the winners' buffer,
@@ -141,10 +159,12 @@
 
 namespace {
 
+// the strip kernel orb_cells is written for 32 px cells of 8 candidates;
+// any other pair takes orb_cells_any
 constexpr int kCell = 32;
 constexpr int kPerCell = 8;
-constexpr int kMaxLevels = 16;
-constexpr int kMaxBudget = 28672; // orb_select's winners: 224 KB
+constexpr int kMaxLevels = 16;    // levels the table holds by value
+constexpr int kMaxBudget = 28672; // orb_select's winners in shared: 224 KB
 constexpr int kHalfPatch = 15;    // the IC circle's radius
 constexpr int kBriefRadius = 19;
 constexpr int kHalo = 4;          // 3 px FAST ring + 1 px NMS
@@ -160,6 +180,8 @@ constexpr int kListCap = kRowsPerWarp * kCell / 4;   // a warp's kept values
 constexpr int kTileW = kStrip * kCell + 2 * kHalo;   // image tile columns
 constexpr int kScoreW = kStrip * kCell + 2;          // scored tile columns
 constexpr int kBlurW = kStrip * kCell + 6;           // vertical blur columns
+static_assert(kCellWarps % kStrip == 0, "whole warps a cell");
+constexpr int kAnyThreads = 256;  // orb_cells_any's threads a cell
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectWarps = kSelectThreads / 32;
 constexpr int kRadixBits = 8, kBins = 1 << kRadixBits;
@@ -169,7 +191,6 @@ constexpr int kDescribeWarps = kDescribeThreads / 32;
 constexpr int kWordsPerWarp = 8 / kDescribeWarps;  // BRIEF words a warp
 constexpr int kRowSteps =  // circle rows a warp
     (2 * kHalfPatch + 1 + kDescribeWarps - 1) / kDescribeWarps;
-static_assert(kCellWarps % kStrip == 0, "whole warps a cell");
 static_assert(8 % kDescribeWarps == 0, "whole BRIEF words a warp");
 
 // One level of the packed buffers. Mirrored by ops/orb.py _LevelDesc.
@@ -184,27 +205,45 @@ struct LevelDesc {
   float scale;  // 1.2^lvl rounded to float32
 };
 
-// Mirrored by ops/orb.py _OrbTable.
+// Mirrored by ops/orb.py _OrbTable. Up to kMaxLevels levels lie in lv;
+// with more, levels (device memory) and host_levels hold them all, and lv
+// is not read. cell_side and per_cell: the cells' side in pixels and the
+// candidates each keeps (orb_cells takes only kCell and kPerCell).
 struct OrbTable {
   int n_levels, n_cells, n_slots, margin;
   float th_high, th_low;
   float gauss[7];
   int umax[kHalfPatch + 1];
   LevelDesc lv[kMaxLevels];
+  const LevelDesc* levels;
+  const LevelDesc* host_levels;
+  int cell_side, per_cell;
 };
+
+// level l of the table: from lv, or from device memory (kFar)
+template <bool kFar>
+__device__ __forceinline__ LevelDesc level(const OrbTable& t, int l) {
+  if constexpr (kFar) return t.levels[l];
+  else return t.lv[l];
+}
+
+const LevelDesc& host_level(const OrbTable& t, int l) {
+  return t.host_levels != nullptr ? t.host_levels[l] : t.lv[l];
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// the image tile offset of FAST ring pixel i (ops/fast.py CIRCLE as
-// (dy, dx)); the compiler folds it into the load's address
-__device__ __forceinline__ int ring_offset(int i) {
+// the offset of FAST ring pixel i (ops/fast.py CIRCLE as (dy, dx)) in an
+// image of row stride w; the compiler folds a constant w into the load's
+// address
+__device__ __forceinline__ int ring_offset(int i, int w) {
   constexpr int kRingDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3,
                                3, 3, 2, 1, 0, -1, -2, -3};
   constexpr int kRingDx[16] = {0, 1, 2, 3, 3, 3, 2, 1,
                                0, -1, -2, -3, -3, -3, -2, -1};
-  return kRingDy[i] * kTileW + kRingDx[i];
+  return kRingDy[i] * w + kRingDx[i];
 }
 
 // the largest over i of min(d[i], ..., d[i + 8 mod 16]): PR 10's order of
@@ -266,7 +305,7 @@ __device__ __forceinline__ float fast_score(const float* t) {
   if (kBits) {
     int q[16];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = __float_as_int(t[ring_offset(i)]);
+    for (int i = 0; i < 16; ++i) q[i] = __float_as_int(t[ring_offset(i, kTileW)]);
     const float b = __int_as_float(arc_extreme_bits<true>(q)) - c;
     const float d = __int_as_float(arc_extreme_bits<false>(q)) - c;
     s = fmaxf(b, -d);
@@ -274,7 +313,7 @@ __device__ __forceinline__ float fast_score(const float* t) {
     float d[16], nd[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      d[i] = t[ring_offset(i)] - c;
+      d[i] = t[ring_offset(i, kTileW)] - c;
       nd[i] = -d[i];
     }
     s = fmaxf(max_arc9(d), max_arc9(nd));
@@ -282,14 +321,15 @@ __device__ __forceinline__ float fast_score(const float* t) {
   return s < 0.0f ? 0.0f : s;
 }
 
-// the strips (blocks) of orb_cells on a level
+// the blocks of orb_cells on a level: its strips
 __device__ __host__ __forceinline__ int strips(const LevelDesc& L) {
   return L.cy * ((L.cx + kStrip - 1) / kStrip);
 }
 
+template <bool kFar>
 __device__ __forceinline__ int level_of_slot(const OrbTable& t, int s) {
   int l = 0;
-  while (l + 1 < t.n_levels && s >= t.lv[l + 1].slot) ++l;
+  while (l + 1 < t.n_levels && s >= level<kFar>(t, l + 1).slot) ++l;
   return l;
 }
 
@@ -305,6 +345,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kFar>
 __global__ void __launch_bounds__(kCellThreads, kCellBlocks)
 orb_cells_kernel(
     const float* __restrict__ pyr, float* __restrict__ score,
@@ -319,11 +360,12 @@ orb_cells_kernel(
 
   // the level, and the strip's row of cells and first cell across
   int l = 0, first = 0;
-  while (l + 1 < t.n_levels && (int)blockIdx.x >= first + strips(t.lv[l])) {
-    first += strips(t.lv[l]);
+  while (l + 1 < t.n_levels &&
+         (int)blockIdx.x >= first + strips(level<kFar>(t, l))) {
+    first += strips(level<kFar>(t, l));
     ++l;
   }
-  const LevelDesc L = t.lv[l];
+  const LevelDesc L = level<kFar>(t, l);
   const int across = (L.cx + kStrip - 1) / kStrip;
   const int row = ((int)blockIdx.x - first) / across;
   const int cx0 = ((int)blockIdx.x - first) % across * kStrip;
@@ -506,6 +548,145 @@ orb_cells_kernel(
   }
 }
 
+// the FAST score of the level pixel at p (row stride w), its ring inside
+// the level: the arcs of the differences on the floats, as fast_score's
+// second form takes them
+__device__ __forceinline__ float fast_score_at(const float* p, int w) {
+  const float c = p[0];
+  float d[16], nd[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    d[i] = p[ring_offset(i, w)] - c;
+    nd[i] = -d[i];
+  }
+  const float s = fmaxf(max_arc9(d), max_arc9(nd));
+  return s < 0.0f ? 0.0f : s;
+}
+
+// One block a cell of any side C = t.cell_side with P = t.per_cell
+// candidates. scratch holds, a cell after the other, the cell's masked
+// scores with a 1 px halo ((C + 2)^2) and its kept values (C^2: the strict
+// 3x3 maxima above the cell's threshold, 0 elsewhere and outside the
+// level). A kept value's rank is the count of the cell's kept keys above
+// its key (value bits, then C^2 - in-cell index: the lower index wins a
+// tie); the ranks after the kept values are
+// the zero values in index order, written by one thread. The blur reads
+// the level clamped, the vertical sums first, as the strip kernel does.
+template <bool kFar>
+__global__ void __launch_bounds__(kAnyThreads) orb_cells_any_kernel(
+    const float* __restrict__ pyr, float* __restrict__ score,
+    float* __restrict__ blurred, float* __restrict__ cand_v,
+    int* __restrict__ cand_i, float* __restrict__ scratch, OrbTable t) {
+  const int side = t.cell_side, per_cell = t.per_cell;
+  const int sc_w = side + 2, area = side * side;
+  __shared__ float fred[kAnyThreads / 32];
+  __shared__ int nred[kAnyThreads / 32];
+  const int c = blockIdx.x;
+  int l = 0;
+  while (l + 1 < t.n_levels && c >= level<kFar>(t, l + 1).cell) ++l;
+  const LevelDesc L = level<kFar>(t, l);
+  const int y0 = (c - L.cell) / L.cx * side, x0 = (c - L.cell) % L.cx * side;
+  const float* img = pyr + L.off;
+  float* sc = scratch + (size_t)c * (sc_w * sc_w + area);
+  float* kv = sc + sc_w * sc_w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const int lo = t.margin > 3 ? t.margin : 3;
+  for (int k = tid; k < sc_w * sc_w; k += kAnyThreads) {
+    const int y = y0 - 1 + k / sc_w, x = x0 - 1 + k % sc_w;
+    float s = 0.0f;
+    if (y >= lo && y < L.h - lo && x >= lo && x < L.w - lo)
+      s = fast_score_at(img + y * L.w + x, L.w);
+    sc[k] = s;
+  }
+  for (int k = tid; k < area; k += kAnyThreads) {
+    const int y = y0 + k / side, x = x0 + k % side;
+    if (y >= L.h || x >= L.w) continue;
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      const int xc = clampi(x + i - 3, 0, L.w - 1);
+      float v = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+        v = v + t.gauss[j] * img[clampi(y + j - 3, 0, L.h - 1) * L.w + xc];
+      acc = acc + t.gauss[i] * v;
+    }
+    blurred[L.off + y * L.w + x] = rintf(acc);
+  }
+  __syncthreads();
+
+  // the NMS, the scores written, the cell's maximum
+  float cmax = 0.0f;
+  for (int k = tid; k < area; k += kAnyThreads) {
+    const int r = k / side, q = k % side;
+    const int y = y0 + r, x = x0 + q;
+    float v = 0.0f;
+    if (y < L.h && x < L.w) {
+      const float* p = sc + (r + 1) * sc_w + q + 1;
+      const float mid = p[0];
+      score[L.off + y * L.w + x] = mid;
+      const float m = fmaxf(fmaxf(fmaxf(p[-sc_w - 1], p[-sc_w]),
+                                  fmaxf(p[-sc_w + 1], p[-1])),
+                            fmaxf(fmaxf(p[1], p[sc_w - 1]),
+                                  fmaxf(p[sc_w], p[sc_w + 1])));
+      v = mid > m ? mid : 0.0f;
+    }
+    kv[k] = v;
+    cmax = fmaxf(cmax, v);
+  }
+  cmax = warp_max(cmax);
+  if (lane == 0) fred[warp] = cmax;
+  __syncthreads();
+  cmax = fred[0];
+#pragma unroll
+  for (int w = 1; w < kAnyThreads / 32; ++w) cmax = fmaxf(cmax, fred[w]);
+  const float th = cmax > t.th_high ? t.th_high : t.th_low;
+  int kept = 0;
+  for (int k = tid; k < area; k += kAnyThreads) {
+    const float v = kv[k] > th ? kv[k] : 0.0f;
+    kv[k] = v;
+    kept += v > 0.0f;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) kept += __shfl_xor_sync(0xffffffffu, kept, o);
+  if (lane == 0) nred[warp] = kept;
+  __syncthreads();
+  int n = 0;
+#pragma unroll
+  for (int w = 0; w < kAnyThreads / 32; ++w) n += nred[w];
+
+  // the kept values' ranks, then the zero values in index order
+  float* ov = cand_v + (size_t)c * per_cell;
+  int* oi = cand_i + (size_t)c * per_cell;
+  for (int k = tid; k < area; k += kAnyThreads) {
+    const float v = kv[k];
+    if (!(v > 0.0f)) continue;
+    const unsigned long long key =
+        ((unsigned long long)__float_as_uint(v) << 32) | (unsigned)(area - k);
+    int r = 0;
+    for (int o = 0; o < area; ++o) {
+      const float u = kv[o];
+      r += u > 0.0f &&
+           (((unsigned long long)__float_as_uint(u) << 32) |
+            (unsigned)(area - o)) > key;
+    }
+    if (r < per_cell) {
+      ov[r] = v;
+      oi[r] = k;
+    }
+  }
+  if (tid == 0) {
+    int r = n;
+    for (int k = 0; k < area && r < per_cell; ++k)
+      if (!(kv[k] > 0.0f)) {
+        ov[r] = 0.0f;
+        oi[r] = k;
+        ++r;
+      }
+  }
+}
+
 // float -> uint32 with the same order
 __device__ __forceinline__ unsigned orderable(float f) {
   const unsigned u = __float_as_uint(f);
@@ -513,10 +694,13 @@ __device__ __forceinline__ unsigned orderable(float f) {
 }
 
 // a candidate's selection key as an ascending uint32: descending keys,
-// key = v - (float)rank * 1e7f in float32 (+ 0: one zero)
-__device__ __forceinline__ unsigned select_key(const float* v, int f) {
-  const float rank = (float)(f % kPerCell);
-  return ~orderable((v[f] - rank * 1e7f) + 0.0f);
+// key = v - (float)rank * 1e7f in float32 (+ 0: one zero), rank = f's
+// place in its cell (f % per_cell). The loops carry the rank along rather
+// than divide by per_cell, a value known only at run time: a division a
+// key made orb_select's default launches 12-26% slower on the card
+__device__ __forceinline__ unsigned select_key(const float* v, int f,
+                                               int rank) {
+  return ~orderable((v[f] - (float)rank * 1e7f) + 0.0f);
 }
 
 // One block per level. The level's k = min(budget, count) winners are the
@@ -524,21 +708,30 @@ __device__ __forceinline__ unsigned select_key(const float* v, int f) {
 // key T, 8 bits a pass over the candidates read from global memory (they
 // stay in L2); every key below T and the first keys equal to T in flat
 // index order (a block-wide prefix count). Each winner's slot is the
-// number of winners before it in (key, index) order.
+// number of winners before it in (key, index) order. kGlobalWin (a budget
+// above kMaxBudget): the winners go to global scratch (the level's slots of
+// it) and are ranked against tiles of kMaxBudget of them staged in shared
+// memory.
+template <bool kFar, bool kGlobalWin>
 __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
     const float* __restrict__ cand_v, const int* __restrict__ cand_i,
     int* __restrict__ yx, float* __restrict__ resp,
-    uint8_t* __restrict__ valid, OrbTable t) {
-  extern __shared__ unsigned long long win[];  // [budget]: key << 32 | f
+    uint8_t* __restrict__ valid, unsigned long long* __restrict__ scratch,
+    OrbTable t) {
+  // [budget] (or a tile of kMaxBudget): key << 32 | f
+  extern __shared__ unsigned long long win[];
   __shared__ int hist[kBins];
   __shared__ int wsum[kSelectWarps];
   __shared__ unsigned s_prefix;
   __shared__ int s_need, s_nwin;
-  const LevelDesc L = t.lv[blockIdx.x];
-  const int count = L.cy * L.cx * kPerCell;
+  const LevelDesc L = level<kFar>(t, blockIdx.x);
+  unsigned long long* wins = kGlobalWin ? scratch + L.slot : win;
+  const int per_cell = t.per_cell, side = t.cell_side;
+  const int step = kSelectThreads % per_cell;  // the rank's step a stride
+  const int count = L.cy * L.cx * per_cell;
   const int k = L.budget < count ? L.budget : count;
-  const float* v = cand_v + (size_t)L.cell * kPerCell;
-  const int* ci = cand_i + (size_t)L.cell * kPerCell;
+  const float* v = cand_v + (size_t)L.cell * per_cell;
+  const int* ci = cand_i + (size_t)L.cell * per_cell;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // T, the k-th smallest key, and how many keys equal to T are winners
@@ -549,10 +742,12 @@ __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
     if (tid == 0) s_nwin = 0;
     __syncthreads();
     const unsigned high = shift == 24 ? 0u : ~0u << (shift + kRadixBits);
-    for (int f = tid; f < count; f += kSelectThreads) {
-      const unsigned key = select_key(v, f);
+    for (int f = tid, r = tid % per_cell; f < count; f += kSelectThreads) {
+      const unsigned key = select_key(v, f, r);
       if ((key & high) == prefix)
         atomicAdd(&hist[(key >> shift) & (kBins - 1)], 1);
+      r += step;
+      if (r >= per_cell) r -= per_cell;
     }
     __syncthreads();
     if (warp == 0) {  // lane l scans bins 8l..8l+7
@@ -591,7 +786,10 @@ __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
   const int per = (count + kSelectThreads - 1) / kSelectThreads;
   const int lo = min(tid * per, count), hi = min(lo + per, count);
   int ties = 0;
-  for (int f = lo; f < hi; ++f) ties += select_key(v, f) == prefix;
+  for (int f = lo, r = lo % per_cell; f < hi; ++f) {
+    ties += select_key(v, f, r) == prefix;
+    if (++r == per_cell) r = 0;
+  }
   int incl = ties;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -612,35 +810,61 @@ __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
   }
   __syncthreads();
   int tie = wsum[warp] + incl - ties;  // ties before this thread's range
-  for (int f = lo; f < hi; ++f) {
-    const unsigned key = select_key(v, f);
+  for (int f = lo, r = lo % per_cell; f < hi; ++f) {
+    const unsigned key = select_key(v, f, r);
+    if (++r == per_cell) r = 0;
     bool take = key < prefix;
     if (key == prefix) take = tie++ < need;
     if (take)
-      win[atomicAdd(&s_nwin, 1)] = ((unsigned long long)key << 32) |
-                                   (unsigned)f;
+      wins[atomicAdd(&s_nwin, 1)] = ((unsigned long long)key << 32) |
+                                    (unsigned)f;
   }
   __syncthreads();
 
   // slot = rank of the winner in (key, flat index) order; zeros after k
-  for (int j = tid; j < L.budget; j += kSelectThreads) {
+  auto put = [&](int j, unsigned long long w, int rank) {
     int s = L.slot + j, y = 0, x = 0;
     float val = 0.0f;
     if (j < k) {
-      const unsigned long long w = win[j];
-      int rank = 0;
-      for (int i = 0; i < k; ++i) rank += win[i] < w;
       const int f = (int)(w & 0xffffffffu);
-      const int cell = f / kPerCell, idx = ci[f];
+      const int cell = f / per_cell, idx = ci[f];
       s = L.slot + rank;
       val = v[f];
-      y = (cell / L.cx) * kCell + idx / kCell;
-      x = (cell % L.cx) * kCell + idx % kCell;
+      y = (cell / L.cx) * side + idx / side;
+      x = (cell % L.cx) * side + idx % side;
     }
     yx[2 * s] = y;
     yx[2 * s + 1] = x;
     resp[s] = val;
     valid[s] = val > 0.0f;
+  };
+  if constexpr (kGlobalWin) {
+    // a block's pass takes kSelectThreads winners; each pass stages the
+    // winners kMaxBudget at a time (every thread runs every loop)
+    for (int j0 = 0; j0 < L.budget; j0 += kSelectThreads) {
+      const int j = j0 + tid;
+      const unsigned long long w = j < k ? wins[j] : 0ull;
+      int rank = 0;
+      for (int i0 = 0; i0 < k; i0 += kMaxBudget) {
+        const int n = min(kMaxBudget, k - i0);
+        __syncthreads();  // the previous tile is read
+        for (int i = tid; i < n; i += kSelectThreads) win[i] = wins[i0 + i];
+        __syncthreads();
+        if (j < k)
+          for (int i = 0; i < n; ++i) rank += win[i] < w;
+      }
+      if (j < L.budget) put(j, w, rank);
+    }
+  } else {
+    for (int j = tid; j < L.budget; j += kSelectThreads) {
+      unsigned long long w = 0ull;
+      int rank = 0;
+      if (j < k) {
+        w = win[j];
+        for (int i = 0; i < k; ++i) rank += win[i] < w;
+      }
+      put(j, w, rank);
+    }
   }
 }
 
@@ -652,6 +876,7 @@ __global__ void __launch_bounds__(kSelectThreads) orb_select_kernel(
 // then the warps' sums in warp order by thread 0, which takes atan2f, sinf
 // and cosf and broadcasts them. Warp w ballots the BRIEF words
 // kWordsPerWarp w + h, lane l comparison 32 (kWordsPerWarp w + h) + l.
+template <bool kFar>
 __global__ void __launch_bounds__(kDescribeThreads, kDescribeBlocks)
 orb_describe_kernel(
     const float* __restrict__ pyr, const float* __restrict__ score,
@@ -663,7 +888,7 @@ orb_describe_kernel(
   __shared__ float trig[2];
   const int s = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const LevelDesc L = t.lv[level_of_slot(t, s)];
+  const LevelDesc L = level<kFar>(t, level_of_slot<kFar>(t, s));
   const int y = yx[2 * s], x = yx[2 * s + 1];
   const float* img = pyr + L.off;
   float4 p[kWordsPerWarp];  // (ax, ay, bx, by)
@@ -760,13 +985,23 @@ orb_describe_kernel(
 int max_budget(const OrbTable& t) {
   int most = 0;
   for (int l = 0; l < t.n_levels; ++l)
-    most = t.lv[l].budget > most ? t.lv[l].budget : most;
+    most = host_level(t, l).budget > most ? host_level(t, l).budget : most;
   return most;
 }
 
 bool valid_table(const OrbTable* t) {
-  return t->n_levels >= 0 && t->n_levels <= kMaxLevels &&
-         max_budget(*t) <= kMaxBudget;
+  return t->n_levels >= 0 &&
+         (t->n_levels <= kMaxLevels ||
+          (t->levels != nullptr && t->host_levels != nullptr));
+}
+
+// the table's levels lie in device memory
+bool far_levels(const OrbTable* t) { return t->levels != nullptr; }
+
+int cells_blocks(const OrbTable* t) {
+  int blocks = 0;
+  for (int l = 0; l < t->n_levels; ++l) blocks += strips(host_level(*t, l));
+  return blocks;
 }
 
 }  // namespace
@@ -780,51 +1015,84 @@ int orb_table_bytes() { return (int)sizeof(OrbTable); }
 int orb_resident_blocks(void* out) {
   int* o = static_cast<int*>(out);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &o[0], orb_cells_kernel, kCellThreads, 0);
+      &o[0], orb_cells_kernel<false>, kCellThreads, 0);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &o[1], orb_describe_kernel, kDescribeThreads, 0);
+      &o[1], orb_describe_kernel<false>, kDescribeThreads, 0);
 }
 
+// the table's pair must be (kCell, kPerCell): ops/orb.py launch_cells
+// takes orb_cells_any for any other
 int orb_cells(const void* pyr, void* score, void* blurred, void* cand_v,
               void* cand_i, const void* table, void* stream) {
   const OrbTable* t = static_cast<const OrbTable*>(table);
   if (!valid_table(t)) return (int)cudaErrorInvalidValue;
   if (t->n_cells == 0) return 0;
-  int blocks = 0;
-  for (int l = 0; l < t->n_levels; ++l) blocks += strips(t->lv[l]);
-  orb_cells_kernel<<<blocks, kCellThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = far_levels(t) ? orb_cells_kernel<true>
+                              : orb_cells_kernel<false>;
+  kernel<<<cells_blocks(t), kCellThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), static_cast<float*>(score),
       static_cast<float*>(blurred), static_cast<float*>(cand_v),
       static_cast<int*>(cand_i), *t);
   return (int)cudaGetLastError();
 }
 
+// scratch: (C + 2)^2 + C^2 floats a cell of side C (ops/orb.py
+// launch_cells)
+int orb_cells_any(const void* pyr, void* score, void* blurred, void* cand_v,
+                  void* cand_i, void* scratch, const void* table,
+                  void* stream) {
+  const OrbTable* t = static_cast<const OrbTable*>(table);
+  if (!valid_table(t)) return (int)cudaErrorInvalidValue;
+  if (t->n_cells == 0) return 0;
+  auto kernel = far_levels(t) ? orb_cells_any_kernel<true>
+                              : orb_cells_any_kernel<false>;
+  kernel<<<t->n_cells, kAnyThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pyr), static_cast<float*>(score),
+      static_cast<float*>(blurred), static_cast<float*>(cand_v),
+      static_cast<int*>(cand_i), static_cast<float*>(scratch), *t);
+  return (int)cudaGetLastError();
+}
+
+// scratch: where a level's budget is above kMaxBudget, a word a slot
+// (ops/orb.py select); else unused
 int orb_select(const void* cand_v, const void* cand_i, void* yx, void* resp,
-               void* valid, const void* table, void* stream) {
+               void* valid, void* scratch, const void* table, void* stream) {
   const OrbTable* t = static_cast<const OrbTable*>(table);
   if (!valid_table(t)) return (int)cudaErrorInvalidValue;
   if (t->n_levels == 0) return 0;
-  // the dynamic shared memory above 48 KB is granted once per device
-  static bool granted[64] = {};
+  const bool global_win = max_budget(*t) > kMaxBudget;
+  if (global_win && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const bool far = far_levels(t);
+  auto kernel = far ? (global_win ? orb_select_kernel<true, true>
+                                  : orb_select_kernel<true, false>)
+                    : (global_win ? orb_select_kernel<false, true>
+                                  : orb_select_kernel<false, false>);
+  // the dynamic shared memory above 48 KB is granted once per device and
+  // instantiation
+  static bool granted[64][4] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!granted[dev]) {
-    err = cudaFuncSetAttribute(orb_select_kernel,
+  const int which = 2 * far + global_win;
+  if (!granted[dev][which]) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxBudget * (int)sizeof(unsigned long long));
     if (err != cudaSuccess) return (int)err;
-    granted[dev] = true;
+    granted[dev][which] = true;
   }
-  const size_t smem = (size_t)max_budget(*t) * sizeof(unsigned long long);
-  orb_select_kernel<<<t->n_levels, kSelectThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const int tile = global_win ? kMaxBudget : max_budget(*t);
+  const size_t smem = (size_t)tile * sizeof(unsigned long long);
+  kernel<<<t->n_levels, kSelectThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),
       static_cast<int*>(yx), static_cast<float*>(resp),
-      static_cast<uint8_t*>(valid), *t);
+      static_cast<uint8_t*>(valid),
+      static_cast<unsigned long long*>(scratch), *t);
   return (int)cudaGetLastError();
 }
 
@@ -834,8 +1102,10 @@ int orb_describe(const void* pyr, const void* score, const void* blurred,
   const OrbTable* t = static_cast<const OrbTable*>(table);
   if (!valid_table(t)) return (int)cudaErrorInvalidValue;
   if (t->n_slots == 0) return 0;
-  orb_describe_kernel<<<t->n_slots, kDescribeThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = far_levels(t) ? orb_describe_kernel<true>
+                              : orb_describe_kernel<false>;
+  kernel<<<t->n_slots, kDescribeThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pyr), static_cast<const float*>(score),
       static_cast<const float*>(blurred), static_cast<const int*>(yx),
       static_cast<const float4*>(pattern), static_cast<float*>(xy),

@@ -58,6 +58,14 @@
 //      sums. It lifts the edge limit to 8 x 7680, and with C > 1 the sums
 //      run in another order than the baseline kernel's, so results agree
 //      with it to rounding, not to the bit.
+//   5. Above 8 x 7680 edges, two more variants of the same kernel
+//      (pose_lm_kernel<kCap, kStream>), chosen on the host: a non-portable
+//      cluster of 16 blocks (cudaFuncAttributeNonPortableClusterSizeAllowed)
+//      staging up to 16 x 7680 edges; beyond that, or where the card
+//      cannot place a cluster of 16 blocks of 222 KB, the blocks read their
+//      edges from global memory at every pass instead of staging them, and
+//      keep each edge's flags in the inlier output, made 0/1 at the end.
+//      The sums run in the same order whichever of the two holds the edges.
 // Measured (PERF.md §6): with these, the step (the warp's solve and the
 // retract, about half an iteration) and the cluster's exchange, not the
 // edges, set the time from N = 1000 on.
@@ -84,6 +92,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockEdges = 7680;    // 29 bytes an edge in shared memory
 constexpr int kMaxCluster = 8;       // blocks per pose (portable cluster)
 constexpr int kMaxEdges = kBlockEdges * kMaxCluster;
+constexpr int kWideCluster = 16;     // the non-portable cluster's blocks
 constexpr int kEdgesPerBlock = 128;  // a block per this many edges
 constexpr uint8_t kValid = 1, kStereo = 2, kInlier = 4;
 
@@ -107,9 +116,12 @@ struct Problem {
   float* chi2;            // [B]
 };
 
-// Per-edge data in shared memory, one array per field.
+// Per-edge data, one array per field: in shared memory (S = 1), or the
+// inputs themselves in global memory, x, y, z and u, v, ur interleaved by
+// three (S = 3), the flags in the inlier output.
+template <int S>
 struct Edges {
-  float *x, *y, *z, *u, *v, *ur, *s2;
+  const float *x, *y, *z, *u, *v, *ur, *s2;
   uint8_t* flags;
 };
 
@@ -119,10 +131,11 @@ struct Proj {
   float x, y, z, iz, e0, e1, e2, chi2;
 };
 
-__device__ __forceinline__ Proj project(const Problem& p, const Edges& E,
+template <int S>
+__device__ __forceinline__ Proj project(const Problem& p, const Edges<S>& E,
                                         const float* P, int n) {
   Proj r;
-  const float X = E.x[n], Y = E.y[n], Z = E.z[n];
+  const float X = E.x[S * n], Y = E.y[S * n], Z = E.z[S * n];
   r.x = P[0] * X + P[1] * Y + P[2] * Z + P[9];
   r.y = P[3] * X + P[4] * Y + P[5] * Z + P[10];
   float z = P[6] * X + P[7] * Y + P[8] * Z + P[11];
@@ -132,9 +145,9 @@ __device__ __forceinline__ Proj project(const Problem& p, const Edges& E,
   const float v = p.fy * r.y * r.iz + p.cy;
   const float ur = u - p.bf * r.iz;
   const float srow = (E.flags[n] & kStereo) ? 1.0f : 0.0f;
-  r.e0 = E.u[n] - u;
-  r.e1 = E.v[n] - v;
-  r.e2 = (E.ur[n] - ur) * srow;
+  r.e0 = E.u[S * n] - u;
+  r.e1 = E.v[S * n] - v;
+  r.e2 = (E.ur[S * n] - ur) * srow;
   r.chi2 = (r.e0 * r.e0 + r.e1 * r.e1 + r.e2 * r.e2) * E.s2[n];
   return r;
 }
@@ -305,7 +318,8 @@ __device__ __forceinline__ void warp_solve6(float row[6], float r, int lane,
 // rounds) H, b and chi2 of the valid inliers, in acc[0..27]; acc[28..31]
 // are 0. The chi2 is the sum the baseline kernel's second pass took at a
 // trial pose, in the same order.
-__device__ __forceinline__ void edge_pass(const Problem& p, const Edges& E,
+template <int S>
+__device__ __forceinline__ void edge_pass(const Problem& p, const Edges<S>& E,
                                           const float* P, int cnt, int tid,
                                           bool robust, float (&acc)[32]) {
 #pragma unroll
@@ -351,8 +365,9 @@ struct Scratch {
 // s.sums[dst], entry k by lane k of warp 0; acc is consumed. Barriers:
 // one of the block, and one of the cluster when there is more than one
 // block per pose. The partial sums of the cluster are added in block
-// order, so every block gets the same bits.
-template <class Cluster>
+// order, so every block gets the same bits. kCap: the most blocks a
+// cluster has.
+template <int kCap, class Cluster>
 __device__ __forceinline__ void reduce_sums(float (&acc)[32], Scratch& s,
                                             int dst, int par, int C,
                                             Cluster& cluster, int tid) {
@@ -371,13 +386,13 @@ __device__ __forceinline__ void reduce_sums(float (&acc)[32], Scratch& s,
     if (warp == 0) s.part[par][lane] = tot;
     cluster.sync();
     if (warp == 0) {  // every block's partial loaded first, then added
-      float q[kMaxCluster];
+      float q[kCap];
 #pragma unroll
-      for (int r = 0; r < kMaxCluster; ++r)
+      for (int r = 0; r < kCap; ++r)
         q[r] = r < C ? *cluster.map_shared_rank(&s.part[par][lane], r) : 0.0f;
       float v = q[0];
 #pragma unroll
-      for (int r = 1; r < kMaxCluster; ++r)
+      for (int r = 1; r < kCap; ++r)
         if (r < C) v += q[r];
       s.sums[dst][lane] = v;
     }
@@ -417,6 +432,9 @@ __device__ __forceinline__ bool step(Scratch& s, int cur, float lam,
   return finite;
 }
 
+// kCap: the most blocks a pose's cluster has (8, or 16 non-portable);
+// kStream: the edges read from global memory at every pass, not staged
+template <int kCap, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 pose_lm_kernel(const Problem p) {
   extern __shared__ float4 dyn[];
@@ -427,32 +445,48 @@ pose_lm_kernel(const Problem p) {
             warp = tid >> 5, N = p.n;
   // this block's edges: [e0, e0 + cnt)
   const int e0 = min(rank * p.chunk, N), cnt = min(p.chunk, N - e0);
-  Edges E;
-  float* base = reinterpret_cast<float*>(dyn);
-  E.x = base;
-  E.y = E.x + cnt;
-  E.z = E.y + cnt;
-  E.u = E.z + cnt;
-  E.v = E.u + cnt;
-  E.ur = E.v + cnt;
-  E.s2 = E.ur + cnt;
-  E.flags = reinterpret_cast<uint8_t*>(E.s2 + cnt);
-
   const float* Xw = p.Xw + ((long long)b * N + e0) * 3;
   const float* obs = p.obs + b * p.obs_stride + 3LL * e0;
   const float* s2 = p.inv_s2 + b * p.s2_stride + e0;
   const uint8_t* valid = p.valid + (long long)b * N + e0;
-  for (int n = tid; n < cnt; n += kThreads) {
-    E.x[n] = Xw[3 * n];
-    E.y[n] = Xw[3 * n + 1];
-    E.z[n] = Xw[3 * n + 2];
-    E.u[n] = obs[3 * n];
-    E.v[n] = obs[3 * n + 1];
-    const float ur = obs[3 * n + 2];
-    E.ur[n] = ur;
-    E.s2[n] = s2[n];
-    E.flags[n] = (valid[n] ? kValid : 0) | (ur >= 0.0f ? kStereo : 0) |
+  Edges<kStream ? 3 : 1> E;
+  if constexpr (kStream) {
+    E.x = Xw;
+    E.y = Xw + 1;
+    E.z = Xw + 2;
+    E.u = obs;
+    E.v = obs + 1;
+    E.ur = obs + 2;
+    E.s2 = s2;
+    E.flags = p.inliers + (long long)b * N + e0;
+    for (int n = tid; n < cnt; n += kThreads)
+      E.flags[n] = (valid[n] ? kValid : 0) |
+                   (obs[3 * n + 2] >= 0.0f ? kStereo : 0) | kInlier;
+  } else {
+    float* x = reinterpret_cast<float*>(dyn);
+    float *y = x + cnt, *z = y + cnt, *u = z + cnt, *v = u + cnt,
+          *ur = v + cnt, *w = ur + cnt;
+    uint8_t* flags = reinterpret_cast<uint8_t*>(w + cnt);
+    for (int n = tid; n < cnt; n += kThreads) {
+      x[n] = Xw[3 * n];
+      y[n] = Xw[3 * n + 1];
+      z[n] = Xw[3 * n + 2];
+      u[n] = obs[3 * n];
+      v[n] = obs[3 * n + 1];
+      const float r = obs[3 * n + 2];
+      ur[n] = r;
+      w[n] = s2[n];
+      flags[n] = (valid[n] ? kValid : 0) | (r >= 0.0f ? kStereo : 0) |
                  kInlier;
+    }
+    E.x = x;
+    E.y = y;
+    E.z = z;
+    E.u = u;
+    E.v = v;
+    E.ur = ur;
+    E.s2 = w;
+    E.flags = flags;
   }
   if (tid < 9) s.pose[tid] = p.R0[9 * b + tid];
   else if (tid < 12) s.pose[tid] = p.t0[3 * b + tid - 9];
@@ -465,7 +499,7 @@ pose_lm_kernel(const Problem p) {
     const bool robust = rnd < 2;
     // the round's flags: H, b and chi2 at the pose
     edge_pass(p, E, s.pose, cnt, tid, robust, acc);
-    reduce_sums(acc, s, cur, par, C, cluster, tid);
+    reduce_sums<kCap>(acc, s, cur, par, C, cluster, tid);
     par ^= 1;
     for (int it = 0; it < p.iters; ++it) {
       bool finite = false;
@@ -474,7 +508,7 @@ pose_lm_kernel(const Problem p) {
       // one pass at the trial pose: its chi2 decides, and its H and b are
       // the next step's if the trial is accepted
       edge_pass(p, E, s.trial, cnt, tid, robust, acc);
-      reduce_sums(acc, s, cur ^ 1, par, C, cluster, tid);
+      reduce_sums<kCap>(acc, s, cur ^ 1, par, C, cluster, tid);
       par ^= 1;
       if (warp == 0) {
         const bool ok = (s.sums[cur ^ 1][27] < s.sums[cur][27]) && finite;
@@ -576,12 +610,112 @@ int cluster_size(int N) {
   return c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
 }
 
+// A launch's variant: the kernel, its blocks per pose, edges per block and
+// dynamic shared memory.
+struct Plan {
+  const void* kernel;
+  int cluster, chunk;
+  size_t smem;
+  bool wide;  // a non-portable cluster
+};
+
+template <class K>
+cudaError_t allow(K kernel, bool wide, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && wide)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// the attributes each variant needs (the dynamic shared memory above 48 KB,
+// the non-portable cluster), set once per device
+cudaError_t prepare() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  const int most = (int)smem_bytes(kBlockEdges);
+  err = allow(pose_lm_kernel<kMaxCluster, false>, false, most);
+  if (err == cudaSuccess)
+    err = allow(pose_lm_kernel<kWideCluster, false>, true, most);
+  if (err == cudaSuccess)
+    err = allow(pose_lm_kernel<kWideCluster, true>, true, 0);
+  if (err == cudaSuccess)
+    err = allow(pose_lm_kernel<kMaxCluster, true>, false, 0);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
+// whether the card can place one cluster of C blocks of kernel with smem
+// bytes each
+bool fits(const void* kernel, int C, size_t smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess &&
+         n > 0;
+}
+
+// up to kMaxEdges: kMaxCluster blocks, staged; up to 16 x kBlockEdges: a
+// non-portable cluster of 16, staged, where the card places one; else the
+// streaming kernel, 16 blocks a pose where the card places them, else 8
+cudaError_t plan_of(int N, Plan* q) {
+  if (N <= kMaxEdges) {
+    q->cluster = cluster_size(N);
+    q->chunk = (N + q->cluster - 1) / q->cluster;
+    q->kernel = (const void*)pose_lm_kernel<kMaxCluster, false>;
+    q->smem = smem_bytes(q->chunk);
+    q->wide = false;
+    return cudaSuccess;
+  }
+  const cudaError_t err = prepare();
+  if (err != cudaSuccess) return err;
+  const int chunk16 = (N + kWideCluster - 1) / kWideCluster;
+  const void* staged = (const void*)pose_lm_kernel<kWideCluster, false>;
+  if (chunk16 <= kBlockEdges &&
+      fits(staged, kWideCluster, smem_bytes(chunk16))) {
+    *q = {staged, kWideCluster, chunk16, smem_bytes(chunk16), true};
+    return cudaSuccess;
+  }
+  const void* stream16 = (const void*)pose_lm_kernel<kWideCluster, true>;
+  if (fits(stream16, kWideCluster, 0)) {
+    *q = {stream16, kWideCluster, chunk16, 0, true};
+    return cudaSuccess;
+  }
+  const int chunk8 = (N + kMaxCluster - 1) / kMaxCluster;
+  *q = {(const void*)pose_lm_kernel<kMaxCluster, true>, kMaxCluster, chunk8,
+        0, false};
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // the blocks (a thread block cluster) that solve one pose of N edges
-int pose_lm_blocks_per_pose(int N) { return cluster_size(N); }
+int pose_lm_blocks_per_pose(int N) {
+  Plan q;
+  return plan_of(N, &q) == cudaSuccess ? q.cluster : 0;
+}
+
+// whether a pose of N edges takes the streaming kernel
+int pose_lm_streams(int N) {
+  Plan q;
+  return plan_of(N, &q) == cudaSuccess && q.smem == 0 && N > kMaxEdges;
+}
 
 int pose_lm_solve(const void* R0, const void* t0, const void* Xw,
                   const void* obs, long long obs_stride, const void* inv_s2,
@@ -591,23 +725,12 @@ int pose_lm_solve(const void* R0, const void* t0, const void* Xw,
                   int rounds, int iters, int B, int N, void* R, void* t,
                   void* inliers, void* n_inliers, void* chi2, void* stream) {
   if (B == 0) return 0;
-  if (N < 0 || N > kMaxEdges) return (int)cudaErrorInvalidValue;
-  const int C = cluster_size(N);
-  const int chunk = (N + C - 1) / C;
-  if (chunk > kBlockEdges) return (int)cudaErrorInvalidValue;
-  // the dynamic shared memory above 48 KB is granted once per device
-  static bool granted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (N < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare();
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!granted[dev]) {
-    err = cudaFuncSetAttribute(pose_lm_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(kBlockEdges));
-    if (err != cudaSuccess) return (int)err;
-    granted[dev] = true;
-  }
+  Plan plan;
+  err = plan_of(N, &plan);
+  if (err != cudaSuccess) return (int)err;
   Problem p;
   p.R0 = static_cast<const float*>(R0);
   p.t0 = static_cast<const float*>(t0);
@@ -629,26 +752,27 @@ int pose_lm_solve(const void* R0, const void* t0, const void* Xw,
   p.rounds = rounds;
   p.iters = iters;
   p.n = N;
-  p.cluster = C;
-  p.chunk = chunk;
+  p.cluster = plan.cluster;
+  p.chunk = plan.chunk;
   p.R = static_cast<float*>(R);
   p.t = static_cast<float*>(t);
   p.inliers = static_cast<uint8_t*>(inliers);
   p.n_inliers = static_cast<int32_t*>(n_inliers);
   p.chi2 = static_cast<float*>(chi2);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * C, 1, 1);
+  cfg.gridDim = dim3(B * plan.cluster, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(chunk);
+  cfg.dynamicSmemBytes = plan.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.x = plan.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pose_lm_kernel, p);
+  void* args[] = {&p};
+  err = cudaLaunchKernelExC(&cfg, plan.kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

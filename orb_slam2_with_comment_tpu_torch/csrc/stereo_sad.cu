@@ -55,6 +55,18 @@
 //   JAX round the Python product) to its slots: u_right and depth
 //   (bf / disparity, IEEE division) or -1.
 //
+// Other shapes:
+// - more than kMaxLevels levels: the table's levels lie in device memory
+//   (SadTable::levels; host_levels for the host's checks), and the warps
+//   search them there instead of in the shared copy
+//   (stereo_depth_kernel<kFar>, chosen on the host).
+// - a level under 11 rows or 21 columns: every window and strip read is
+//   clamped to the level (at), as the JAX package's one-hot reads clip
+//   their rows and columns (ops/patches.py _row_col_onehot) after the
+//   corner's clip to a negative bound. A keypoint can land on such a level
+//   where the extractor's margin is below 6 px, and its slots are refined
+//   whatever their validity; on the other levels the clamps are no-ops.
+//
 // Float operations round as the plain version's float32 tensors do:
 // -fmad=false and -prec-div (the default) in ops/cuda_lib.py's flags.
 //
@@ -108,10 +120,15 @@ struct SadLevel {
   float scale;  // float32(scale)
 };
 
+// Up to kMaxLevels levels lie in lv; with more, levels (device memory) and
+// host_levels hold them all, and lv is not read. Mirrored by ops/sad.py
+// _SadTable.
 struct SadTable {
   int n_levels;
   int n_slots;
   SadLevel lv[kMaxLevels];
+  const SadLevel* levels;
+  const SadLevel* host_levels;
 };
 
 struct DepthArgs {
@@ -194,6 +211,13 @@ struct Smem {
   unsigned n_fin, n_nan, n_none, lo, hi, digit, below, in_bin, n_cand, med;
 };
 
+// row r and column c of a level, clamped into it
+__device__ __forceinline__ int at(const SadLevel& lv, int r, int c) {
+  r = r < 0 ? 0 : (r > lv.h - 1 ? lv.h - 1 : r);
+  c = c < 0 ? 0 : (c > lv.w - 1 ? lv.w - 1 : c);
+  return r * lv.w + c;
+}
+
 // keypoint n by one warp: the refinement and its own part of the tail
 __device__ __forceinline__ void keypoint(const DepthArgs& a, const Out& o,
                                          const SadLevel* levels, int n,
@@ -201,7 +225,7 @@ __device__ __forceinline__ void keypoint(const DepthArgs& a, const Out& o,
   const SadLevel lv = levels[level_of(levels, a.t.n_levels, n)];
   const float* pl = a.pyr_l + lv.off;
   const float* pr = a.pyr_r + lv.off;
-  const float xl = a.xy_l[2 * n], yl = a.xy_l[2 * n + 1];
+  const float xl = a.xy_l[2ll * n], yl = a.xy_l[2ll * n + 1];
   const int bd = a.best_d[n], j = a.best_j[n];
   // K1 gives an index below M; another reads nothing and matches nothing
   const bool in_range = j >= 0 && j < a.n_right;
@@ -217,7 +241,7 @@ __device__ __forceinline__ void keypoint(const DepthArgs& a, const Out& o,
     const int e = lane + 32 * k;
     if (e < kWin) {
       const int r = e / kPatch, c = e - r * kPatch;
-      v[k] = __ldg(pl + (yc - kW + r) * lv.w + (xc - kW + c));
+      v[k] = __ldg(pl + at(lv, yc - kW + r, xc - kW + c));
     }
   }
   const float ur0 = rintf(ur_in * lv.inv);
@@ -230,7 +254,7 @@ __device__ __forceinline__ void keypoint(const DepthArgs& a, const Out& o,
     const int e = lane + 32 * k;
     if (e >= kWin) {
       const int f = e - kWin, r = f / kSpan, c = f - r * kSpan;
-      v[k] = __ldg(pr + (yc - kW + r) * lv.w + (x0c + c));
+      v[k] = __ldg(pr + at(lv, yc - kW + r, x0c + c));
     }
   }
   // the left patch less its centre (pixel 60: lane 28's second load)
@@ -484,6 +508,7 @@ __device__ __forceinline__ unsigned median_key(const Out& o, int n,
   return sm.med;
 }
 
+template <bool kFar>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stereo_depth_kernel(const DepthArgs a) {
   __shared__ Smem sm;
@@ -492,7 +517,8 @@ stereo_depth_kernel(const DepthArgs a) {
   const Out o = out_of(a.out, n_slots);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   stamp(a.stamps, 0);
-  if (tid < a.t.n_levels) sm.lv[tid] = a.t.lv[tid];
+  if (!kFar && tid < a.t.n_levels) sm.lv[tid] = a.t.lv[tid];
+  const SadLevel* levels = kFar ? a.t.levels : sm.lv;
   if (tid < kBins) sm.hist[0][tid] = 0;
   if (tid == 0) {
     sm.n_fin = sm.n_nan = sm.n_none = sm.hi = sm.n_cand = 0;
@@ -501,7 +527,7 @@ stereo_depth_kernel(const DepthArgs a) {
   __syncthreads();
   for (int n = blockIdx.x * kWarps + warp; n < n_slots;
        n += gridDim.x * kWarps)
-    keypoint(a, o, sm.lv, n, lane, sm.px[warp], sm.rows[warp]);
+    keypoint(a, o, levels, n, lane, sm.px[warp], sm.rows[warp]);
   grid.sync();
   stamp(a.stamps, 1);
   // the final pass: thread i of the grid takes slots i, i + the grid's
@@ -522,41 +548,66 @@ stereo_depth_kernel(const DepthArgs a) {
   }
 }
 
+const SadLevel& host_level(const SadTable* t, int l) {
+  return t->host_levels != nullptr ? t->host_levels[l] : t->lv[l];
+}
+
 bool valid_table(const SadTable* t) {
-  if (t->n_levels < 0 || t->n_levels > kMaxLevels || t->n_slots < 0)
+  if (t->n_levels < 0 || t->n_slots < 0) return false;
+  if (t->n_levels > kMaxLevels &&
+      (t->levels == nullptr || t->host_levels == nullptr))
     return false;
   int slot = 0;
   for (int l = 0; l < t->n_levels; ++l) {
-    const SadLevel& lv = t->lv[l];
-    if (lv.slot != slot || lv.budget <= 0 || lv.h < kPatch || lv.w < kSpan)
+    const SadLevel& lv = host_level(t, l);
+    if (lv.slot != slot || lv.budget <= 0 || lv.h < 1 || lv.w < 1)
       return false;
     slot += lv.budget;
   }
   return slot == t->n_slots;
 }
 
-constexpr int kMaxDevices = 64;
-int g_resident[kMaxDevices];  // blocks resident on a device, 0 = not asked
+// the instantiation a table takes: 1 where its levels lie in device memory
+int which_of(const SadTable* t) { return t->levels != nullptr; }
 
-// the blocks of the card that can run at once: the cooperative limit
-int resident_blocks(int* blocks) {
+const void* kernel_of(int which) {
+  return which ? (const void*)stereo_depth_kernel<true>
+               : (const void*)stereo_depth_kernel<false>;
+}
+
+constexpr int kMaxDevices = 64;
+// blocks of each instantiation resident on a device, 0 = not asked
+int g_resident[kMaxDevices][2];
+
+// the blocks of the card that can run ``kernel`` (instantiation ``which``)
+// at once: the cooperative limit
+int resident_blocks(const void* kernel, int which, int* blocks) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 0 && dev < kMaxDevices && g_resident[dev] > 0) {
-    *blocks = g_resident[dev];
+  if (dev >= 0 && dev < kMaxDevices && g_resident[dev][which] > 0) {
+    *blocks = g_resident[dev][which];
     return 0;
   }
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, (const void*)stereo_depth_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *blocks = per_sm * sms;
   if (*blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  if (dev >= 0 && dev < kMaxDevices) g_resident[dev] = *blocks;
+  if (dev >= 0 && dev < kMaxDevices) g_resident[dev][which] = *blocks;
   return 0;
+}
+
+// the grid of a launch of ``kernel`` on n keypoints, or -(its error)
+int grid_of(const void* kernel, int which, int n) {
+  int resident = 0;
+  const int err = resident_blocks(kernel, which, &resident);
+  if (err != 0) return -err;
+  const int blocks = (n + kWarps - 1) / kWarps;
+  return blocks < 1 ? 1 : (blocks > resident ? resident : blocks);
 }
 
 }  // namespace
@@ -569,25 +620,19 @@ long long stereo_depth_out_floats(long long n) { return out_floats(n); }
 
 int stereo_depth_stamps() { return kStamps; }
 
-// the grid a launch on n keypoints takes, or -(its error)
-int stereo_depth_grid(int n) {
-  int resident = 0;
-  const int err = resident_blocks(&resident);
-  if (err != 0) return -err;
-  const int blocks = (n + kWarps - 1) / kWarps;
-  return blocks < 1 ? 1 : (blocks > resident ? resident : blocks);
-}
+// the grid a launch on n keypoints of the first instantiation (at most
+// kMaxLevels levels) takes, or -(its error)
+int stereo_depth_grid(int n) { return grid_of(kernel_of(0), 0, n); }
 
 int stereo_depth(const void* table, const void* pyr_l, const void* pyr_r,
                  const void* xy_l, const void* xy_r, const void* best_d,
                  const void* best_j, int n_right, float bf, float fx,
                  void* out, void* stamps, void* stream) {
   const SadTable* t = static_cast<const SadTable*>(table);
-  if (!valid_table(t) || n_right < 1 ||
-      (long long)t->n_slots * 4 >= (1ll << 31))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_table(t) || n_right < 1) return (int)cudaErrorInvalidValue;
   if (t->n_slots == 0) return 0;
-  const int blocks = stereo_depth_grid(t->n_slots);
+  const int which = which_of(t);
+  const int blocks = grid_of(kernel_of(which), which, t->n_slots);
   if (blocks < 0) return -blocks;
   DepthArgs a;
   a.pyr_l = static_cast<const float*>(pyr_l);
@@ -604,7 +649,7 @@ int stereo_depth(const void* table, const void* pyr_l, const void* pyr_r,
   a.t = *t;
   void* params[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)stereo_depth_kernel, blocks, kThreads, params, 0,
+      kernel_of(which), blocks, kThreads, params, 0,
       static_cast<cudaStream_t>(stream));
 }
 

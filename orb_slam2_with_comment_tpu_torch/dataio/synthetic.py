@@ -559,7 +559,8 @@ BA_CASES = ("mixed", "mono", "all_invalid")
 
 def ba_problem(case: str, seed: int, P: int = 24, L: int = 8192, D: int = 8,
                n_fixed: int = 8, outliers: float = 0.1,
-               cam=(500.0, 500.0, 320.0, 240.0, 40.0)) -> dict:
+               cam=(500.0, 500.0, 320.0, 240.0, 40.0),
+               spread: bool = False) -> dict:
     """A local-BA problem of the kind keyframe maintenance gives the dense
     solver, as numpy arrays: R [P,3,3], t [P,3], X [L,3], obs_pose [L,D]
     int64, obs_uvr [L,D,3], obs_w [L,D], pose_fixed [P], point_valid [L].
@@ -577,7 +578,10 @@ def ba_problem(case: str, seed: int, P: int = 24, L: int = 8192, D: int = 8,
     stereo and a quarter of the others mono (u_r = -1); ``mono`` all of
     them mono; ``all_invalid`` mixed with no valid landmark. A landmark is
     well determined where the map's are (a stereo observation, or a wide
-    baseline): float32 and float64 solves agree on it."""
+    baseline): float32 and float64 solves agree on it. ``spread``: each
+    landmark's D slots shuffled after the draws (a permutation of its own),
+    so that its observations lie anywhere among them, as a map's slot table
+    holds them once observations have been culled."""
     if case not in BA_CASES:
         raise ValueError(f"unknown case {case!r}")
     fx, fy, cx, cy, bf = cam
@@ -619,6 +623,11 @@ def ba_problem(case: str, seed: int, P: int = 24, L: int = 8192, D: int = 8,
     valid = rng.rand(L) < 0.95
     if case == "all_invalid":
         valid[:] = False
+    if spread:
+        perm = np.argsort(rng.rand(L, D), axis=1)
+        obs_pose = np.take_along_axis(obs_pose, perm, 1)
+        w = np.take_along_axis(w, perm, 1)
+        uvr = np.take_along_axis(uvr, perm[..., None], 1)
     f32 = lambda a: np.ascontiguousarray(a, np.float32)  # noqa: E731
     return dict(R=f32(R0), t=f32(t0), X=f32(X + rng.normal(0, 0.03, X.shape)),
                 obs_pose=obs_pose, obs_uvr=f32(uvr), obs_w=f32(w),

@@ -96,24 +96,10 @@ class OrbExtractor:
         """Every level with a budget above 0 in one call of the ORB
         kernels (ops/orb.py: three launches on the card), concatenated in
         level order: what _level_features gives level by level. ``flat``:
-        the pyramid already packed (orb.pack). A configuration the kernels
-        do not take runs _level_features level by level on the CPU and
-        raises on the card."""
-        if ((self.cell, self.per_cell) != (orb.CELL, orb.PER_CELL)
-                or self.n_levels > orb.MAX_LEVELS):
-            if pyr[0].device.type != "cpu":
-                raise ValueError(
-                    f"the ORB kernels take {orb.CELL} px cells of "
-                    f"{orb.PER_CELL} candidates and at most "
-                    f"{orb.MAX_LEVELS} levels; got cell={self.cell}, "
-                    f"per_cell={self.per_cell}, n_levels={self.n_levels}")
-            parts = [self._level_features(p, lvl, b)
-                     for lvl, (p, b) in enumerate(zip(pyr, self.budgets))
-                     if b > 0]
-            return FrameFeatures(*(torch.cat(p) for p in zip(*parts)))
+        the pyramid already packed (orb.pack)."""
         return FrameFeatures(*orb.extract_levels(
             pyr, self.budgets, self.scales, self.margin, self.th_high,
-            self.th_low, flat))
+            self.th_low, flat, self.cell, self.per_cell))
 
     def _level_features(self, lvl_img: torch.Tensor, lvl: int, budget: int):
         """One level's features with the per-level functions: the

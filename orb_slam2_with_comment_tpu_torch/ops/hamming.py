@@ -18,8 +18,13 @@ import torch
 from . import cuda_lib
 
 BIG = 10_000  # matching/core.py: distance of a masked candidate
-MAX_TARGETS = 1 << 22  # the fused kernel's keys hold a column in 22 bits
+# up to this many targets the fused kernel's keys are 32 bits (a column in
+# 22 of them); above, its 64-bit instantiation
+NARROW_TARGETS = 1 << 22
 LAUNCHES = {"distance_matrix": 0, "masked_best_two": 0}
+# the launches, among LAUNCHES', of the kernels' variants for other shapes:
+# masked_best_two's 64-bit key (above NARROW_TARGETS targets)
+VARIANT_LAUNCHES = {"masked_best_two_key64": 0}
 _CHUNK_ELEMS = 1 << 22  # bounds the plain versions' [rows, N, 8] temporaries
 
 
@@ -80,7 +85,8 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hamming_distance_matrix.argtypes = [p, p, p, i, i, p]
         lib.hamming_distance_matrix.restype = i
-        lib.hamming_masked_best_two.argtypes = [p, p, p, p, p, p, p, i, i, p]
+        lib.hamming_masked_best_two.argtypes = [p, p, p, p, p, p, p, i,
+                                                ctypes.c_longlong, p]
         lib.hamming_masked_best_two.restype = i
         _lib = lib
     return _lib
@@ -139,7 +145,8 @@ def distance_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 
 def masked_best_two(dq: torch.Tensor, dt: torch.Tensor, mask: torch.Tensor):
     """Fused distance matrix + masked best-two (see masked_best_two_plain);
-    the [Q, N] distances never reach device memory on the CUDA path."""
+    the [Q, N] distances never reach device memory on the CUDA path (a
+    32-bit key a candidate up to NARROW_TARGETS targets, 64-bit above)."""
     _check_desc(dq, "dq")
     _check_desc(dt, "dt")
     q, n = dq.shape[0], dt.shape[0]
@@ -151,9 +158,6 @@ def masked_best_two(dq: torch.Tensor, dt: torch.Tensor, mask: torch.Tensor):
     if _on_cpu(dq, dt, mask):
         return masked_best_two_plain(dq, dt, mask)
     dev = _check_cuda(dq, dt, mask)
-    if n > MAX_TARGETS:
-        raise ValueError(f"the masked_best_two kernel takes at most "
-                         f"{MAX_TARGETS} targets, got {n}")
     dq, dt, mask = _aligned(dq), _aligned(dt), mask.contiguous()
     outs = torch.empty((4, q), dtype=torch.int32, device=dev)  # one alloc
     base = outs.data_ptr()
@@ -164,6 +168,8 @@ def masked_best_two(dq: torch.Tensor, dt: torch.Tensor, mask: torch.Tensor):
     _raise_on(err, "hamming_masked_best_two")
     if q:
         LAUNCHES["masked_best_two"] += 1
+        if n > NARROW_TARGETS:
+            VARIANT_LAUNCHES["masked_best_two_key64"] += 1
     return tuple(outs.unbind(0))
 
 

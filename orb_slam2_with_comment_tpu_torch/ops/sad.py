@@ -40,9 +40,12 @@ W = 5  # SAD half-window (reference: const int w = 5, Frame.cc:593)
 L = 5  # shift search range (reference: const int L = 5, Frame.cc:600)
 PATCH = 2 * W + 1  # the window's side, 11
 SPAN = 2 * W + 2 * L + 1  # the strip's width, 21
-MAX_LEVELS = 16  # csrc/stereo_sad.cu's SadTable holds 16 levels
+MAX_LEVELS = 16  # levels csrc/stereo_sad.cu's SadTable holds by value
 TH_ORB = 75  # (TH_HIGH + TH_LOW) / 2 (reference: Frame.cc:540)
 LAUNCHES = {"stereo_sad": 0}
+# the launches, among LAUNCHES', of the kernel's instantiation with its
+# level table in device memory (more than MAX_LEVELS levels)
+VARIANT_LAUNCHES = {"stereo_sad_far": 0}
 V1_LAUNCHES = {"stereo_sad_v1": 0}
 
 
@@ -61,17 +64,22 @@ def _curves(pyr_l: torch.Tensor, pyr_r: torch.Tensor, inv_scale: float,
     yi = torch.round(xy_l[:, 1] * inv).to(torch.int64)
     xi = torch.round(xy_l[:, 0] * inv).to(torch.int64)
     uri = ur0.to(torch.int64)
-    # a window that would leave the image is shifted back inside
+    # a window that would leave the image is shifted back inside; on a
+    # level under 11 rows or 21 columns the bound is negative and the reads
+    # are clamped to the level, as the JAX package's one-hot reads clip
+    # them (on the other levels the clamps change nothing)
     yc = (yi - W).clamp(0, h - PATCH) + W
     xc = (xi - W).clamp(0, w - PATCH) + W
     off = torch.arange(-W, W + 1, device=pyr_l.device)
-    rows = (yc[:, None] + off[None, :])[:, :, None]
-    p_l = pyr_l[rows, (xc[:, None] + off[None, :])[:, None, :]]  # [N,11,11]
+    rows = (yc[:, None] + off[None, :]).clamp(0, h - 1)[:, :, None]
+    cols_l = (xc[:, None] + off[None, :]).clamp(0, w - 1)
+    p_l = pyr_l[rows, cols_l[:, None, :]]  # [N,11,11]
     p_l = p_l - p_l[:, W:W + 1, W:W + 1]
     x0 = uri - W - L
     inb = (x0 >= 0) & (x0 + SPAN <= w)
     x0c = x0.clamp(0, w - SPAN)
-    cols = x0c[:, None] + torch.arange(SPAN, device=pyr_l.device)[None, :]
+    cols = (x0c[:, None] + torch.arange(SPAN, device=pyr_l.device)[None, :]
+            ).clamp(0, w - 1)
     strip = pyr_r[rows, cols[:, None, :]]  # [N, 11, 21]
     win = strip.unfold(2, PATCH, 1)  # [N, 11 rows, 11 shifts, 11 cols]
     win = win - win[:, W:W + 1, :, W:W + 1]
@@ -203,27 +211,33 @@ class _SadLevel(ctypes.Structure):
 
 
 class _SadTable(ctypes.Structure):
+    """csrc/stereo_sad.cu's SadTable. Above MAX_LEVELS levels ``levels``
+    (device memory, set at the launch) and ``host_levels`` hold them all
+    and ``lv`` is not read."""
     _fields_ = [("n_levels", ctypes.c_int), ("n_slots", ctypes.c_int),
-                ("lv", _SadLevel * MAX_LEVELS)]
+                ("lv", _SadLevel * MAX_LEVELS),
+                ("levels", ctypes.c_void_p), ("host_levels", ctypes.c_void_p)]
+
+
+# the bytes of csrc/stereo_sad_v1.cu's SadTable: this one's up to the end of ``lv``
+V1_TABLE_BYTES = _SadTable.lv.offset + _SadTable.lv.size
 
 
 def _table(levels: tuple) -> _SadTable:
-    """The kernels' level table; raises for what they do not take."""
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"the SAD kernel takes at most {MAX_LEVELS} levels "
-                         f"with a budget, got {len(levels)}")
-    for lv in levels:
-        if lv.h < PATCH or lv.w < SPAN:
-            raise ValueError(
-                f"the SAD kernel takes levels of at least {PATCH} rows and "
-                f"{SPAN} columns; level {lv.lvl} is {lv.h}x{lv.w}")
+    """The kernels' level table (every level size and count; the levels'
+    copy in device memory, above MAX_LEVELS, is Layout.device_levels')."""
     t = _SadTable()
     t.n_levels = len(levels)
     t.n_slots = sum(lv.budget for lv in levels)
-    for i, lv in enumerate(levels):
-        # the two factors as the plain version rounds them on the host
-        t.lv[i] = _SadLevel(lv.off, lv.h, lv.w, lv.budget, lv.slot,
-                            _f32(1.0 / lv.scale), _f32(lv.scale))
+    # the two factors as the plain version rounds them on the host
+    descs = [_SadLevel(lv.off, lv.h, lv.w, lv.budget, lv.slot,
+                       _f32(1.0 / lv.scale), _f32(lv.scale)) for lv in levels]
+    if len(levels) <= MAX_LEVELS:
+        for i, d in enumerate(descs):
+            t.lv[i] = d
+    else:
+        t.keep = (_SadLevel * len(descs))(*descs)
+        t.host_levels = ctypes.addressof(t.keep)
     return t
 
 
@@ -232,9 +246,21 @@ class Layout(NamedTuple):
     levels: tuple
     n: int  # keypoint slots
     size: int  # pixels of a packed pyramid
-    table: _SadTable | None  # None where the kernels do not take the layout
-    error: str  # why not, else ""
+    table: _SadTable
     address: int  # the table's address, for ctypes
+    device_levels: dict  # device -> the levels in its memory (> MAX_LEVELS)
+
+    def for_device(self, dev: torch.device) -> int:
+        """The table's address with its levels in ``dev``'s memory where
+        it has more than MAX_LEVELS of them."""
+        if self.table.host_levels:
+            got = self.device_levels.get(dev)
+            if got is None:
+                got = torch.frombuffer(bytearray(self.table.keep),
+                                       dtype=torch.uint8).to(dev)
+                self.device_levels[dev] = got
+            self.table.levels = got.data_ptr()
+        return self.address
 
 
 # layouts by the id of their levels tuple (ops/orb.level_table gives the
@@ -252,12 +278,8 @@ def layout(levels) -> Layout:
     levels = tuple(levels)
     n = sum(lv.budget for lv in levels)
     size = levels[-1].off + levels[-1].h * levels[-1].w if levels else 0
-    try:
-        table, error = _table(levels), ""
-    except ValueError as e:
-        table, error = None, str(e)
-    out = Layout(levels, n, size, table, error,
-                 ctypes.addressof(table) if table is not None else 0)
+    table = _table(levels)
+    out = Layout(levels, n, size, table, ctypes.addressof(table), {})
     if key is not None:
         if len(_layouts) >= 256:
             _layouts.clear()
@@ -353,7 +375,7 @@ def _v1_kernel_lib() -> ctypes.CDLL:
     global _v1_lib
     if _v1_lib is None:
         lib = bind_v1(cuda_lib.load("stereo_sad_v1"))
-        got, want = lib.stereo_sad_table_bytes(), ctypes.sizeof(_SadTable)
+        got, want = lib.stereo_sad_table_bytes(), V1_TABLE_BYTES
         if got != want:
             raise RuntimeError(f"csrc/stereo_sad_v1.cu's SadTable is {got} "
                                f"bytes, ops/sad.py's {want}")
@@ -390,14 +412,12 @@ def launch_depth(lib: ctypes.CDLL, lay: Layout, flat_l, flat_r, xy_l, xy_r,
     (out_floats(N) float32; ``outputs`` names its parts); raises on a
     launch error. ``stamps``: an int64 [N_STAMPS] tensor for the kernel's
     globaltimer stamps."""
-    if lay.table is None:
-        raise ValueError(lay.error)
     dev = flat_l.device
     out = torch.empty(out_floats(lay.n), dtype=torch.float32, device=dev)
     if lay.n == 0:
         return out
     err = lib.stereo_depth(
-        lay.address, _contiguous(flat_l).data_ptr(),
+        lay.for_device(dev), _contiguous(flat_l).data_ptr(),
         _contiguous(flat_r).data_ptr(), _contiguous(xy_l).data_ptr(),
         _contiguous(xy_r).data_ptr(), _contiguous(best_d).data_ptr(),
         _contiguous(best_j).data_ptr(), xy_r.shape[0], bf, fx,
@@ -438,6 +458,8 @@ def stereo_depth(flat_l: torch.Tensor, flat_r: torch.Tensor, levels,
     n = lay.n
     if n:
         LAUNCHES["stereo_sad"] += 1
+        if len(lay.levels) > MAX_LEVELS:
+            VARIANT_LAUNCHES["stereo_sad_far"] += 1
     return out[:n], out[n:2 * n]
 
 
@@ -462,8 +484,6 @@ def launch(lib: ctypes.CDLL, flat_l, flat_r, levels, xy_l, u_r0):
     raises on a launch error. Returns (u_right, best SAD, ok, best shift [N]
     int8)."""
     lay = layout(levels)
-    if lay.table is None:
-        raise ValueError(lay.error)
     n = lay.n
     dev = flat_l.device
     u_right = torch.empty(n, dtype=torch.float32, device=dev)

@@ -289,8 +289,13 @@ def first_system_plain(cam: CamParams, prob: BAProblem, robust: bool = True,
 # ---------------------------------------------------------------------------
 
 LAUNCHES = {"ba_solve": 0}
+# the launches, among LAUNCHES', of the kernel's wide variant (more than
+# WIDE_SLOTS slots a landmark, or 2^31 pairs or more)
+VARIANT_LAUNCHES = {"ba_solve_wide": 0}
 MAX_POSES = 64  # csrc/ba.cu kMaxPoses: a landmark's free poses in a 64-bit mask
-MAX_SLOTS = 32  # csrc/ba.cu kMaxSlots
+# csrc/ba.cu kMaxSlots: above this many slots a landmark (or at 2^31 pairs)
+# the launch takes the kernel's wide variant
+WIDE_SLOTS = 32
 _MODE_ACCEPT_ALL, _MODE_ASSEMBLE = 1, 2
 # csrc/ba.cu: an observation's record in floats, the pairs a chunk of a pair
 # list, a chunk's float64 sums, the blocks of partial sums
@@ -370,8 +375,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def _check_problem(prob: BAProblem) -> bool:
     """True when every tensor lies on the CPU; raises on a wrong type or
-    shape, on tensors on several devices, and on the card beyond the
-    kernel's limits."""
+    shape, on tensors on several devices, and on the card above MAX_POSES
+    poses (the dense path's size: the solvers go to CG above it)."""
     for name in ("R", "t", "X", "obs_uvr", "obs_w"):
         x = getattr(prob, name)
         if x.dtype != torch.float32:
@@ -399,12 +404,6 @@ def _check_problem(prob: BAProblem) -> bool:
     if not 1 <= P <= MAX_POSES:
         raise ValueError(f"the BA kernel takes 1 to {MAX_POSES} poses, "
                          f"got {P}")
-    if not 1 <= D <= MAX_SLOTS:
-        raise ValueError(f"the BA kernel takes 1 to {MAX_SLOTS} observation "
-                         f"slots a landmark, got {D}")
-    if scratch_sizes(P, L, D)["pairs"] >= 2 ** 31:
-        raise ValueError("the BA kernel takes L * D (D + 1) / 2 below 2^31, "
-                         f"got {scratch_sizes(P, L, D)['pairs']}")
     return False
 
 
@@ -434,7 +433,9 @@ class KernelSolve:
             return torch.empty(shape, dtype=dtype, device=dev)
 
         sizes = scratch_sizes(P, L, D)
-        self.trace = torch.zeros(max(iters, 1), 3, dtype=f32, device=dev)
+        # csrc/ba.cu is_wide: the launch takes the wide variant
+        self.wide = D > WIDE_SLOTS or sizes["pairs"] >= 2 ** 31
+        self.trace = torch.zeros(max(iters, 1), 4, dtype=f32, device=dev)
         self.obs_chi2, self.chi2 = empty(L, D), empty(1)
         self.step0 = torch.zeros(6 * P, dtype=f64, device=dev)
         self.rec = empty(L * D, REC_FLOATS)
@@ -443,7 +444,8 @@ class KernelSolve:
         self.mask = empty(L, dtype=torch.int64)
         self.pcounts = empty(P * MAX_RANGES, dtype=torch.int32)
         self.plist = empty(L * D, dtype=torch.int32)
-        self.counts = empty(sizes["blocks"] * MAX_RANGES, dtype=torch.int32)
+        # int32 counts, or int64 in the wide variant: room for either
+        self.counts = empty(sizes["blocks"] * MAX_RANGES, dtype=torch.int64)
         self.done = empty(sizes["blocks"], dtype=torch.int32)
         self.pairs = empty(sizes["pairs"], 2, dtype=torch.int32)
         self.part = empty(sizes["chunks"], PART_DOUBLES, dtype=f64)
@@ -476,6 +478,8 @@ class KernelSolve:
         if err != 0:
             raise RuntimeError(f"ba_solve launch failed: cudaError_t {err}")
         LAUNCHES["ba_solve"] += 1
+        if self.wide:
+            VARIANT_LAUNCHES["ba_solve_wide"] += 1
 
     def grid(self) -> int:
         """The blocks of threads a launch takes on this card."""
@@ -536,7 +540,8 @@ def ba_solve(cam: CamParams, prob: BAProblem, iters: int = 10,
     ``accept_all``: take every step at the fixed damping ``init_lambda``.
     On the CPU ba_solve_plain; on CUDA tensors one launch of csrc/ba.cu for
     the whole solve, its reduced system factorized inside, reading nothing
-    back (at most 64 poses and 32 slots a landmark)."""
+    back (at most 64 poses; above 32 slots a landmark the kernel's wide
+    variant)."""
     if _check_problem(prob):
         return ba_solve_plain(cam, prob, iters, robust, init_lambda,
                               accept_all)

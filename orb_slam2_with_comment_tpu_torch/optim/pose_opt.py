@@ -9,9 +9,12 @@ axis carries the three independent solves of a tracking frame
 ``optimize_pose_plain`` is the plain PyTorch version. ``optimize_pose`` takes
 it only for tensors on the CPU; for CUDA tensors it launches the
 hand-written kernel of ``csrc/pose_lm.cu`` once, the whole schedule in one
-launch, or raises. ``LAUNCHES`` counts those launches; ``blocks_per_pose``
-says how many thread blocks (one cluster) the kernel gives a pose of N
-edges.
+launch, or raises, for any N (above 61,440 edges a pose through the
+kernel's variants: a non-portable cluster of 16 blocks, then edges read
+from global memory). ``LAUNCHES`` counts those launches;
+``blocks_per_pose`` says how many thread blocks (one cluster) the kernel
+gives a pose of N edges, ``streams`` whether it reads them from global
+memory.
 """
 from __future__ import annotations
 
@@ -113,9 +116,13 @@ def optimize_pose_plain(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2,
 
 
 LAUNCHES = {"pose_lm": 0}
-# csrc/pose_lm.cu kMaxEdges: up to 8 blocks (a cluster) per pose, each with
-# 7680 edges of 29 bytes in its shared memory
-MAX_EDGES = 61440
+# the launches, among LAUNCHES', of the kernel's variants above
+# STAGED_EDGES edges a pose: a cluster of 16 staging them, or the edges
+# read from global memory
+VARIANT_LAUNCHES = {"pose_lm_cluster16": 0, "pose_lm_stream": 0}
+# csrc/pose_lm.cu kMaxEdges: up to this many edges a pose, 8 blocks (a
+# portable cluster) hold them in shared memory, 7680 edges of 29 bytes each
+STAGED_EDGES = 61440
 # the thresholds as the plain version's float32 tensors hold them
 _THRESHOLDS = tuple(float(np.float32(v)) for v in (
     CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO))
@@ -136,8 +143,9 @@ def bind_solve(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     bind_solve(lib)
-    lib.pose_lm_blocks_per_pose.argtypes = [ctypes.c_int]
-    lib.pose_lm_blocks_per_pose.restype = ctypes.c_int
+    for fn in (lib.pose_lm_blocks_per_pose, lib.pose_lm_streams):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -150,8 +158,14 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def blocks_per_pose(N: int) -> int:
     """The thread blocks, one cluster, that csrc/pose_lm.cu gives a pose
-    of N edges (loads the kernel)."""
+    of N edges on the current card (loads the kernel)."""
     return _kernel_lib().pose_lm_blocks_per_pose(N)
+
+
+def streams(N: int) -> bool:
+    """Whether csrc/pose_lm.cu reads a pose's N edges from global memory
+    at every pass instead of staging them (loads the kernel)."""
+    return bool(_kernel_lib().pose_lm_streams(N))
 
 
 def empty_result(B: int, N: int, dev) -> PoseOptResult:
@@ -217,9 +231,6 @@ def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("the pose LM kernel takes tensors on one CUDA "
                          f"device (got {[str(x.device) for x in tensors]})")
-    if N > MAX_EDGES:
-        raise ValueError(f"the pose LM kernel takes at most {MAX_EDGES} "
-                         f"edges, got {N}")
     out = empty_result(B, N, dev)
     err = launch(_kernel_lib(), cam, *(x.contiguous() for x in tensors), out,
                  rounds, iters_per_round)
@@ -227,4 +238,7 @@ def optimize_pose(cam: CamParams, R0, t0, Xw, obs_uvr, inv_sigma2, valid,
         raise RuntimeError(f"pose_lm_solve launch failed: cudaError_t {err}")
     if B:
         LAUNCHES["pose_lm"] += 1
+        if N > STAGED_EDGES:
+            VARIANT_LAUNCHES["pose_lm_stream" if streams(N)
+                             else "pose_lm_cluster16"] += 1
     return out

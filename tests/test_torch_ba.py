@@ -52,11 +52,15 @@ CASES = {
     "64 poses": ("mixed", 1, 64, 1000, 8, 8, 3),
     "no valid landmark": ("all_invalid", 2, 24, 200, 8, 8, 3),
     "mono only": ("mono", 3, 12, 400, 6, 4, 5),
+    # MapConfig(d_max=40): above the kernel's 32 slots (its wide variant),
+    # the observations spread over all 40
+    "40 slots": ("mixed", 7, 12, 300, 40, 4, 3),
 }
 
 
 def _problem(case, seed, P, L, D, n_fixed):
-    p = ba_problem(case, seed, P=P, L=L, D=D, n_fixed=n_fixed)
+    p = ba_problem(case, seed, P=P, L=L, D=D, n_fixed=n_fixed,
+                   spread=D > ba.WIDE_SLOTS)
     return (ba.BAProblem(*(torch.as_tensor(p[f]) for f in FIELDS)),
             jba.BAProblem(*(jnp.asarray(p[f].astype(np.int32)
                                         if f == "obs_pose" else p[f])
@@ -199,7 +203,14 @@ def test_binding_matches_the_extern_c_interface_and_the_limits():
                    .group(1))
 
     assert const("kMaxPoses") == ba.MAX_POSES
-    assert const("kMaxSlots") == ba.MAX_SLOTS
+    # above kMaxSlots slots the wrapper no longer refuses: the launch takes
+    # the wide variant (ba_kernel<true>), chosen by the source's is_wide
+    assert const("kMaxSlots") == ba.WIDE_SLOTS
+    assert re.search(r"a->D > kMaxSlots \|\| pairs >= \(1ll << 31\)", src)
+    tprob, _ = _problem("mixed", 8, 6, 40, ba.WIDE_SLOTS + 16, 2)
+    assert ba._check_problem(tprob)  # a CPU problem: the plain version
+    got = ba.ba_solve(CAM, tprob, iters=1)
+    assert torch.isfinite(got.X).all() and float(got.chi2) > 0
     assert const("kRec") == ba.REC_FLOATS
     assert const("kPart") == ba.PART_DOUBLES
     assert const("kMaxGrid") == ba.MAX_GRID

@@ -83,6 +83,31 @@ def test_wrappers_count_and_check(dev):
         hamming.masked_best_two(d, d, mask.int())
 
 
+def test_masked_best_two_above_2_22_targets(dev):
+    """[4 x 4,194,321]: the 64-bit key's instantiation against
+    masked_best_two_plain bit for bit, with candidates past column 2^22,
+    ties between columns on either side of it, and a row of none."""
+    n = hamming.NARROW_TARGETS + 17
+    rng = np.random.RandomState(5)
+    dt = _desc(rng, n).to(dev)
+    dq = _desc(rng, 4).to(dev)
+    mask = torch.rand((4, n), generator=torch.Generator(dev).manual_seed(3),
+                      device=dev) < 0.01
+    dt[n - 5] = dq[0]  # distance 0 past 2^22 ...
+    dt[7] = dq[0]      # ... and the same at column 7: 7 wins
+    mask[0, [7, n - 5]] = True
+    dt[n - 1] = dq[1]  # the best only past 2^22
+    mask[1, n - 1] = True
+    mask[3] = False
+    before = hamming.LAUNCHES["masked_best_two"]
+    got = hamming.masked_best_two(dq, dt, mask)
+    assert hamming.LAUNCHES["masked_best_two"] == before + 1
+    want = hamming.masked_best_two_plain(dq, dt, mask)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].tolist()[:2] == [7, n - 1] and got[0][3] == hamming.BIG
+
+
 def _pose_args(case, seed, dev, B=3, N=1000):
     p = pose_problem(case, seed, B, N)
     return [torch.as_tensor(p[k]).to(dev) for k in (
@@ -146,7 +171,8 @@ def test_pose_lm_kernel_matches_plain_and_v1(dev, shape):
 def test_pose_lm_launches_are_bit_identical(dev):
     """Two launches on the same inputs give the same bits (fixed-order
     reductions, no atomics), at the largest N the main path gives it; the
-    wrapper refuses what the kernel does not take."""
+    wrapper refuses tensors on two devices; above the edges 8 blocks stage
+    it takes the kernel too."""
     cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
     args = _pose_args("outliers", 9, dev, B=1, N=4096)
     a = pose_opt.optimize_pose(cam, *args)
@@ -155,9 +181,36 @@ def test_pose_lm_launches_are_bit_identical(dev):
         assert torch.equal(x, y)
     with pytest.raises(ValueError):
         pose_opt.optimize_pose(cam, *args[:2], args[2].cpu(), *args[3:])
-    with pytest.raises(ValueError):
-        pose_opt.optimize_pose(cam, *_pose_args(
-            "mixed", 9, dev, B=1, N=pose_opt.MAX_EDGES + 1))
+    before = pose_opt.LAUNCHES["pose_lm"]
+    out = pose_opt.optimize_pose(cam, *_pose_args(
+        "mixed", 9, dev, B=1, N=pose_opt.STAGED_EDGES + 1))
+    assert pose_opt.LAUNCHES["pose_lm"] == before + 1
+    assert int(out.n_inliers[0]) > 0.7 * pose_opt.STAGED_EDGES
+
+
+@pytest.mark.parametrize("shape", [(1, 65536), (2, 130000)])
+def test_pose_lm_variants_match_plain(dev, shape):
+    """Above the 61,440 edges a portable cluster stages: a non-portable
+    cluster of 16 blocks (65,536), then the edges read from global memory
+    at every pass (130,000): against the plain version as
+    test_pose_lm_kernel_matches_plain holds it; two launches bit for
+    bit."""
+    B, N = shape
+    cam = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
+    args = _pose_args("outliers", 11, dev, B=B, N=N)
+    assert pose_opt.streams(N) == (N > 2 * pose_opt.STAGED_EDGES)
+    if N <= 2 * pose_opt.STAGED_EDGES:
+        assert pose_opt.blocks_per_pose(N) == 16
+    out = pose_opt.optimize_pose(cam, *args)
+    again = pose_opt.optimize_pose(cam, *args)
+    for x, y in zip(out, again):
+        assert torch.equal(x, y)
+    want = pose_opt.optimize_pose_plain(cam, *args)
+    assert torch.equal(out.inliers, want.inliers)
+    assert torch.equal(out.n_inliers, want.n_inliers)
+    assert torch.allclose(out.R, want.R, rtol=0, atol=1e-4)
+    assert torch.allclose(out.t, want.t, rtol=0, atol=1e-4)
+    assert torch.allclose(out.chi2, want.chi2, rtol=1e-3, atol=1e-6)
 
 
 def test_stereo_association_is_one_launch(dev):
@@ -265,10 +318,65 @@ def test_orb_select_takes_any_frame_size(dev, size):
     assert int(bits[valid].max()) <= 8
 
 
+# configurations the strip kernel and the 16-level table did not take:
+# (width, height, OrbExtractor keywords)
+ORB_VARIANTS = {
+    "cell30-18-levels": (640, 480, dict(n_features=1000, cell=30,
+                                        n_levels=18)),
+    "cell16-per_cell4": (640, 480, dict(n_features=1000, cell=16,
+                                        per_cell=4)),
+    "budget-above-28672": (2560, 1440, dict(n_features=140000)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ORB_VARIANTS))
+def test_orb_variants_match_their_plain_chain(dev, name):
+    """orb_cells_any (another cell side or count), the level table in
+    device memory (18 levels) and orb_select's global scratch (a level of
+    more than 28,672 slots) against the plain chain on the same card, as
+    test_orb_kernels_match_their_plain_chain holds the default shapes:
+    candidates and selection bit for bit, then the angle (on the valid
+    slots) and descriptor gates."""
+    w, h, kw = ORB_VARIANTS[name]
+    img, _ = _orb_frame(w, h, 1)
+    ext = OrbExtractor(**kw)
+    pyr = ext._pyramid(img.to(dev))
+    levels = orb.level_table(tuple(tuple(p.shape) for p in pyr),
+                             tuple(ext.budgets), tuple(ext.scales), ext.cell)
+    if "budget" in name:
+        assert levels[0].budget > orb.MAX_BUDGET
+    flat = torch.cat([p.reshape(-1) for p in pyr])
+    plain = orb.cells_plain(flat, levels, per_cell=ext.per_cell)
+    before = dict(orb.LAUNCHES)
+    cells = orb.cells(flat, levels, per_cell=ext.per_cell)
+    assert orb.LAUNCHES["orb_cells"] == before["orb_cells"] + 1
+    for a, b in zip(cells, plain):
+        assert torch.equal(a, b)
+    sel = orb.select(*plain[2:], levels)
+    for a, b in zip(sel, orb.select_plain(*plain[2:], levels)):
+        assert torch.equal(a, b)
+    xy, resp, octv, ang, desc, valid = ext._extract_from_pyramid(pyr)
+    want = orb.extract_levels_plain(flat, levels, per_cell=ext.per_cell)
+    for a, b in ((xy, want[0]), (resp, want[1]), (octv, want[2]),
+                 (valid, want[5])):
+        assert torch.equal(a, b)
+    assert int(valid.sum()) > 500
+    level0 = octv == 0
+    assert torch.equal(ang[level0], want[3][level0])
+    # the angles held on the valid slots (chip_smoke.hold_orb_variant)
+    kept = (orb.moment_cancellation(flat, sel[0], levels) >= 1e-3) & valid
+    assert (ang - want[3]).abs()[kept].max() <= 1e-4
+    rows = (desc != want[4]).any(1)
+    assert not rows[ang == want[3]].any()
+    assert int((rows & valid).sum()) <= 0.01 * int(valid.sum())
+    bits = hamming.popcount32(desc ^ want[4]).sum(1)
+    assert int(bits[valid].max()) <= 8
+
+
 def test_orb_launches_are_bit_identical_and_checked(dev):
     """Two launches on the same view give the same bits (no float
-    atomics); the wrapper refuses float64 and a level budget above what
-    orb_select's shared memory holds."""
+    atomics); the wrapper refuses float64 and takes a level budget above
+    what orb_select's shared memory holds."""
     img, ext = _orb_frame(640, 480, 2000)
     pyr = ext._pyramid(img.to(dev))
     a = orb.extract_levels(pyr, ext.budgets, ext.scales)
@@ -278,9 +386,14 @@ def test_orb_launches_are_bit_identical_and_checked(dev):
     with pytest.raises(ValueError):
         orb.extract_levels([p.double() for p in pyr], ext.budgets,
                            ext.scales)
-    with pytest.raises(ValueError):
-        orb.extract_levels([torch.zeros((4096, 4096), device=dev)],
-                           [orb.MAX_BUDGET + 1], [1.0])
+    # a budget above what orb_select ranks in shared memory: its global
+    # scratch
+    flat0 = torch.zeros(4096 * 4096, device=dev)
+    got = orb.extract_levels([flat0.view(4096, 4096)], [orb.MAX_BUDGET + 1],
+                             [1.0])
+    big = orb.level_table(((4096, 4096),), (orb.MAX_BUDGET + 1,), (1.0,))
+    for x, y in zip(got, orb.extract_levels_plain(flat0, big)):
+        assert torch.equal(x, y)
     with pytest.raises(ValueError):
         orb.extract_levels([pyr[0], *(p.cpu() for p in pyr[1:])],
                            ext.budgets, ext.scales)
@@ -599,22 +712,24 @@ def test_stereo_sad_checks_its_arguments(dev):
         sad.sad_refine(fl, fr, levels, xy.double(), u0)
     with pytest.raises(ValueError, match="one CUDA device"):
         sad.sad_refine(fl, fr.cpu(), levels, xy, u0)
+    # the first design's own table check: at least 11 x 21 a level
     small = orb.level_table(((40, 20),), (3,), (1.0,))
     z = torch.zeros(800, device=dev)
-    with pytest.raises(ValueError, match="at least 11 rows"):
+    with pytest.raises(RuntimeError, match="stereo_sad launch failed"):
         sad.sad_refine(z, z, small, torch.zeros(3, 2, device=dev),
                        torch.zeros(3, device=dev))
 
 
-def _depth_inputs(dev, n):
+def _depth_inputs(dev, n, **kw):
     """stereo_depth's inputs on the main path for a rendered 320x240 pair
-    on the card with n features: the packed pyramids, the level table, the
-    left and right keypoints, K1's best distance and index."""
+    on the card with n features (further OrbExtractor keywords ``kw``):
+    the packed pyramids, the level table, the left and right keypoints,
+    K1's best distance and index."""
     cam = dict(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240)
     world = SyntheticWorld(seed=1)
     R, t = orbit_trajectory(16)[5]
     t_r = np.asarray(t, np.float32) - np.array([0.08, 0, 0], np.float32)
-    ext = OrbExtractor(n_features=n)
+    ext = OrbExtractor(n_features=n, **kw)
     pyr = [ext._pyramid(torch.as_tensor(np.clip(world.render(
         R, tt, **cam)[0], 0, 255).astype(np.uint8)).to(dev))
         for tt in (t, t_r)]
@@ -631,13 +746,23 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-@pytest.mark.parametrize("n", [500, 4096, 8192])
+@pytest.mark.parametrize("n", [500, 4096, 8192, "24 levels"])
 def test_stereo_depth_kernel_matches_plain_in_bits(dev, n):
     """K5 against stereo_depth_plain on the same card: u_right and depth in
     bits; the best SAD, ok and the best shift in bits against
     sad_refine_plain; two launches in bits. At 8192 keypoints the resident
-    grid's warps walk the keypoints twice."""
-    fl, fr, levels, xy, xy_r, bd, bj = args = _depth_inputs(dev, n)
+    grid's warps walk the keypoints twice. At 24 levels (2000 features, a
+    4 px margin) the table lies in device memory and levels 14-23 are under
+    11 rows: their reads clamped, and keypoints land on some of them."""
+    kw = {}
+    if n == "24 levels":
+        n, kw = 2000, dict(n_levels=24, margin=4)
+    fl, fr, levels, xy, xy_r, bd, bj = args = _depth_inputs(dev, n, **kw)
+    if kw:
+        small = [lv for lv in levels if lv.h < sad.PATCH]
+        assert len(levels) == 24 and small
+        lo = small[0].slot
+        assert bool((bd[lo:] < sad.TH_ORB).any())  # matched there
     lay = sad.layout(levels)
     assert lay.n == n
     if n == 8192:
@@ -718,12 +843,17 @@ def test_stereo_depth_checks_its_arguments(dev):
     with pytest.raises(ValueError, match="packed levels"):
         sad.stereo_depth(fl[:100], fr, levels, xy, xy_r, bd, bj, 20.0,
                          250.0)
+    # a level under 11 x 21 takes the kernel (its reads clamped)
     small = orb.level_table(((40, 20),), (3,), (1.0,))
-    z = torch.zeros(800, device=dev)
+    z = torch.arange(800, dtype=torch.float32, device=dev) % 7
     zi = torch.zeros(3, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at least 11 rows"):
-        sad.stereo_depth(z, z, small, torch.zeros(3, 2, device=dev),
-                         torch.zeros(3, 2, device=dev), zi, zi, 20.0, 250.0)
+    xy3 = torch.tensor([[3.0, 5.0], [10.0, 20.0], [19.0, 39.0]], device=dev)
+    args = (z, z, small, xy3, xy3, zi, zi, 20.0, 250.0)
+    before = sad.LAUNCHES["stereo_sad"]
+    got = sad.stereo_depth(*args)
+    assert sad.LAUNCHES["stereo_sad"] == before + 1
+    for a, b in zip(got, sad.stereo_depth_plain(*args)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 BA_CAM = CamParams.of(500.0, 500.0, 320.0, 240.0, 40.0)
@@ -856,6 +986,26 @@ def test_ba_kernel_rejects_a_step_of_a_matrix_not_positive_definite(dev):
     assert ks2.trace[:, 2].tolist() == [0.0, 1.0]
 
 
+def test_ba_kernel_accept_tests_part_only_at_float32_ties(dev):
+    """The accept test compares the two chi2 sums in float64: every
+    decision is the trace's float64 comparison (its fourth column). A
+    float32 strict < of the same sums rounded to float32 (the JAX
+    package's test is on float32 sums) parts from it only where the two
+    round to one float32, a decrease the kernel takes and that test would
+    reject: on 20 iterations of a 2-pose problem near convergence it
+    does."""
+    prob = _ba(dev, seed=2, P=2, L=500, n_fixed=1, outliers=0.0)
+    ks = ba.KernelSolve(BA_CAM, prob, 20)
+    ks.run()
+    tr = ks.trace.cpu()
+    assert torch.equal(tr[:, 2], tr[:, 3])
+    lower32 = (tr[:, 1] < tr[:, 0]).float()
+    part = lower32 != tr[:, 3]
+    assert bool(part.any()), "the two tests never part here"
+    assert torch.equal(tr[part, 1], tr[part, 0])  # ties in float32
+    assert bool((tr[part, 2] == 1.0).all())  # taken in float64
+
+
 def test_ba_kernel_two_solves_bit_for_bit(dev):
     """Two launches of the whole solve on one problem give the same bits,
     the phase stamps on or off."""
@@ -878,9 +1028,24 @@ def test_ba_kernels_check_their_limits(dev):
     big = _ba(dev, P=65, L=100, n_fixed=2)
     with pytest.raises(ValueError, match="1 to 64 poses"):
         ba.ba_solve(BA_CAM, big)
-    wide = _ba(dev, P=8, L=10, D=33, n_fixed=2)
-    with pytest.raises(ValueError, match="1 to 32 observation slots"):
-        ba.ba_solve(BA_CAM, wide)
+    # 33 slots: the kernel's wide variant
+    _hold_ba(_ba(dev, P=8, L=300, D=33, n_fixed=2, spread=True), 3)
+
+
+@pytest.mark.parametrize("D", [48, 64])
+def test_ba_wide_variant_matches_plain(dev, D):
+    """More than 32 observation slots a landmark (MapConfig.d_max), the
+    observations spread over all of them: the wide variant's first
+    reduced camera system within 1e-5 of its largest entry, then the
+    solve held as _hold_ba holds the first variant's."""
+    prob = _ba(dev, seed=9, P=24, L=2000, D=D, spread=True)
+    assert bool((prob.obs_w[:, 32:] > 0).any())
+    S, b_s, _ = ba.first_system_plain(BA_CAM, prob)
+    S_k, b_k = ba.KernelSolve(BA_CAM, prob, 5).assemble()
+    scale = float(S.abs().max())
+    assert float((S_k - S).abs().max()) <= 1e-5 * scale
+    assert float((b_k - b_s).abs().max()) <= 1e-5 * scale
+    _hold_ba(prob, 5)
 
 
 def test_bench_runs_on_the_card(dev):

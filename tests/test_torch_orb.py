@@ -210,41 +210,48 @@ def test_describe_moment_order_meets_the_angle_gate(name):
     assert held_rows > 0.9 * int(valid.sum())
 
 
-# configurations beyond the kernels' old or current limits: name ->
-# (image maker, OrbExtractor keywords); both packages take each on the CPU
+# configurations beyond the kernels' former limits (the strip kernel's
+# 32 px cells of 8, 16 levels, 2048 cells): name -> (image maker,
+# OrbExtractor keywords, n_features 1000 unless given); both packages take
+# each on the CPU, and the card through csrc/orb.cu's variants
 BEYOND = {
     # the smallest frame above the former 2048-cell limit: 34 x 61 cells
     "1081x1921-1000": (lambda: _render(1921, 1081), {}),
     "640x480-cell16": (lambda: _render(640, 480), {"cell": 16}),
     "640x480-per_cell4": (lambda: _render(640, 480), {"per_cell": 4}),
     "640x480-17-levels": (lambda: _render(640, 480), {"n_levels": 17}),
+    # upstream ORB-SLAM2's 30 px grid at 18 levels, and 16 px cells of 4
+    "320x240-18-levels-cell30": (lambda: _render(320, 240), {
+        "n_levels": 18, "cell": 30, "per_cell": 8, "n_features": 500}),
+    "320x240-cell16-per_cell4": (lambda: _render(320, 240), {
+        "cell": 16, "per_cell": 4, "n_features": 500}),
 }
 
 
 @pytest.mark.parametrize("name", sorted(BEYOND))
 def test_extractor_matches_jax_beyond_the_kernels_limits(name):
-    """The port's OrbExtractor._extract_from_pyramid (the plain chain, or
-    level by level where the kernels do not take the configuration) on
-    the JAX package's level images against the JAX extractor's, at
-    test_plain_chain_matches_jax_per_level's tolerances."""
+    """The port's OrbExtractor._extract_from_pyramid (ops/orb.py's plain
+    chain) on the JAX package's level images against the JAX extractor's,
+    at test_plain_chain_matches_jax_per_level's tolerances."""
     make, kw = BEYOND[name]
+    kw = {"n_features": 1000, **kw}
     img = make()
-    jx = JaxExtractor(n_features=1000, **kw)
+    jx = JaxExtractor(**kw)
     jpyr = [np.asarray(a) for a in jax.jit(
         lambda x: jimage.build_pyramid(x, jx.n_levels))(
         jnp.asarray(img, jnp.float32))]
     want = [np.asarray(a) for a in jax.jit(
         lambda *lv: jx._extract_from_pyramid(list(lv)))(*jpyr)]
-    ext = OrbExtractor(n_features=1000, **kw)
+    ext = OrbExtractor(**kw)
     tpyr = [torch.as_tensor(a.copy()) for a in jpyr]
     got = ext._extract_from_pyramid(tpyr)
-    assert got.n == 1000
+    assert got.n == kw["n_features"]
     xy, resp, octv, ang, desc, valid = (a.numpy() for a in got)
     np.testing.assert_array_equal(xy, want[0])
     np.testing.assert_array_equal(resp, want[1])
     np.testing.assert_array_equal(octv, want[2])
     np.testing.assert_array_equal(valid, want[5])
-    assert valid.sum() > 500
+    assert valid.sum() > kw["n_features"] // 2
     wdesc = want[4].view(np.int32)
     rows = (desc != wdesc).any(1)
     assert not rows[ang == want[3]].any()
@@ -394,27 +401,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         orb.describe(flat, score, blurred, yx.long(), levels)
     with pytest.raises(ValueError):
         orb.describe(flat, score.to("meta"), blurred, yx, levels)
-    # frame size is not limited; the kernels' own limits (16 levels with
-    # a budget, MAX_BUDGET slots a level) raise on the card only
+    # no shape is refused: frame size, more than MAX_LEVELS levels (their
+    # table in device memory), a budget above MAX_BUDGET (orb_select's
+    # global scratch), any cell side and count (csrc/orb.cu built for the
+    # pair) all take a kernel on the card
     big = orb.level_table(((1081, 1921),), (100,), (1.0,))
     assert big[0].cy * big[0].cx == 34 * 61
     got = orb.extract_levels([torch.zeros((1081, 1921))], [100], [1.0])
     assert got[0].shape == (100, 2) and not got[5].any()
     many = orb.level_table(((64, 64),) * 17, (1,) * 17, (1.0,) * 17)
     assert len(many) == 17
-    with pytest.raises(ValueError, match="16 levels"):
-        orb.check_kernel_limits(many)
-    with pytest.raises(ValueError, match=str(orb.MAX_BUDGET)):
-        orb.check_kernel_limits(orb.level_table(
-            ((4096, 4096),), (orb.MAX_BUDGET + 1,), (1.0,)))
-    orb.check_kernel_limits(orb.level_table(((4096, 4096),),
-                                            (orb.MAX_BUDGET,), (1.0,)))
-    with pytest.raises(ValueError, match="per_cell=4"):
-        OrbExtractor(n_features=100, per_cell=4)._extract_from_pyramid(
-            [p.to("meta") for p in pyr])
-    with pytest.raises(ValueError, match="n_levels=17"):
-        OrbExtractor(n_features=100, n_levels=17)._extract_from_pyramid(
-            [p.to("meta") for p in pyr])
+    t = orb._table(many, device=torch.device("cpu"))
+    assert t.n_levels == 17 and t.levels and t.host_levels
+    assert bytes(t.keep[0]) == bytes(t.keep[1].numpy())
+    assert orb._table(orb.level_table(((4096, 4096),), (
+        orb.MAX_BUDGET + 1,), (1.0,))).n_slots == orb.MAX_BUDGET + 1
+    small = pyr[0][:200, :240].contiguous()
+    for kw in ({"per_cell": 4}, {"n_levels": 17}, {"cell": 30}):
+        ext2 = OrbExtractor(n_features=100, **kw)
+        pyr2 = ext2._pyramid(small)
+        parts = [ext2._level_features(p, lvl, b)
+                 for lvl, (p, b) in enumerate(zip(pyr2, ext2.budgets))
+                 if b > 0]
+        got = ext2._extract_from_pyramid(pyr2)
+        for a, b in zip(got, (torch.cat(p) for p in zip(*parts))):
+            assert torch.equal(a, b), kw
+        with pytest.raises(ValueError, match="one CUDA device"):
+            ext2._extract_from_pyramid([p.to("meta") for p in pyr2])
 
 
 class _FakeFn:
@@ -466,6 +479,9 @@ def _c_fields(src, struct):
         words = decl.replace(",", " , ").split()
         if not words:
             continue
+        if "*" in decl:  # a pointer: const T* name
+            out.append(("ptr", words[-1]))
+            continue
         ctype = words[0]
         for name in " ".join(words[1:]).split(","):
             name = name.strip()
@@ -476,19 +492,28 @@ def _c_fields(src, struct):
 
 @pytest.mark.parametrize("name", sorted(SOURCES))
 def test_table_layout_matches_the_source(name):
-    """_LevelDesc and _OrbTable have the source's fields in its order, and
-    the source's limits and FAST ring are the wrapper's."""
+    """_LevelDesc and _OrbTable have the source's fields in its order
+    (csrc/orb_v1.cu's OrbTable: those up to ``lv``, V1_TABLE_BYTES), and
+    the source's limits, default cell and count, and FAST ring are the
+    wrapper's."""
     src = _source(name)
-    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
-    for struct, mirror in (("LevelDesc", orb._LevelDesc),
-                           ("OrbTable", orb._OrbTable)):
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "ptr": ctypes.c_void_p}
+    v1 = name == "orb_v1.cu"
+    table = orb._OrbTable._fields_
+    if v1:
+        table = table[:[f[0] for f in table].index("lv") + 1]
+    for struct, mirror in (("LevelDesc", orb._LevelDesc._fields_),
+                           ("OrbTable", table)):
         fields = _c_fields(src, struct)
-        assert [n for _, n in fields] == [f[0] for f in mirror._fields_]
-        for (ctype, _), (_, ptype) in zip(fields, mirror._fields_):
+        assert [n for _, n in fields] == [f[0] for f in mirror]
+        for (ctype, _), (_, ptype) in zip(fields, mirror):
             base = (ptype._type_ if issubclass(ptype, ctypes.Array)
                     else ptype)
             if ctype in kinds:
                 assert base is kinds[ctype], struct
+    assert orb.V1_TABLE_BYTES == orb._OrbTable.lv.offset + ctypes.sizeof(
+        orb._LevelDesc) * orb.MAX_LEVELS == 756
     for const, value in (("kCell", orb.CELL), ("kPerCell", orb.PER_CELL),
                          ("kMaxLevels", orb.MAX_LEVELS),
                          ("kMaxBudget", orb.MAX_BUDGET),

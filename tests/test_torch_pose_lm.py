@@ -82,6 +82,16 @@ def test_pose_lm_matches_jax(case):
         assert min(n) > 700, n
 
 
+def test_pose_lm_matches_jax_above_the_staged_edges():
+    """[1 x 65,536]: above the 61,440 edges a portable cluster stages (the
+    card's non-portable cluster of 16), held as test_pose_lm_matches_jax
+    holds [3 x 1000]."""
+    p = pose_problem("outliers", 120, B=1, N=65536)
+    out = pose_opt.optimize_pose(CAM, *_torch_args(p))
+    _assert_row(out, 0, _jax_row(p, 0))
+    assert int(out.n_inliers[0]) > 0.7 * 65536
+
+
 def test_broadcast_forms_equal_the_batched_forms():
     """obs_uvr [N,3] and inv_sigma2 [N] give what their copies per row,
     [B,N,3] and [B,N], give."""
@@ -147,14 +157,25 @@ def test_binding_matches_the_extern_c_interface():
         return int(re.search(rf"{name} = (\d+);", src).group(1))
 
     assert re.search(r"kMaxEdges = kBlockEdges \* kMaxCluster;", src)
-    assert const("kBlockEdges") * const("kMaxCluster") == pose_opt.MAX_EDGES
+    assert (const("kBlockEdges") * const("kMaxCluster")
+            == pose_opt.STAGED_EDGES)
+    # above it no limit: a cluster of 16 (kWideCluster), then the edges
+    # read from global memory; the wrapper takes any N (the plain version
+    # here, on CPU tensors)
+    assert const("kWideCluster") == 16
+    args = _torch_args(pose_problem("mixed", 9, B=1,
+                                    N=2 * pose_opt.STAGED_EDGES + 1))
+    assert pose_opt.optimize_pose(CAM, *args, rounds=1,
+                                  iters_per_round=1).R.shape == (1, 3, 3)
 
     class Lib:
         pose_lm_solve = _FakeFn()
         pose_lm_blocks_per_pose = _FakeFn()
+        pose_lm_streams = _FakeFn()
 
     lib = pose_opt._bind(Lib())
-    for fn in ("pose_lm_solve", "pose_lm_blocks_per_pose"):
+    for fn in ("pose_lm_solve", "pose_lm_blocks_per_pose",
+               "pose_lm_streams"):
         m = re.search(rf"int {fn}\(([^)]*)\)", extern)
         assert m, f"{fn} is not in the extern \"C\" block"
         params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]

@@ -80,8 +80,8 @@ def _keypoints(rng, levels, w0, h0, edge=False):
     xy, u0 = [], []
     for lv in levels:
         s = lv.scale
-        x = rng.uniform(0, lv.w - 1, lv.budget) * s
-        y = rng.uniform(0, lv.h - 1, lv.budget) * s
+        x = rng.uniform(0, max(lv.w - 1, 0), lv.budget) * s
+        y = rng.uniform(0, max(lv.h - 1, 0), lv.budget) * s
         u = x - DISPARITY + rng.uniform(-1.5, 1.5, lv.budget) * s
         if edge:
             k = lv.budget // 3
@@ -136,13 +136,16 @@ CASES = {
     "edges 640x480, 1000": (3, 480, 640, 1000, True, None),
     "budget 0, 5": (4, 480, 640, 5, False, None),
     "ties 320x240, 500": (5, 240, 320, 500, False, 4),
+    # 24 levels: from level 14 (9 x 12) on under 11 rows, from level 11
+    # under 21 columns; their reads are clamped to the level
+    "24 levels 160x120, 600": (6, 120, 160, 600, False, None, 24),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_sad_refine_plain_matches_jax_per_level(case):
-    seed, h, w, n_feat, edge, period = CASES[case]
-    budgets = level_budgets(n_feat)
+    seed, h, w, n_feat, edge, period, *n_levels = CASES[case]
+    budgets = level_budgets(n_feat, *n_levels)
     if seed is None:
         pyr, levels, xy, u0 = _orbit_inputs()
     else:
@@ -175,6 +178,11 @@ def test_sad_refine_plain_matches_jax_per_level(case):
         assert int(jok.sum()) > (0.3 if seed is None else 0.5) * n_feat
     if case == "budget 0, 5":
         assert len(levels) < len(budgets)
+    if n_levels:
+        small = [lv for lv in levels if lv.h < sad.PATCH]
+        assert len(levels) == 24 and len(small) >= 8
+        cut = slice(small[0].slot, None)
+        assert np.isfinite(tsad[cut]).all() and tsad[cut].max() > 0
 
 
 def test_sad_refine_wrapper_takes_plain_on_cpu_and_checks():
@@ -205,14 +213,21 @@ def test_sad_refine_wrapper_takes_plain_on_cpu_and_checks():
 
 
 def test_sad_table_limits():
-    """The kernel's table takes at most 16 levels, each at least 11 rows
-    by 21 columns; the plain version takes any."""
+    """The kernel's table takes any level count and size, as the plain
+    version does: a level under 11 rows or 21 columns (the kernel's clamped
+    reads), more than 16 levels (their copy in device memory)."""
     small = orb.level_table(((40, 20),), (3,), (1.0,))
-    with pytest.raises(ValueError, match="at least 11 rows and 21"):
-        sad._table(small)
+    t = sad._table(small)
+    assert (t.n_levels, t.lv[0].h, t.lv[0].w) == (1, 40, 20)
+    assert not t.levels and not t.host_levels
     many = orb.level_table(((40, 40),) * 17, (1,) * 17, (1.0,) * 17)
-    with pytest.raises(ValueError, match="at most 16 levels"):
-        sad._table(many)
+    lay = sad.layout(many)
+    assert lay.table.n_levels == 17 and lay.table.host_levels
+    assert lay.for_device(torch.device("cpu")) == lay.address
+    assert lay.table.levels == lay.device_levels[
+        torch.device("cpu")].data_ptr()
+    assert bytes(lay.device_levels[torch.device("cpu")].numpy()) == bytes(
+        lay.table.keep)
     t = sad._table(orb.level_table(((480, 640), (400, 533)), (600, 400),
                                    (1.0, 1.2)))
     assert (t.n_levels, t.n_slots) == (2, 1000)
@@ -418,6 +433,6 @@ def test_sad_layout_cache():
     again = sad.layout(list(levels))
     assert bytes(again.table) == bytes(fresh) and again.n == lay.n
     small = orb.level_table(((40, 20),), (3,), (1.0,))
-    bad = sad.layout(small)
-    assert bad.table is None and "at least 11 rows" in bad.error
-    assert bad.n == 3 and bad.size == 800
+    lay_small = sad.layout(small)
+    assert lay_small.table.n_levels == 1
+    assert lay_small.n == 3 and lay_small.size == 800
