@@ -1,0 +1,8 @@
+"""K1's device time in the traced frames (kernels named as in
+csrc/hamming.cu), per frame, in ms."""
+
+
+def read(run):
+    if run.trace is None or run.trace.frames == 0:
+        return None
+    return 1000.0 * run.trace.kernel_s.get("hamming", 0.0) / run.trace.frames
