@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..ops import brief, fast, image, orb, orientation
 
 
@@ -67,6 +68,7 @@ class OrbExtractor:
     def __call__(self, img: torch.Tensor) -> FrameFeatures:
         return self._extract(img)
 
+    @spans.span("frontend")
     def stereo(self, img_l: torch.Tensor, img_r: torch.Tensor, bf: float,
                fx: float):
         """Extract the left and right features of a rectified pair and
@@ -85,6 +87,7 @@ class OrbExtractor:
                                   self.budgets, bf, fx, (flat_l, flat_r))
         return feats_l, sd
 
+    @spans.span("frontend.pyramid")
     def _pyramid(self, img: torch.Tensor) -> list[torch.Tensor]:
         return image.build_pyramid(img.to(torch.float32), self.n_levels,
                                    self.scale_factor)
@@ -92,6 +95,7 @@ class OrbExtractor:
     def _extract(self, img: torch.Tensor) -> FrameFeatures:
         return self._extract_from_pyramid(self._pyramid(img))
 
+    @spans.span("frontend.extract")
     def _extract_from_pyramid(self, pyr, flat=None) -> FrameFeatures:
         """Every level with a budget above 0 in one call of the ORB
         kernels (ops/orb.py: three launches on the card), concatenated in

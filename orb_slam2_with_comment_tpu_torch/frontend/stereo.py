@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..ops import hamming, image, orb, sad
 
 W = sad.W  # SAD half-window (reference: const int w = 5, Frame.cc:593)
@@ -47,7 +48,8 @@ def association_mask(feats_l, feats_r, scales, fx: float) -> torch.Tensor:
     vr = feats_r.xy[None, :, 1]
     oct_l = feats_l.octave[:, None]
     oct_r = feats_r.octave[None, :]
-    sc = torch.tensor(scales, dtype=torch.float32, device=ul.device)
+    sc = spans.to_device("association_mask.scales", scales, torch.float32,
+                         ul.device)
     r_band = 2.0 * sc[feats_r.octave.long()][None, :]
     return (feats_l.valid[:, None] & feats_r.valid[None, :]
             & ((vr - vl).abs() <= r_band)
@@ -68,6 +70,7 @@ def _stereo_depth(feats_l, feats_r, best_d, best_j, pyr_l, pyr_r, budgets,
                             best_d, best_j, bf, fx)
 
 
+@spans.span("stereo.match")
 def match_stereo(feats_l, feats_r, pyr_l, pyr_r, budgets, bf: float,
                  fx: float, packed=None) -> StereoDepth:
     """Row-band Hamming association + subpixel refinement + outlier sweep.

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..geometry import se3
 from ..ops import consts, hamming
 from . import core
@@ -23,6 +24,10 @@ SCALE_FACTORS = np.asarray([SCALE ** i for i in range(N_LEVELS)], np.float32)
 SIGMA2 = SCALE_FACTORS * SCALE_FACTORS
 INV_SIGMA2 = (1.0 / SIGMA2).astype(np.float32)
 LOG_SCALE = math.log(SCALE)
+# the halves of the tracking searches: the projection and the candidate
+# mask, then K1 with the ratio test, the rotation histogram and the dedupe
+_MASK = spans.span("search.mask")
+_MATCH = spans.span("search.match")
 
 
 def _table_at(name: str, table: np.ndarray,
@@ -119,22 +124,25 @@ def search_local_points(cam, R, t, lm: LandmarkSet, fr: Frustum,
     radius (2.5 if viewCos > 0.998 else 4.0) * th * scale[pred], feature
     octave in [pred-1, pred], stereo gate, best <= desc_th, ratio test only
     when best and runner-up share a level. Returns (idx, dist, matched)."""
-    r = torch.where(fr.view_cos > 0.998, 2.5, 4.0)
-    radius = r * th * scale_at(fr.level)
-    in_win, _, _ = _in_window(feats, fr.uv[:, 0], fr.uv[:, 1], radius)
-    lvl_ok = ((feats.octave[None, :] >= fr.level[:, None] - 1)
-              & (feats.octave[None, :] <= fr.level[:, None]))
-    mask = (in_win & lvl_ok & _stereo_ok(feats, fr.ur, radius)
-            & fr.visible[:, None] & feats.valid[None, :])
-    if already_matched is not None:
-        mask &= ~already_matched[None, :]
-    best, idx, second, idx2 = hamming.masked_best_two(lm.desc, feats.desc,
-                                                      mask)
-    matched = best <= desc_th
-    same_level = feats.octave[idx] == feats.octave[idx2]
-    matched &= torch.where(same_level, core.ratio_ok(best, second, ratio),
-                           True)
-    matched &= core.dedupe_matches(idx, best, matched, feats.desc.shape[0])
+    with _MASK:
+        r = torch.where(fr.view_cos > 0.998, 2.5, 4.0)
+        radius = r * th * scale_at(fr.level)
+        in_win, _, _ = _in_window(feats, fr.uv[:, 0], fr.uv[:, 1], radius)
+        lvl_ok = ((feats.octave[None, :] >= fr.level[:, None] - 1)
+                  & (feats.octave[None, :] <= fr.level[:, None]))
+        mask = (in_win & lvl_ok & _stereo_ok(feats, fr.ur, radius)
+                & fr.visible[:, None] & feats.valid[None, :])
+        if already_matched is not None:
+            mask &= ~already_matched[None, :]
+    with _MATCH:
+        best, idx, second, idx2 = hamming.masked_best_two(lm.desc,
+                                                          feats.desc, mask)
+        matched = best <= desc_th
+        same_level = feats.octave[idx] == feats.octave[idx2]
+        matched &= torch.where(same_level,
+                               core.ratio_ok(best, second, ratio), True)
+        matched &= core.dedupe_matches(idx, best, matched,
+                                       feats.desc.shape[0])
     return idx, best, matched
 
 
@@ -145,27 +153,33 @@ def search_by_projection_frame(cam, R, t, prev_pw, prev_feats: FeatureSet,
     ORBmatcher.cc:1540+), octave window [o-1, o+1] (the slice's RGB-D path
     runs neither the forward nor the backward variant), TH_HIGH,
     rotation-histogram check, no ratio test."""
-    z, u, v, ur_pred = _project(cam, R, t, prev_pw)
-    in_img = (z > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
-    radius = th * scale_at(prev_feats.octave)
-    in_win, _, _ = _in_window(feats, u, v, radius)
-    oq = prev_feats.octave[:, None]
-    ot = feats.octave[None, :]
-    mask = (in_win & (ot >= oq - 1) & (ot <= oq + 1)
-            & _stereo_ok(feats, ur_pred, radius)
-            & (in_img & prev_has_point & prev_feats.valid)[:, None]
-            & feats.valid[None, :])
-    return core.windowed_match(prev_feats.desc, feats.desc, mask, desc_th,
-                               angle_q=prev_feats.angle, angle_t=feats.angle)
+    with _MASK:
+        z, u, v, ur_pred = _project(cam, R, t, prev_pw)
+        in_img = (z > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+        radius = th * scale_at(prev_feats.octave)
+        in_win, _, _ = _in_window(feats, u, v, radius)
+        oq = prev_feats.octave[:, None]
+        ot = feats.octave[None, :]
+        mask = (in_win & (ot >= oq - 1) & (ot <= oq + 1)
+                & _stereo_ok(feats, ur_pred, radius)
+                & (in_img & prev_has_point & prev_feats.valid)[:, None]
+                & feats.valid[None, :])
+    with _MATCH:
+        return core.windowed_match(prev_feats.desc, feats.desc, mask,
+                                   desc_th, angle_q=prev_feats.angle,
+                                   angle_t=feats.angle)
 
 
 def search_brute(desc_q, desc_t, valid_q, valid_t, ratio: float,
                  max_dist: int = core.TH_LOW, angle_q=None, angle_t=None):
     """Full masked Hamming sweep standing in for SearchByBoW (reference:
     ORBmatcher.cc:211-344); a superset of the bucketed candidates."""
-    mask = valid_q[:, None] & valid_t[None, :]
-    return core.windowed_match(desc_q, desc_t, mask, max_dist, ratio=ratio,
-                               angle_q=angle_q, angle_t=angle_t)
+    with _MASK:
+        mask = valid_q[:, None] & valid_t[None, :]
+    with _MATCH:
+        return core.windowed_match(desc_q, desc_t, mask, max_dist,
+                                   ratio=ratio, angle_q=angle_q,
+                                   angle_t=angle_t)
 
 
 def initialization_mask(feats1: FeatureSet, feats2: FeatureSet, prev_xy,

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
+
 _CACHE: dict = {}
 
 
@@ -17,5 +19,6 @@ def on_device(name: str, table: np.ndarray, device) -> torch.Tensor:
     key = (name, torch.device(device))
     t = _CACHE.get(key)
     if t is None:
-        t = _CACHE[key] = torch.as_tensor(table, device=device)
+        t = _CACHE[key] = spans.to_device("consts.on_device", table,
+                                          device=device)
     return t

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..frontend.extractor import OrbExtractor
 from ..geometry import se3
 from ..mapstate.map import (MapState, compact_keyframes, compact_landmarks,
@@ -55,6 +56,9 @@ from .tracking import TrackerConfig, upload_frame
 
 N_NEIGHBORS = 10  # covisibility window kept across maintenance phases
 NO_NEIGHBORS = (-1,) * N_NEIGHBORS
+_FRONTEND = spans.span("frontend")
+_UPLOAD = spans.span("upload")
+_DECIDE = spans.span("do_track.decide")
 
 
 class AutoState(NamedTuple):
@@ -219,12 +223,14 @@ class AutoStep:
         """One monocular frame (GrabImageMonocular, Tracking.cc:239): no
         depth and no right coordinate; the map's landmarks come from the
         two-view bootstrap and from keyframe triangulation."""
-        raw = self.extractor._extract(img)
-        none = torch.full_like(raw.angle, -1.0)
-        feats = FeatureSet(raw.xy, none, raw.octave, raw.angle, raw.desc,
-                           raw.valid)
+        with _FRONTEND:
+            raw = self.extractor._extract(img)
+            none = torch.full_like(raw.angle, -1.0)
+            feats = FeatureSet(raw.xy, none, raw.octave, raw.angle, raw.desc,
+                               raw.valid)
         return self.run_frame(s, feats, none)
 
+    @spans.span("write_traj")
     def write_traj(self, s: AutoState, R, t, Rcr, tcr, ref: int, valid: bool,
                    stats8: torch.Tensor) -> AutoState:
         i = s.frame_idx % self.T
@@ -234,17 +240,23 @@ class AutoStep:
             a[i] = v
             return a
 
+        def put_host(site, a, v):  # a host value: a blocking copy
+            a = a.clone()
+            spans.put(site, a, i, v)
+            return a
+
         return s._replace(
             traj_R=put(s.traj_R, R), traj_t=put(s.traj_t, t),
             traj_Rcr=put(s.traj_Rcr, Rcr), traj_tcr=put(s.traj_tcr, tcr),
-            traj_ref=put(s.traj_ref, ref), traj_valid=put(s.traj_valid, valid),
+            traj_ref=put_host("write_traj.ref", s.traj_ref, ref),
+            traj_valid=put_host("write_traj.valid", s.traj_valid, valid),
             traj_stats=put(s.traj_stats, stats8))
 
     def _stats8(self, s: AutoState, c2: int = 0, c3: int = 0, c6: int = 0,
                 c7: int = 0) -> torch.Tensor:
         """Per-frame statistics row, zero but for columns 2, 3, 6 and 7."""
-        return torch.tensor([0, 0, c2, c3, 0, 0, c6, c7], dtype=torch.int32,
-                            device=s.last_t.device)
+        return spans.to_device("_stats8.row", [0, 0, c2, c3, 0, 0, c6, c7],
+                               torch.int32, s.last_t.device)
 
     def _add_bow(self, loop, m: MapState, kf: int):
         if self.voc is None:
@@ -255,7 +267,8 @@ class AutoStep:
     def do_initialize(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         """StereoInitialization (Tracking.cc:584-636): more than
         min_init_features valid features required."""
-        if int(feats.valid.sum()) <= self.cfg.min_init_features:
+        if int(spans.to_host("do_initialize.features",
+                             feats.valid.sum())) <= self.cfg.min_init_features:
             return s
         dev = d.device
         N = d.shape[0]
@@ -283,7 +296,8 @@ class AutoStep:
         map that fails after its BA is wiped."""
         cfg, cam = self.cfg, self.cam
         dev = d.device
-        if int(feats.valid.sum()) <= 100:  # :644
+        if int(spans.to_host("do_initialize_mono.features",
+                             feats.valid.sum())) <= 100:  # :644
             return s._replace(init_frame_id=-1)
         obs = steps.FrameObs(feats, d, torch.full(
             (d.shape[0],), -1, dtype=torch.int32, device=dev))
@@ -292,12 +306,13 @@ class AutoStep:
         ref = s.prev
         idx, _, matched = msearch.search_for_initialization(
             ref.feats, feats, ref.feats.xy)
-        if int(matched.sum()) < cfg.min_init_matches:  # :687
+        if int(spans.to_host("do_initialize_mono.matches",
+                             matched.sum())) < cfg.min_init_matches:  # :687
             return s._replace(init_frame_id=-1)
         res = initializer.initialize(
             s.loop.gen, (cam.fx, cam.fy, cam.cx, cam.cy), ref.feats.xy,
             feats.xy[idx.clamp(min=0).long()], matched)
-        if not bool(res.success):
+        if not bool(spans.to_host("do_initialize_mono.success", res.success)):
             return s
         m = steps.insert_keyframe(s.map, ref, torch.eye(3, device=dev),
                                   torch.zeros(3, device=dev), s.init_frame_id)
@@ -306,13 +321,16 @@ class AutoStep:
                                             res.good & matched)
         m = steps.refresh_landmarks(m)
         m, _ = steps.local_bundle_adjustment(m, cam, 1, iters_a=20)  # :787
-        med = float(steps.scene_median_depth(m, 0))
-        n_tracked = int((m.kf_lm[1] >= 0).sum())
+        med = float(spans.to_host("do_initialize_mono.median_depth",
+                                  steps.scene_median_depth(m, 0)))
+        n_tracked = int(spans.to_host("do_initialize_mono.tracked",
+                                      (m.kf_lm[1] >= 0).sum()))
         if not (np.isfinite(med) and med > 0
                 and n_tracked >= cfg.min_init_matches):  # :793-799
             return s._replace(map=empty_map(cfg.map_cfg, dev),
                               init_frame_id=-1)
-        m = steps.scale_map(m, torch.tensor(1.0, device=dev) / med)
+        m = steps.scale_map(m, spans.to_device("do_initialize_mono.scale",
+                                               1.0, None, dev) / med)
         loop = self._add_bow(self._add_bow(s.loop, m, 0), m, 1)
         s = s._replace(map=m, loop=loop, prev=obs._replace(lm=m.kf_lm[1]),
                        last_R=m.kf_R[1], last_t=m.kf_t[1], have_vel=False,
@@ -325,36 +343,43 @@ class AutoStep:
 
     # ---- amortized keyframe-maintenance phases (LocalMapping.cc:47-128) ----
 
+    @spans.span("ph_fuse_in")
     def ph_fuse_in(self, m, loop, nbrs, lam, kf):
         """Covisibility window + inward fusion (LocalMapping.cc:589-633)."""
         kk = min(N_NEIGHBORS, self.k_max)
         top_w, top_i = sort_top_k(covisibility_weights(m, kf), kk)
-        nbrs = (torch.where(top_w > 0, top_i, -1).tolist()
+        nbrs = (spans.to_host("ph_fuse_in.neighbors",
+                              torch.where(top_w > 0, top_i, -1))
                 + [-1] * (N_NEIGHBORS - kk))
         cfg = self.cfg
         m = steps.fuse_neighbors(m, self.cam, kf, nbrs[:5], cfg.width,
                                  cfg.height, into=True)
         return m, loop, tuple(nbrs), lam
 
+    @spans.span("ph_triangulate")
     def ph_triangulate(self, m, loop, nbrs, lam, kf):
         """New points against the covisible neighbors (CreateNewMapPoints,
         LocalMapping.cc:290-577)."""
         m = steps.triangulate_with_neighbors(m, self.cam, kf, nbrs[:5])
         return m, loop, nbrs, lam
 
+    @spans.span("ph_fuse_out")
     def ph_fuse_out(self, m, loop, nbrs, lam, kf):
         cfg = self.cfg
         m = steps.fuse_neighbors(m, self.cam, kf, list(nbrs[:5]), cfg.width,
                                  cfg.height, into=False)
         return m, loop, nbrs, lam
 
+    @spans.span("ph_merge")
     def ph_merge(self, m, loop, nbrs, lam, kf):
         return steps.merge_duplicate_landmarks(m, kf), loop, nbrs, lam
 
+    @spans.span("ph_refresh_cull")
     def ph_refresh_cull(self, m, loop, nbrs, lam, kf):
         m = steps.refresh_landmarks_for_kf(m, kf)
         return steps.cull_landmarks(m, kf), loop, nbrs, lam
 
+    @spans.span("ph_ba1")
     def ph_ba1(self, m, loop, nbrs, lam, kf):
         """Local BA chunk 1: 3 robust iterations (Optimizer.cc:689)."""
         if max(nbrs) >= 0:
@@ -363,6 +388,7 @@ class AutoStep:
                 init_lambda=1e-4)
         return m, loop, nbrs, lam
 
+    @spans.span("ph_ba2")
     def ph_ba2(self, m, loop, nbrs, lam, kf):
         """Local BA chunk 2 (resumed damping) + outlier erasure + keyframe
         culling (Optimizer.cc:739-807, LocalMapping.cc:775-841)."""
@@ -372,6 +398,7 @@ class AutoStep:
                 init_lambda=lam)
         return steps.cull_keyframes(m, kf, list(nbrs)), loop, nbrs, lam
 
+    @spans.span("ph_loop")
     def ph_loop(self, m, loop, nbrs, lam, kf):
         """Loop closing for the maintained keyframe, whose BoW row was
         stored at insertion (LocalMapping.cc:102 feeds LoopClosing)."""
@@ -382,6 +409,7 @@ class AutoStep:
 
     # ---- keyframe insertion with slot compaction ----
 
+    @spans.span("_insert")
     def _insert(self, s: AutoState, m: MapState, loop, res):
         """Insert the frame as a keyframe (CreateNewKeyFrame,
         Tracking.cc:1251-1336). Dead landmark slots are recycled first
@@ -392,7 +420,7 @@ class AutoStep:
         old->new keyframe slot map or None)."""
         lm = res.lm
         L = m.lm_pw.shape[0]
-        did_lm = int(m.n_lm) + lm.shape[0] > L
+        did_lm = int(spans.to_host("_insert.n_lm", m.n_lm)) + lm.shape[0] > L
         if did_lm:
             old_valid = m.lm_valid
             inv = torch.empty(L, dtype=torch.int32, device=lm.device)
@@ -402,15 +430,16 @@ class AutoStep:
             lm = torch.where((lm >= 0) & old_valid[safe], inv[safe], -1)
             m = compact_landmarks(m)
         kf_remap = None
-        did_kf = int(m.n_kf) >= self.k_max
+        did_kf = int(spans.to_host("_insert.n_kf", m.n_kf)) >= self.k_max
         if did_kf:
             valid = m.kf_valid
             order, rank = keyframe_compaction(valid)
             m = compact_keyframes(m)
             if self.voc is not None:
                 loop = auto_loop.permute_loop_carry(loop, order, rank, valid)
-            kf_remap = torch.where(valid, rank, -1).tolist()
-        kf = int(m.n_kf)
+            kf_remap = spans.to_host("_insert.remap",
+                                     torch.where(valid, rank, -1))
+        kf = int(spans.to_host("_insert.slot", m.n_kf))
         if kf >= self.k_max:  # still full after compaction: refuse
             return m, loop, -1, lm, 0, 0, kf_remap
         m = steps.insert_keyframe(
@@ -428,46 +457,33 @@ class AutoStep:
         cycle: a fresh keyframe is triangulated at once against the two
         slots before it (the JAX package does the same; after a keyframe
         compaction they need not be its temporal predecessors)."""
-        nb = [j if j >= 0 and bool(m.kf_valid[j]) else -1
+        nb = [j if j >= 0 and bool(spans.to_host("triangulate_at_insert.valid",
+                                                 m.kf_valid[j])) else -1
               for j in (kf - 1, kf - 2)]
         return steps.triangulate_with_neighbors(m, self.cam, kf, nb)
 
+    @spans.span("do_track")
     def do_track(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         cfg = self.cfg
-        n_kf = int(s.map.n_kf)
+        n_kf = int(spans.to_host("do_track.n_kf", s.map.n_kf))
         res = steps.track_frame_core(
             self.cam, s.map, s.prev, s.last_R, s.last_t, s.vel_R, s.vel_t,
             s.have_vel, s.ref_kf, feats, d, self.th_depth, cfg.desc_th,
             cfg.desc_th_local, 2 if n_kf > 2 else 1, cfg.width, cfg.height)
-        _, _, track1_in, local_in, ref_matches, close_pack = (
-            res.stats.tolist())
-        now_lost = track1_in < 10 or local_in < 30
+        with _DECIDE:
+            _, _, track1_in, local_in, ref_matches, close_pack = (
+                spans.to_host("do_track.stats", res.stats))
+            now_lost = track1_in < 10 or local_in < 30
+            need_kf = not now_lost and self._need_keyframe(
+                s, res, n_kf, local_in, ref_matches, close_pack)
         if now_lost:
             # freeze: keep the map and pose (Tracking.cc:528)
             s = s._replace(lost=s.frame_idx, have_vel=False)
-            stats8 = torch.cat([res.stats, torch.tensor(
-                [0, s.loop.n_loops], dtype=torch.int32, device=d.device)])
+            stats8 = torch.cat([res.stats, spans.to_device(
+                "do_track.lost_row", [0, s.loop.n_loops], torch.int32,
+                d.device)])
             return self.write_traj(s, s.last_R, s.last_t, s.last_R, s.last_t,
                                    s.ref_kf, False, stats8)
-        # NeedNewKeyFrame (Tracking.cc:1140-1244)
-        c1a = s.frame_idx - s.last_kf_frame >= cfg.fps
-        c1b = s.maint_kf < 0  # mapping idle: no keyframe under maintenance
-        if self.is_mono:
-            # no close-point rule, thRefRatio 0.9 (Tracking.cc:1205); and an
-            # insert may interrupt the maintenance cycle once tracking has
-            # decayed below 70% of the reference keyframe, as the
-            # reference's InterruptBA lets it (:1216-1232)
-            need_close, th_ref = False, 0.9
-            c1b = c1b or _f32_lt_scaled(local_in, ref_matches, 0.7)
-        else:
-            need_close = close_pack // 10000 < 100 and close_pack % 10000 > 70
-            th_ref = 0.4 if n_kf < 2 else 0.75
-        c1c = _f32_lt_scaled(local_in, ref_matches, 0.25) or need_close
-        c2 = ((_f32_lt_scaled(local_in, ref_matches, th_ref) or need_close)
-              and local_in > 15)
-        live_kf = int(res.map.kf_valid.sum())
-        need_kf = ((c1a or c1b or c1c) and c2 and live_kf < self.k_max
-                   and not self.localization_only)
         m, loop = res.map, s.loop
         new_kf, lm_after, did_lm, did_kf, remap = -1, res.lm, 0, 0, None
         if need_kf:
@@ -483,8 +499,8 @@ class AutoStep:
             ref_kf = max(remap[ref_kf], 0)
             mkf = remap[mkf] if mkf >= 0 else mkf
             nbrs = tuple(remap[j] if j >= 0 else j for j in nbrs)
-            table = torch.tensor(remap, dtype=torch.int32,
-                                 device=traj_ref.device)
+            table = spans.to_device("do_track.remap", remap, torch.int32,
+                                    traj_ref.device)
             traj_ref = torch.where(
                 traj_ref >= 0,
                 table[traj_ref.clamp(0, self.k_max - 1).long()].clamp(min=0),
@@ -510,9 +526,9 @@ class AutoStep:
             rel = se3.compose(res.R, res.t, *se3.inverse(
                 m_pre.kf_R[anchor], m_pre.kf_t[anchor]))
             R, t = se3.compose(*rel, m.kf_R[anchor], m.kf_t[anchor])
-        stats8 = torch.cat([res.stats, torch.tensor(
-            [int(inserted), loop.n_loops], dtype=torch.int32,
-            device=d.device)])
+        stats8 = torch.cat([res.stats, spans.to_device(
+            "do_track.stats_row", [int(inserted), loop.n_loops], torch.int32,
+            d.device)])
         s = s._replace(
             map=m, loop=loop, traj_ref=traj_ref,
             prev=steps.FrameObs(res.feats, res.depth, lm_after),
@@ -525,6 +541,31 @@ class AutoStep:
         return self.write_traj(s, R, t, res.Rcr, res.tcr, ref_kf, True,
                                stats8)
 
+    def _need_keyframe(self, s: AutoState, res, n_kf: int, local_in: int,
+                       ref_matches: int, close_pack: int) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:1140-1244) for a tracked frame."""
+        cfg = self.cfg
+        c1a = s.frame_idx - s.last_kf_frame >= cfg.fps
+        c1b = s.maint_kf < 0  # mapping idle: no keyframe under maintenance
+        if self.is_mono:
+            # no close-point rule, thRefRatio 0.9 (Tracking.cc:1205); and an
+            # insert may interrupt the maintenance cycle once tracking has
+            # decayed below 70% of the reference keyframe, as the
+            # reference's InterruptBA lets it (:1216-1232)
+            need_close, th_ref = False, 0.9
+            c1b = c1b or _f32_lt_scaled(local_in, ref_matches, 0.7)
+        else:
+            need_close = close_pack // 10000 < 100 and close_pack % 10000 > 70
+            th_ref = 0.4 if n_kf < 2 else 0.75
+        c1c = _f32_lt_scaled(local_in, ref_matches, 0.25) or need_close
+        c2 = ((_f32_lt_scaled(local_in, ref_matches, th_ref) or need_close)
+              and local_in > 15)
+        live_kf = int(spans.to_host("do_track.live_kf",
+                                    res.map.kf_valid.sum()))
+        return ((c1a or c1b or c1c) and c2 and live_kf < self.k_max
+                and not self.localization_only)
+
+    @spans.span("do_relocalize")
     def do_relocalize(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         """Relocalization (Tracking.cc:1582-1778): BoW candidate keyframe,
         descriptor matching, EPnP RANSAC, pose-only optimization and a
@@ -547,7 +588,9 @@ class AutoStep:
                                 voc.n_words)
         ids = torch.arange(self.k_max, device=d.device)
         scr = torch.where(m.kf_valid & (ids < m.n_kf), scr, -1.0)
-        top_s, top_i = (a.tolist() for a in sort_top_k(scr, 5))
+        top_s, top_i = (spans.to_host(site, a) for site, a in zip(
+            ("do_relocalize.scores", "do_relocalize.candidates"),
+            sort_top_k(scr, 5)))
         n_cand = sum(v > 0 for v in top_s)
         pick = (s.frame_idx - max(s.lost, 0)) % max(n_cand, 1)
         cand = top_i[pick]
@@ -561,7 +604,7 @@ class AutoStep:
         idx, _, matched = msearch.search_brute(
             m.kf_desc[cand], feats.desc, kf_has, feats.valid, ratio=0.75,
             angle_q=m.kf_angle[cand], angle_t=feats.angle)
-        if int(matched.sum()) < 15:
+        if int(spans.to_host("do_relocalize.matches", matched.sum())) < 15:
             return stay()
         N = feats.xy.shape[0]
         frame_lm = set_last(torch.full((N,), -1, dtype=torch.int32,
@@ -574,24 +617,27 @@ class AutoStep:
             m.lm_pw[frame_lm.clamp(min=0).long()], feats.xy,
             msearch.sigma2_at(feats.octave), (frame_lm >= 0) & feats.valid,
             max_iters=300)
-        if int(res.n_inliers) < 10:
+        if int(spans.to_host("do_relocalize.pnp_inliers", res.n_inliers)) < 10:
             return stay()
         tr = steps.pose_optimize_one(cam, m, feats, frame_lm, res.R, res.t)
-        if int(tr.n_inliers) < 10:
+        if int(spans.to_host("do_relocalize.pose_inliers", tr.n_inliers)) < 10:
             return stay()
         local_mask = steps.local_landmark_mask(m, cand)
         res2, m2 = steps.track_local_map(cam, m, feats, tr.lm, tr.R, tr.t,
                                          local_mask, 10.0, cfg.width,
                                          cfg.height, cfg.desc_th)
-        if 30 < int(res2.n_inliers) < 50:
+        if 30 < int(spans.to_host("do_relocalize.local_inliers",
+                                  res2.n_inliers)) < 50:
             res2, m2 = steps.track_local_map(cam, m2, feats, res2.lm, res2.R,
                                              res2.t, local_mask, 3.0,
                                              cfg.width, cfg.height, 64)
-        n2 = int(res2.n_inliers)
+        n2 = int(spans.to_host("do_relocalize.inliers", res2.n_inliers))
         if n2 < 50:
             return stay()
-        stats8 = self._stats8(s, c2=int(tr.n_inliers), c3=n2, c6=2,
-                              c7=s.loop.n_loops)
+        stats8 = self._stats8(
+            s, c2=int(spans.to_host("do_relocalize.stats_inliers",
+                                    tr.n_inliers)),
+            c3=n2, c6=2, c7=s.loop.n_loops)
         s = s._replace(map=m2, prev=steps.FrameObs(feats, d, res2.lm),
                        last_R=res2.R, last_t=res2.t, have_vel=False,
                        ref_kf=cand, lost=-1)
@@ -621,7 +667,8 @@ class AutoStep:
     def run_frame(self, s: AutoState, feats: FeatureSet, d) -> AutoState:
         if s.lost >= 0:
             # localization mode keeps the map it was given: relocalize
-            if not self.localization_only and int(s.map.n_kf) <= 5:
+            if not self.localization_only and int(
+                    spans.to_host("run_frame.n_kf", s.map.n_kf)) <= 5:
                 s = self.do_reset(s)
             elif self.voc is not None:
                 s = self.do_relocalize(s, feats, d)
@@ -709,19 +756,21 @@ class AutoTracker:
         float depth in metres (then ``cfg.depth_factor`` 1.0), as numpy
         arrays or tensors. With ``batch_frames`` > 1 the frame waits on the
         host until the batch is full."""
-        self.timestamps.append(self.frame_count / self.cfg.fps
-                               if timestamp is None else timestamp)
-        self.frame_count += 1
-        if self.auto_cfg.batch_frames <= 1:
-            self.state = self._step(
-                self.state, upload_frame(img, self.device),
-                upload_frame(depth, self.device, depth=True))
-            return
-        self._batch.append((img, depth))
-        if len(self._batch) >= self.auto_cfg.batch_frames:
-            imgs, depths = (_stack(f) for f in zip(*self._batch))
-            self._batch = []
-            self.state = self._step.rgbd_batch(self.state, imgs, depths)
+        with spans.frame(self.frame_count):
+            self.timestamps.append(self.frame_count / self.cfg.fps
+                                   if timestamp is None else timestamp)
+            self.frame_count += 1
+            if self.auto_cfg.batch_frames <= 1:
+                with _UPLOAD:
+                    img = upload_frame(img, self.device)
+                    depth = upload_frame(depth, self.device, depth=True)
+                self.state = self._step(self.state, img, depth)
+                return
+            self._batch.append((img, depth))
+            if len(self._batch) >= self.auto_cfg.batch_frames:
+                imgs, depths = (_stack(f) for f in zip(*self._batch))
+                self._batch = []
+                self.state = self._step.rgbd_batch(self.state, imgs, depths)
 
     def drain(self):
         """Run the buffered frames of a partial batch, one by one."""
@@ -735,21 +784,25 @@ class AutoTracker:
                        timestamp: float | None = None):
         """Track one rectified stereo pair (reference: System::TrackStereo
         System.cc:169): uint8 images as numpy arrays or tensors."""
-        self.state = self._step.stereo(
-            self.state, upload_frame(img_left, self.device),
-            upload_frame(img_right, self.device))
-        self.timestamps.append(self.frame_count / self.cfg.fps
-                               if timestamp is None else timestamp)
-        self.frame_count += 1
+        with spans.frame(self.frame_count):
+            with _UPLOAD:
+                img_left = upload_frame(img_left, self.device)
+                img_right = upload_frame(img_right, self.device)
+            self.state = self._step.stereo(self.state, img_left, img_right)
+            self.timestamps.append(self.frame_count / self.cfg.fps
+                                   if timestamp is None else timestamp)
+            self.frame_count += 1
 
     def process_mono(self, img, timestamp: float | None = None):
         """Track one monocular frame (reference: System::TrackMonocular
         System.cc:224): a uint8 or float image, numpy array or tensor."""
-        self.state = self._step.mono(self.state,
-                                     upload_frame(img, self.device))
-        self.timestamps.append(self.frame_count / self.cfg.fps
-                               if timestamp is None else timestamp)
-        self.frame_count += 1
+        with spans.frame(self.frame_count):
+            with _UPLOAD:
+                img = upload_frame(img, self.device)
+            self.state = self._step.mono(self.state, img)
+            self.timestamps.append(self.frame_count / self.cfg.fps
+                                   if timestamp is None else timestamp)
+            self.frame_count += 1
 
     def sync(self):
         """Run any buffered frames, then wait for the device to drain (no

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..geometry import se3, sim3
 from ..mapstate.map import (MapState, covisibility_matrix,
                             covisibility_weights, merge_landmarks,
@@ -103,8 +104,9 @@ def permute_loop_carry(loop: LoopCarry, order, rank, valid) -> LoopCarry:
     live_new = valid[order]
     edges = loop.loop_edges[order][:, order]
     last = loop.last_loop_kf
-    if 0 <= last < K and bool(valid[last]):
-        last = int(rank[last])
+    if 0 <= last < K and bool(spans.to_host("permute_loop_carry.valid",
+                                            valid[last])):
+        last = int(spans.to_host("permute_loop_carry.rank", rank[last]))
     elif last >= 0:
         last = -MIN_GAP
     return loop._replace(
@@ -162,8 +164,10 @@ def detect(loop: LoopCarry, m: MapState, kf: int,
     if not gap_ok:  # the gap gate also clears the groups
         groups = torch.zeros_like(groups)
         counts = torch.zeros_like(counts)
-    first = [i for i, a in enumerate(accepted.tolist()) if a]
-    cand = int(cand_i[first[0]]) if gap_ok and first else -1
+    first = [i for i, a in enumerate(spans.to_host("detect.accepted",
+                                                   accepted)) if a]
+    cand = (int(spans.to_host("detect.candidate", cand_i[first[0]]))
+            if gap_ok and first else -1)
     return cand, loop._replace(prev_groups=groups,
                                prev_counts=counts.to(I32))
 
@@ -221,7 +225,9 @@ def sim3_accept_gate(m: MapState, cam, kf: int, cand: int, R12, t12, s12,
     # distinct features: two landmarks may pick one feature in the sweep
     proj_feat = torch.zeros(N, dtype=I32, device=idx.device).index_add(
         0, idx.clamp(min=0).long(), ok.to(I32)) > 0
-    return int(proj_feat.sum()) + int(already_feats.sum())
+    return (int(spans.to_host("sim3_accept_gate.projected", proj_feat.sum()))
+            + int(spans.to_host("sim3_accept_gate.matched",
+                                already_feats.sum())))
 
 
 class Sim3Match(NamedTuple):
@@ -248,7 +254,7 @@ def sim3_solve(loop: LoopCarry, m: MapState, cam, kf: int, cand: int,
     idx, _, matched = msearch.search_brute(
         m.kf_desc[kf], m.kf_desc[cand], has1, has2, ratio=0.75,
         angle_q=m.kf_angle[kf], angle_t=m.kf_angle[cand])
-    n_matches = int(matched.sum())
+    n_matches = int(spans.to_host("sim3_solve.matches", matched.sum()))
     safe_idx = torch.where(matched, idx, 0).long()
     X1c = se3.transform(m.kf_R[kf], m.kf_t[kf], m.lm_pw[l1])
     X2c = se3.transform(m.kf_R[cand], m.kf_t[cand],
@@ -271,8 +277,10 @@ def sim3_solve(loop: LoopCarry, m: MapState, cam, kf: int, cand: int,
         K_cam, K_cam, res.R, res.t, res.s, X1c, X2c_g, m.kf_xy[kf],
         m.kf_xy[cand][safe_g], 1.0 / s2_1, 1.0 / s2_2g, valid_g, iters=10,
         fix_scale=fix_scale)
-    ok = (n_matches >= 20 and int(res.n_inliers) >= 20
-          and int(ref.n_inliers) >= 20)
+    ok = (n_matches >= 20
+          and int(spans.to_host("sim3_solve.inliers", res.n_inliers)) >= 20
+          and int(spans.to_host("sim3_solve.refined_inliers",
+                                ref.n_inliers)) >= 20)
     pair_ok = ref.inliers & valid_g & (l1 != l2g)
     return Sim3Match(ok, ref.R, ref.t, ref.s, torch.where(pair_ok, l1, -1),
                      torch.where(pair_ok, l2g, -1), pair_ok, valid_g)
@@ -294,8 +302,8 @@ def _essential_edges(m: MapState, kf: int, cand: int, loop_edges):
         live = m.kf_valid.to(I32)
         rank = torch.cumsum(live, 0, dtype=I32) - live
         iu, ju = np.triu_indices(K, k=1)
-        e_i = torch.as_tensor(iu, dtype=torch.long, device=dev)
-        e_j = torch.as_tensor(ju, dtype=torch.long, device=dev)
+        e_i = spans.to_device("essential_edges.i", iu, torch.long, dev)
+        e_j = spans.to_device("essential_edges.j", ju, torch.long, dev)
         is_loop = (((e_i == lo) & (e_j == hi))
                    | loop_edges[e_i, e_j] | loop_edges[e_j, e_i])
         both = m.kf_valid[e_i] & m.kf_valid[e_j]
@@ -310,7 +318,7 @@ def _essential_edges(m: MapState, kf: int, cand: int, loop_edges):
     live_sel, live_ok = steps.gather_mask_indices(m.kf_valid, K)
     flat_sel, flat_ok = steps.gather_mask_indices(loop_edges.reshape(-1),
                                                   LOOP_EDGE_CAP)
-    cur = torch.tensor([[lo], [hi]], device=dev)
+    cur = spans.to_device("essential_edges.pair", [[lo], [hi]], None, dev)
     e_i = torch.cat([ci, live_sel[:-1], flat_sel // K, cur[0]])
     e_j = torch.cat([cj, live_sel[1:], flat_sel % K, cur[1]])
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
@@ -367,7 +375,8 @@ def correct_loop(m: MapState, cam, kf: int, cand: int, R12, t12, s12,
     obs = m.lm_obs_kf
     in_loop = (loop_gm[obs.clamp(min=0).long()] & (obs >= 0)).any(1)
     top_w, top_i = sort_top_k(w, 15)
-    group_kfs = [kf] + torch.where(top_w > 0, top_i, -1).tolist()
+    group_kfs = [kf] + spans.to_host("correct_loop.group",
+                                     torch.where(top_w > 0, top_i, -1))
     m = steps.loop_search_and_fuse(m, cam, in_loop, group_kfs, width, height)
 
     # essential graph: pre-propagation measurements except on loop edges,
@@ -440,6 +449,7 @@ def close_loop_step(loop: LoopCarry, m: MapState, cam, kf: int,
     m = correct_loop(m, cam, kf, cand, sm.R, sm.t, sm.s, fix_scale, sm.lm_cur,
                      sm.lm_cand, sm.pair_ok, loop.loop_edges, width, height)
     edges = loop.loop_edges.clone()
-    edges[min(kf, cand), max(kf, cand)] = True
+    spans.put("close_loop_step.edge", edges, (min(kf, cand), max(kf, cand)),
+                True)
     return m, loop._replace(last_loop_kf=kf, n_loops=loop.n_loops + 1,
                             loop_edges=edges)

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..geometry import se3, triangulate
 from ..mapstate.map import (MapState, add_observation, covisibility_weights,
                             landmark_obs_count, merge_landmarks, set_last)
@@ -24,6 +25,12 @@ from ..optim.residuals import CamParams
 N_LEVELS = 8
 I32 = torch.int32
 MAX_SCALE = float(msearch.SCALE_FACTORS[N_LEVELS - 1])
+# the halves of each tracking search (matching/search.py has the same):
+# the projection and the candidate mask, then K1 with the ratio test, the
+# rotation histogram, the dedupe and the assignment
+_MASK = spans.span("search.mask")
+_MATCH = spans.span("search.match")
+_DEPTH = spans.span("frontend.depth")
 
 
 class FrameObs(NamedTuple):
@@ -265,7 +272,8 @@ def scene_median_depth(m: MapState, kf: int) -> torch.Tensor:
     has = (lm >= 0) & m.kf_feat_valid[kf] & m.lm_valid[safe]
     z = m.lm_pw[safe] @ m.kf_R[kf][2] + m.kf_t[kf][2]
     zs = torch.sort(torch.where(has, z, float("inf")), stable=True).values
-    return zs[max((int(has.sum()) - 1) // 2, 0)]
+    n = int(spans.to_host("scene_median_depth.count", has.sum()))
+    return zs[max((n - 1) // 2, 0)]
 
 
 def triangulate_with_neighbors(m: MapState, cam, kf: int,
@@ -279,7 +287,8 @@ def triangulate_with_neighbors(m: MapState, cam, kf: int,
             continue
         baseline = torch.linalg.norm(-(m.kf_R[j].T @ m.kf_t[j]) - Ow)
         med = scene_median_depth(m, j)
-        if bool(baseline / med.clamp(min=1e-9) > 0.01):
+        if bool(spans.to_host("triangulate_with_neighbors.baseline",
+                              baseline / med.clamp(min=1e-9) > 0.01)):
             m = triangulate_landmarks(m, cam, kf, j)
     return m
 
@@ -306,6 +315,7 @@ class TrackResult(NamedTuple):
     n_inliers: torch.Tensor  # inliers after optimization
 
 
+@spans.span("_pose_optimize_from_matches")
 def _pose_optimize_from_matches(cam, m: MapState, feats: FeatureSet,
                                 frame_lm, R0, t0) -> TrackResult:
     """Pose-only optimization over frame<->landmark matches, batched over
@@ -336,30 +346,38 @@ def _assign(frame_lm, matched, idx, values):
         matched, values, frame_lm[safe.long()]))
 
 
+@spans.span("_match_motion_model")
 def _match_motion_model(cam, m: MapState, prev: FrameObs, feats: FeatureSet,
                         R_pred, t_pred, th, width, height, desc_th):
     """SearchByProjection vs the last frame (ORBmatcher.cc:1540+) ->
     frame_lm [N]."""
-    pl = prev.lm.clamp(min=0).long()
-    ok_lm = m.lm_valid[pl] & (prev.lm >= 0) & prev.feats.valid
+    with _MASK:
+        pl = prev.lm.clamp(min=0).long()
+        ok_lm = m.lm_valid[pl] & (prev.lm >= 0) & prev.feats.valid
+        prev_pw = m.lm_pw[pl]
     idx, _, matched = msearch.search_by_projection_frame(
-        cam, R_pred, t_pred, m.lm_pw[pl], prev.feats, ok_lm, feats, th,
+        cam, R_pred, t_pred, prev_pw, prev.feats, ok_lm, feats, th,
         width, height, desc_th=desc_th)
-    N = feats.xy.shape[0]
-    return _assign(_full(N, -1, feats.xy.device), matched, idx, prev.lm)
+    with _MATCH:
+        N = feats.xy.shape[0]
+        return _assign(_full(N, -1, feats.xy.device), matched, idx, prev.lm)
 
 
+@spans.span("_match_reference_kf")
 def _match_reference_kf(m: MapState, ref_kf: int, feats: FeatureSet):
     """Reference-keyframe association (SearchByBoW, ratio 0.7, as a full
     masked Hamming sweep) -> frame_lm [N]."""
-    kf_lm = m.kf_lm[ref_kf]
-    kf_has = ((kf_lm >= 0) & m.kf_feat_valid[ref_kf]
-              & m.lm_valid[kf_lm.clamp(min=0).long()])
+    with _MASK:
+        kf_lm = m.kf_lm[ref_kf]
+        kf_has = ((kf_lm >= 0) & m.kf_feat_valid[ref_kf]
+                  & m.lm_valid[kf_lm.clamp(min=0).long()])
+        kf_desc, kf_angle = m.kf_desc[ref_kf], m.kf_angle[ref_kf]
     idx, _, matched = msearch.search_brute(
-        m.kf_desc[ref_kf], feats.desc, kf_has, feats.valid, ratio=0.7,
-        angle_q=m.kf_angle[ref_kf], angle_t=feats.angle)
-    N = feats.xy.shape[0]
-    return _assign(_full(N, -1, feats.xy.device), matched, idx, kf_lm)
+        kf_desc, feats.desc, kf_has, feats.valid, ratio=0.7,
+        angle_q=kf_angle, angle_t=feats.angle)
+    with _MATCH:
+        N = feats.xy.shape[0]
+        return _assign(_full(N, -1, feats.xy.device), matched, idx, kf_lm)
 
 
 def track_motion_model(cam, m: MapState, prev: FrameObs, prev_R, prev_t,
@@ -382,6 +400,7 @@ def track_reference_keyframe(cam, m: MapState, ref_kf: int,
     return pose_optimize_one(cam, m, feats, frame_lm, R0, t0)
 
 
+@spans.span("track_local_map")
 def track_local_map(cam, m: MapState, feats: FeatureSet, frame_lm, R, t,
                     local_lm_mask, th, width, height, desc_th=100,
                     lm_cap: int = 4096):
@@ -392,17 +411,20 @@ def track_local_map(cam, m: MapState, feats: FeatureSet, frame_lm, R, t,
     L = m.lm_pw.shape[0]
     lm_cap = min(lm_cap, L)
     dev = frame_lm.device
-    already_lm = torch.zeros(L, dtype=I32, device=dev).index_add(
-        0, frame_lm.clamp(min=0).long(), (frame_lm >= 0).to(I32)) > 0
-    cand = local_lm_mask & m.lm_valid & ~already_lm
-    sel, g_ok = gather_mask_indices(cand, lm_cap)
-    lmset = LandmarkSet(m.lm_pw[sel], m.lm_normal[sel], m.lm_dmin[sel],
-                        m.lm_dmax[sel], m.lm_desc[sel], g_ok)
-    fr = msearch.frustum_check(cam, R, t, lmset, width, height)
+    with _MASK:
+        already_lm = torch.zeros(L, dtype=I32, device=dev).index_add(
+            0, frame_lm.clamp(min=0).long(), (frame_lm >= 0).to(I32)) > 0
+        cand = local_lm_mask & m.lm_valid & ~already_lm
+        sel, g_ok = gather_mask_indices(cand, lm_cap)
+        lmset = LandmarkSet(m.lm_pw[sel], m.lm_normal[sel], m.lm_dmin[sel],
+                            m.lm_dmax[sel], m.lm_desc[sel], g_ok)
+        fr = msearch.frustum_check(cam, R, t, lmset, width, height)
+        already_matched = frame_lm >= 0
     idx, _, matched = msearch.search_local_points(
-        cam, R, t, lmset, fr, feats, th=th, already_matched=frame_lm >= 0,
+        cam, R, t, lmset, fr, feats, th=th, already_matched=already_matched,
         desc_th=desc_th)
-    frame_lm = _assign(frame_lm, matched, idx, sel.to(I32))
+    with _MATCH:
+        frame_lm = _assign(frame_lm, matched, idx, sel.to(I32))
     res = pose_optimize_one(cam, m, feats, frame_lm, R, t)
     vis_inc = (torch.zeros(L, dtype=I32, device=dev).index_add(
         0, sel, fr.visible.to(I32)) + already_lm.to(I32))
@@ -413,6 +435,7 @@ def track_local_map(cam, m: MapState, feats: FeatureSet, frame_lm, R, t,
     return res, m
 
 
+@spans.span("local_landmark_mask")
 def local_landmark_mask(m: MapState, ref_kf: int) -> torch.Tensor:
     """Landmarks observed by keyframes covisible with ref_kf
     (UpdateLocalKeyFrames/Points, Tracking.cc:1421-1570)."""
@@ -440,6 +463,7 @@ class FrameStepResult(NamedTuple):
     tcr: torch.Tensor
 
 
+@spans.span("frontend")
 def extract_rgbd_features(extractor, cam: CamParams, img, depth_map,
                           depth_factor: float, width: int, height: int,
                           undist_cam=None):
@@ -451,26 +475,28 @@ def extract_rgbd_features(extractor, cam: CamParams, img, depth_map,
     and before mvuRight (Frame.cc:434-469, 687-698). Returns (feats, d)."""
     depth_map = depth_map.to(torch.float32) * depth_factor
     raw = extractor._extract(img)
-    xy = raw.xy
-    yi = torch.round(xy[:, 1]).long().clamp(0, height - 1)
-    xi = torch.round(xy[:, 0]).long().clamp(0, width - 1)
-    dmin_map = dmax_map = depth_map
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            if dy or dx:
-                sh = torch.roll(depth_map, (dy, dx), (0, 1))
-                dmin_map = torch.minimum(dmin_map, sh)
-                dmax_map = torch.maximum(dmax_map, sh)
-    d, dmin, dmax = depth_map[yi, xi], dmin_map[yi, xi], dmax_map[yi, xi]
-    edge = (dmin <= 0) | ((dmax - dmin) > 0.04 * d.clamp(min=1e-6))
-    d = torch.where((d > 0) & ~edge, d, -1.0)
-    if undist_cam is not None:
-        xy = undist_cam.undistort_points(xy)
-    feats = FeatureSet(xy, make_feature_uvr(xy[:, 0], d, cam.bf), raw.octave,
-                       raw.angle, raw.desc, raw.valid)
+    with _DEPTH:
+        xy = raw.xy
+        yi = torch.round(xy[:, 1]).long().clamp(0, height - 1)
+        xi = torch.round(xy[:, 0]).long().clamp(0, width - 1)
+        dmin_map = dmax_map = depth_map
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    sh = torch.roll(depth_map, (dy, dx), (0, 1))
+                    dmin_map = torch.minimum(dmin_map, sh)
+                    dmax_map = torch.maximum(dmax_map, sh)
+        d, dmin, dmax = depth_map[yi, xi], dmin_map[yi, xi], dmax_map[yi, xi]
+        edge = (dmin <= 0) | ((dmax - dmin) > 0.04 * d.clamp(min=1e-6))
+        d = torch.where((d > 0) & ~edge, d, -1.0)
+        if undist_cam is not None:
+            xy = undist_cam.undistort_points(xy)
+        feats = FeatureSet(xy, make_feature_uvr(xy[:, 0], d, cam.bf),
+                           raw.octave, raw.angle, raw.desc, raw.valid)
     return feats, d
 
 
+@spans.span("track_frame_core")
 def track_frame_core(cam, m: MapState, prev: FrameObs, last_R, last_t,
                      vel_R, vel_t, have_vel: bool, ref_kf: int,
                      feats: FeatureSet, d, th_depth: float, desc_th: int,
@@ -731,7 +757,8 @@ def cull_keyframes(m: MapState, cur_kf: int, candidates) -> MapState:
     device."""
     dev = m.kf_lm.device
     cands = (candidates.long() if isinstance(candidates, torch.Tensor)
-             else torch.as_tensor(candidates, dtype=torch.long, device=dev))
+             else spans.to_device("cull_keyframes.candidates", candidates,
+                                  torch.long, dev))
     cand = cands.clamp(min=0)
     kf_lm = m.kf_lm[cand]
     lm = kf_lm.clamp(min=0).long()
