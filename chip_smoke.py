@@ -373,7 +373,12 @@ Phases (any failure raises and the script exits nonzero without the final
    version and the baseline kernel and timed; every (calling function, B,
    N) they gave K3 (the batched B = 3 solve of track_frame_core,
    track_local_map, track_reference_keyframe, the relocalization) is held
-   to hold_pose's gates and timed. The kernels line's launches are phase
+   to hold_pose's gates and timed; every (calling function, Q, N) they
+   gave K7, the match tail after K1 (matching/core.match_tail), is held in
+   bits against its plain version on the card and on the CPU and timed
+   (per call, on the device in a replayed graph, and the plain version per
+   call on the card: the eager chain it replaced), and K7's launches per
+   frame are printed by phase. The kernels line's launches are phase
    16c's (a variant's row: phase 18's); launches_by_phase and launches_per_frame_by_phase list every
    path's. Every path must have launched each K2 kernel once per view it
    extracted on the card (check_k2_per_view: 3 per view, 6 per stereo
@@ -434,6 +439,7 @@ from orb_slam2_with_comment_tpu_torch.examples import (
 from orb_slam2_with_comment_tpu_torch.frontend import stereo
 from orb_slam2_with_comment_tpu_torch.frontend.extractor import OrbExtractor
 from orb_slam2_with_comment_tpu_torch.mapstate.map import MapConfig, empty_map
+from orb_slam2_with_comment_tpu_torch.matching import core as mcore
 from orb_slam2_with_comment_tpu_torch.matching import search as msearch
 from orb_slam2_with_comment_tpu_torch.ops import (
     cuda_lib, hamming, image, orb, orientation, sad)
@@ -2192,15 +2198,17 @@ def launch_counts() -> dict:
     the frames whose features were extracted meanwhile, "views": the
     views extracted on the card, "pairs": the stereo pairs among them,
     "ba_solves": the dense BA solves on the card."""
-    return {**hamming.LAUNCHES, **pose_opt.LAUNCHES, **orb.LAUNCHES,
-            **sad.LAUNCHES, **ba.LAUNCHES, **hamming.VARIANT_LAUNCHES,
+    return {**hamming.LAUNCHES, **mcore.LAUNCHES, **pose_opt.LAUNCHES,
+            **orb.LAUNCHES, **sad.LAUNCHES, **ba.LAUNCHES,
+            **hamming.VARIANT_LAUNCHES, **mcore.VARIANT_LAUNCHES,
             **pose_opt.VARIANT_LAUNCHES, **orb.VARIANT_LAUNCHES,
             **sad.VARIANT_LAUNCHES, **ba.VARIANT_LAUNCHES, **FRAMES}
 
 
 def set_launches(counts: dict):
-    for c in (hamming.LAUNCHES, pose_opt.LAUNCHES, orb.LAUNCHES,
-              sad.LAUNCHES, ba.LAUNCHES, hamming.VARIANT_LAUNCHES,
+    for c in (hamming.LAUNCHES, mcore.LAUNCHES, pose_opt.LAUNCHES,
+              orb.LAUNCHES, sad.LAUNCHES, ba.LAUNCHES,
+              hamming.VARIANT_LAUNCHES, mcore.VARIANT_LAUNCHES,
               pose_opt.VARIANT_LAUNCHES, orb.VARIANT_LAUNCHES,
               sad.VARIANT_LAUNCHES, ba.VARIANT_LAUNCHES, FRAMES):
         for k in c:
@@ -2987,6 +2995,8 @@ def counted_launches(*targets):
 # the pose LM's callers that only pass a solve on: a captured problem is
 # named after the function that called them
 POSE_RELAYS = ("_pose_optimize_from_matches", "pose_optimize_one")
+# and the match tail's
+TAIL_RELAYS = ("windowed_match",)
 
 
 @contextlib.contextmanager
@@ -2998,11 +3008,15 @@ def captured_problems():
     is (B, N), its calling function the first outside POSE_RELAYS, and its
     inputs (cam, R0, t0, Xw, obs_uvr, inv_sigma2, valid); the dense BA's
     ("ba") shape is (P, L, iterations) and its inputs (cam, problem,
-    iterations, robust, initial damping, accept_all)."""
+    iterations, robust, initial damping, accept_all); the match tail's
+    ("match_tail", K7) shape is (Q, N), its calling function the first
+    outside TAIL_RELAYS, and its inputs (the positional arguments, the
+    keyword ones)."""
     out = {}
     saved = hamming.masked_best_two, hamming.distance_matrix
     saved_pose = pose_opt.optimize_pose
     saved_ba = ba.ba_solve
+    saved_tail = mcore.match_tail
 
     def keep(kernel, fn):
         def run(*tensors):
@@ -3034,16 +3048,31 @@ def captured_problems():
                 lam, accept_all)
         return saved_ba(cam, prob, iters, robust, init_lambda, accept_all)
 
+    def keep_tail(best, *a, **kw):
+        if best.is_cuda and best.shape[0]:
+            frame = sys._getframe(1)
+            while frame.f_code.co_name in TAIL_RELAYS:
+                frame = frame.f_back
+
+            def clone(v):
+                return v.clone() if isinstance(v, torch.Tensor) else v
+            out["match_tail", frame.f_code.co_name, (best.shape[0], a[3])] = (
+                tuple(clone(v) for v in (best, *a)),
+                {k: clone(v) for k, v in kw.items()})
+        return saved_tail(best, *a, **kw)
+
     hamming.masked_best_two = keep("masked_best_two", saved[0])
     hamming.distance_matrix = keep("distance_matrix", saved[1])
     pose_opt.optimize_pose = keep_pose
     ba.ba_solve = keep_ba
+    mcore.match_tail = keep_tail
     try:
         yield out
     finally:
         hamming.masked_best_two, hamming.distance_matrix = saved
         pose_opt.optimize_pose = saved_pose
         ba.ba_solve = saved_ba
+        mcore.match_tail = saved_tail
 
 
 def run_mono(dev):
@@ -3228,6 +3257,9 @@ def hold_problems(todo, rows):
             rows[2]["other_problems"].append(row)
             rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], err)
             continue
+        if kernel == "match_tail":
+            hold_tail(where, tensors, rows)
+            continue
         tensors = tuple(t.contiguous() for t in tensors)
         if kernel == "distance_matrix":
             d1, d2 = tensors
@@ -3261,6 +3293,74 @@ def hold_problems(todo, rows):
         row["problem"], row["admissible"] = where, share
         rows[0]["other_problems"].append(row)
         log(f"masked_best_two {where}: " + fmt_times(row))
+
+
+def bound_tail(args, kw) -> tuple:
+    """K7's bytes, each once: K1's four [Q] outputs and whichever of
+    angle_q and values [Q], octave_t, angle_t and frame_lm [N] the call
+    passes read, the [Q] flags and, with values, the new map [N] written
+    (the per-target tables stay in shared memory up to TAIL_SHARED
+    targets)."""
+    q, n = args[0].shape[0], args[4]
+    n_bytes = 16 * q + q + sum(4 * v.numel() for v in kw.values()
+                               if isinstance(v, torch.Tensor))
+    if kw.get("values") is not None:
+        n_bytes += 4 * n
+    return bound(n_bytes, 0, 1.0)
+
+
+def run_tail(fn, args, kw):
+    """fn (match_tail or its plain version) on a captured call, the map
+    written into a fresh ``out`` where the call passes values: (idx, best,
+    matched), and the map last where there is one."""
+    if kw.get("values") is None:
+        return tuple(fn(*args, **kw))
+    out = torch.empty(args[4], dtype=torch.int32, device=args[0].device)
+    return tuple(fn(*args, **kw, out=out)) + (out,)
+
+
+def hold_tail(where: str, call, rows):
+    """One captured match tail (K7) held in bits against its plain version
+    on the card (the chain it replaced) and on the CPU, then timed: per
+    call with CUDA events, on the device inside a replayed CUDA graph, and
+    the plain version per call on the card. The rows join K7's row, made
+    from the first problem held."""
+    args, kw = call
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    got = run_tail(mcore.match_tail, args, kw)
+    for want in (run_tail(mcore.match_tail_plain, args, kw),
+                 run_tail(mcore.match_tail_plain, tuple(
+                     a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args), {
+                     k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in kw.items()})):
+        assert len(got) == len(want), where
+        for part, a, b in zip(("idx", "best", "matched", "frame_lm"), got,
+                              want):
+            assert torch.equal(a.cpu(), b.cpu()), \
+                f"match_tail {part} differs at {where}"
+    row = {"ms": cuda_ms(lambda: run_tail(mcore.match_tail, args, kw), 50),
+           "device_ms": graph_ms(lambda: run_tail(mcore.match_tail, args,
+                                                  kw)),
+           "plain_ms": cuda_ms(lambda: run_tail(mcore.match_tail_plain, args,
+                                                kw), 5),
+           "problem": where, "matched": int(got[2].sum())}
+    row["bound_ms"], row["bound_by"] = bound_tail(args, kw)
+    log(f"kernel check {where}: match_tail bit-exact ({row['matched']} "
+        f"matched); K7 {row['ms']:.4f} ms per call, {row['device_ms']:.4f} "
+        f"ms on the device; plain {row['plain_ms']:.4f}; bound "
+        f"{row['bound_ms']:.6f} ms by bytes")
+    k7 = next((r for r in rows if r["name"] == "hamming_match_tail"), None)
+    if k7 is None:
+        rows.append(dict(
+            row, name="hamming_match_tail", route="cuda",
+            source="orb_slam2_with_comment_tpu_torch/csrc/hamming.cu",
+            replaces="orb_slam2_with_comment_tpu/matching/core.py:41-70, "
+                     "called from windowed_match :87 (XLA ops, no Pallas "
+                     "kernel)", baseline=None,
+            max_abs_err=0, library_ms=None, other_problems=[]))
+    else:
+        k7["other_problems"].append(row)
 
 
 # ---------------------------------------------------------------------------
@@ -4802,6 +4902,8 @@ def main():
     check_k2_per_view(by_phase)
     check_k5_per_pair(by_phase)
     check_k4_per_solve(by_phase)
+    log("K7 (the match tail) launches per frame by phase: "
+        f"{ {p: per_frame(c, 'match_tail') for p, c in by_phase.items()} }")
     log(f"K4 accept test: over {ACCEPT_TEST['solves']} held solves, "
         f"{ACCEPT_TEST['f32_differs']} of {ACCEPT_TEST['iterations']} "
         f"iterations where a float32 comparison of the two chi2s parts from "

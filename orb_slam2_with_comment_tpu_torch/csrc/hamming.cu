@@ -17,6 +17,11 @@
 //                             column) top-2 per query row, kept in one
 //                             integer key per candidate, so the [Q,N]
 //                             distance matrix never reaches device memory.
+//   hamming_match_tail        K7, everything a search does after the
+//                             fused best-two: the distance gate, the ratio
+//                             test, the rotation histogram, the dedupe and
+//                             the assignment into the frame's landmark
+//                             map, in one block (below).
 //
 // What bounds them on the card. Both are bound by operations when their
 // work is dense: an SM retires 16 popc per clock, and a pair costs 8. The
@@ -367,6 +372,177 @@ masked_best_two_kernel(const uint4* __restrict__ dq,
   }
 }
 
+// ---------------------------------------------------------------------
+// K7, the match tail
+// ---------------------------------------------------------------------
+//
+// Replaces no Pallas kernel: the XLA ops of the JAX package's
+// matching/core.py after the best-two (ratio_ok :41, rotation_bins :46,
+// rotation_consistency :55, dedupe_matches :70, called from windowed_match
+// :87) and the port's assignment of the matches into the frame's landmark
+// map (set_last's last write wins). The plain version is
+// matching/core.match_tail_plain; the outputs are its bits.
+//
+// What bounds it on the card: nothing the card is short of. It reads K1's
+// four [Q] outputs, the values and the per-target tables and writes [Q]
+// flags and the [N] map, about 98 KB in the local-map search at Q 4,096
+// and N 1,000 (29 ns at 3.35 TB/s); one block's barriers and shared
+// atomics make it a few microseconds. What it
+// answers is the host's cost: the eager chain issued about 63 operators a
+// search, 25 us of host time each, and this is one launch. Its launches
+// are counted in matching/core.py LAUNCHES["match_tail"], apart from K1's
+// (ops/hamming.py LAUNCHES).
+//
+// The design. One block of 1,024 threads, whatever Q: the phases below
+// are separated by barriers, and each thread keeps the queries q = tid,
+// tid + 1024, ... through every phase, so a query's state between phases
+// is its own byte of the output flags.
+//   1. per query: best <= max_dist; the ratio test best < ratio * second
+//      in float32 (always, or where the best and second targets share an
+//      octave); the rotation bin of the matched into a shared histogram;
+//   2. thread 0 picks the top three bins (descending, ties to the lower
+//      bin, as a stable sort does), bins 2 and 3 where their count is at
+//      least 0.1x bin 1's in float32;
+//   3. the rotation keep; the dedupe's per-target atomic minimum of the key
+//      distance << 32 | query (the lowest distance, ties to the lowest
+//      query);
+//   4. a query keeps its match where its key is its target's minimum;
+//   5. the assignment: a query writes its target, an unmatched one slot 0,
+//      and an atomic maximum of the query index per slot picks the last
+//      write; a slot whose last writer matched takes its value, every
+//      other slot its old one.
+// The rotation bin is the plain version's float operations in its order,
+// rounded as written (-fmad=false), rintf for torch.round's half-to-even.
+// Up to kTailShared targets the per-target tables live in shared memory;
+// above, in global scratch the host passes (the same code, another
+// instantiation), so the plain version's shapes all run.
+
+constexpr int kTailThreads = 1024;
+constexpr int kHisto = 30;            // matching/core.py HISTO_LENGTH
+constexpr int kTailShared = 2048;     // targets whose tables fit in shared
+constexpr int kRatioNone = 0, kRatioAlways = 1, kRatioSameLevel = 2;
+// (float)(180 / pi) and (float)(30 / 360), as PyTorch rounds the scalars
+constexpr float kDegPerRad = (float)(180.0 / 3.141592653589793);
+constexpr float kBinPerDeg = (float)(30.0 / 360.0);
+
+struct TailArgs {
+  const int32_t* best;
+  const int32_t* idx;
+  const int32_t* second;
+  const int32_t* idx2;
+  const int32_t* octave_t;  // [N], the same-level rule, else null
+  const float* angle_q;     // [Q], the rotation check, else null
+  const float* angle_t;     // [N]
+  const int32_t* values;    // [Q], the assignment, else null
+  const int32_t* lm_in;     // [N] the map before, null for all -1
+  uint8_t* matched;         // [Q] out
+  int32_t* lm_out;          // [N] out with the assignment
+  unsigned long long* key_scratch;  // [N], the global instantiation
+  int32_t* win_scratch;             // [N], the global instantiation
+  int q, n, max_dist, ratio_mode, dedupe;
+  float ratio;
+};
+
+__device__ __forceinline__ int rotation_bin(float aq, float at) {
+  float rot = __fmul_rn(__fsub_rn(aq, at), kDegPerRad);
+  if (rot < 0.f) rot = __fadd_rn(rot, 360.f);
+  const int b = (int)rintf(__fmul_rn(rot, kBinPerDeg));
+  return b == kHisto ? 0 : b;
+}
+
+__device__ __forceinline__ unsigned long long tail_key(int dist, int q) {
+  return ((unsigned long long)(unsigned)dist << 32) | (unsigned)q;
+}
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kTailThreads)
+match_tail_kernel(const TailArgs a) {
+  __shared__ int hist[kHisto];
+  __shared__ int top[3];
+  __shared__ bool top_ok[3];
+  __shared__ unsigned long long s_key[kGlobal ? 1 : kTailShared];
+  __shared__ int32_t s_win[kGlobal ? 1 : kTailShared];
+  unsigned long long* key = kGlobal ? a.key_scratch : s_key;
+  int32_t* win = kGlobal ? a.win_scratch : s_win;
+  const int tid = threadIdx.x;
+  const bool rotation = a.angle_q != nullptr;
+  if (tid < kHisto) hist[tid] = 0;
+  if (a.dedupe)
+    for (int t = tid; t < a.n; t += kTailThreads) key[t] = ~0ull;
+  if (a.values)
+    for (int t = tid; t < a.n; t += kTailThreads) win[t] = -1;
+  __syncthreads();
+
+  // 1. the distance gate, the ratio test, the histogram of the matched
+  for (int q = tid; q < a.q; q += kTailThreads) {
+    const int b = a.best[q];
+    bool m = b <= a.max_dist;
+    if (a.ratio_mode == kRatioAlways ||
+        (a.ratio_mode == kRatioSameLevel &&
+         a.octave_t[a.idx[q]] == a.octave_t[a.idx2[q]]))
+      m = m && (float)b < __fmul_rn(a.ratio, (float)a.second[q]);
+    if (rotation && m) {
+      const int bin = rotation_bin(a.angle_q[q], a.angle_t[a.idx[q]]);
+      if (bin >= 0 && bin < kHisto) atomicAdd(&hist[bin], 1);
+    }
+    a.matched[q] = m;
+  }
+  __syncthreads();
+
+  // 2. the top three bins
+  if (rotation && tid == 0) {
+    int count[3];
+    for (int k = 0; k < 3; ++k) {
+      int c = -1, at = 0;
+      for (int b = 0; b < kHisto; ++b) {
+        bool taken = false;
+        for (int j = 0; j < k; ++j) taken |= top[j] == b;
+        if (!taken && hist[b] > c) {
+          c = hist[b];
+          at = b;
+        }
+      }
+      top[k] = at;
+      count[k] = c;
+    }
+    const float tenth = __fmul_rn(0.1f, (float)count[0]);
+    top_ok[0] = true;
+    top_ok[1] = (float)count[1] >= tenth;
+    top_ok[2] = (float)count[2] >= tenth;
+  }
+  __syncthreads();
+
+  // 3. the rotation keep; each target's lowest (distance, query)
+  for (int q = tid; q < a.q; q += kTailThreads) {
+    bool m = a.matched[q];
+    if (rotation && m) {
+      const int bin = rotation_bin(a.angle_q[q], a.angle_t[a.idx[q]]);
+      m = (top_ok[0] && bin == top[0]) || (top_ok[1] && bin == top[1]) ||
+          (top_ok[2] && bin == top[2]);
+    }
+    if (a.dedupe && m) atomicMin(&key[a.idx[q]], tail_key(a.best[q], q));
+    a.matched[q] = m;
+  }
+  if (a.dedupe) __syncthreads();
+
+  // 4. the dedupe; 5. the last write to each slot
+  for (int q = tid; q < a.q; q += kTailThreads) {
+    bool m = a.matched[q];
+    if (a.dedupe && m) {
+      m = key[a.idx[q]] == tail_key(a.best[q], q);
+      a.matched[q] = m;
+    }
+    if (a.values) atomicMax(&win[m ? a.idx[q] : 0], q);
+  }
+  if (!a.values) return;
+  __syncthreads();
+  for (int t = tid; t < a.n; t += kTailThreads) {
+    const int w = win[t];
+    a.lm_out[t] = (w >= 0 && a.matched[w]) ? a.values[w]
+                                            : (a.lm_in ? a.lm_in[t] : -1);
+  }
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms <= 0) {
@@ -435,6 +611,50 @@ int hamming_masked_best_two(const void* dq, const void* dt, const void* mask,
     LAUNCH(1, uint32_t);
   }
 #undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K7 after a hamming_masked_best_two of the same stream. ratio_mode: 0 no
+// ratio test, 1 always, 2 where octave_t of the best and second targets
+// agree. octave_t, angle_q / angle_t, values and lm_in may be null; scratch
+// holds 12 bytes a target (8-byte aligned) and is read only above
+// kTailShared targets with the dedupe or the assignment.
+int hamming_match_tail(const void* best, const void* idx, const void* second,
+                       const void* idx2, const void* octave_t,
+                       const void* angle_q, const void* angle_t,
+                       const void* values, const void* lm_in, void* matched,
+                       void* lm_out, void* scratch, int q, int n,
+                       int max_dist, float ratio, int ratio_mode, int dedupe,
+                       void* stream) {
+  if (q == 0) return 0;
+  TailArgs a;
+  a.best = (const int32_t*)best;
+  a.idx = (const int32_t*)idx;
+  a.second = (const int32_t*)second;
+  a.idx2 = (const int32_t*)idx2;
+  a.octave_t = (const int32_t*)octave_t;
+  a.angle_q = (const float*)angle_q;
+  a.angle_t = (const float*)angle_t;
+  a.values = (const int32_t*)values;
+  a.lm_in = (const int32_t*)lm_in;
+  a.matched = (uint8_t*)matched;
+  a.lm_out = (int32_t*)lm_out;
+  a.key_scratch = (unsigned long long*)scratch;
+  a.win_scratch =
+      scratch ? (int32_t*)((unsigned long long*)scratch + n) : nullptr;
+  a.q = q;
+  a.n = n;
+  a.max_dist = max_dist;
+  a.ratio_mode = ratio_mode;
+  a.dedupe = dedupe;
+  a.ratio = ratio;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > kTailShared && (dedupe || values)) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    match_tail_kernel<true><<<1, kTailThreads, 0, s>>>(a);
+  } else {
+    match_tail_kernel<false><<<1, kTailThreads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

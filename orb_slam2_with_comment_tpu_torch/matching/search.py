@@ -119,11 +119,14 @@ def _stereo_ok(feats: FeatureSet, ur_pred, radius):
 
 def search_local_points(cam, R, t, lm: LandmarkSet, fr: Frustum,
                         feats: FeatureSet, th=1.0, ratio: float = 0.8,
-                        already_matched=None, desc_th=core.TH_HIGH):
+                        already_matched=None, desc_th=core.TH_HIGH,
+                        values=None, frame_lm=None, out=None):
     """SearchByProjection vs the local map (reference: ORBmatcher.cc:59-155):
     radius (2.5 if viewCos > 0.998 else 4.0) * th * scale[pred], feature
     octave in [pred-1, pred], stereo gate, best <= desc_th, ratio test only
-    when best and runner-up share a level. Returns (idx, dist, matched)."""
+    when best and runner-up share a level. Returns (idx, dist, matched);
+    with ``values`` [Q] the matches are also assigned into frame_lm [N],
+    the new map written to ``out`` [N] (core.match_tail_plain)."""
     with _MASK:
         r = torch.where(fr.view_cos > 0.998, 2.5, 4.0)
         radius = r * th * scale_at(fr.level)
@@ -137,22 +140,21 @@ def search_local_points(cam, R, t, lm: LandmarkSet, fr: Frustum,
     with _MATCH:
         best, idx, second, idx2 = hamming.masked_best_two(lm.desc,
                                                           feats.desc, mask)
-        matched = best <= desc_th
-        same_level = feats.octave[idx] == feats.octave[idx2]
-        matched &= torch.where(same_level,
-                               core.ratio_ok(best, second, ratio), True)
-        matched &= core.dedupe_matches(idx, best, matched,
-                                       feats.desc.shape[0])
-    return idx, best, matched
+        return core.match_tail(best, idx, second, idx2, feats.desc.shape[0],
+                               desc_th, ratio, octave_t=feats.octave,
+                               values=values, frame_lm=frame_lm, out=out)
 
 
 def search_by_projection_frame(cam, R, t, prev_pw, prev_feats: FeatureSet,
                                prev_has_point, feats: FeatureSet, th,
-                               width, height, desc_th=core.TH_HIGH):
+                               width, height, desc_th=core.TH_HIGH,
+                               values=None, out=None):
     """SearchByProjection vs the last frame with the motion model (reference:
     ORBmatcher.cc:1540+), octave window [o-1, o+1] (the slice's RGB-D path
     runs neither the forward nor the backward variant), TH_HIGH,
-    rotation-histogram check, no ratio test."""
+    rotation-histogram check, no ratio test. With ``values`` the matches
+    are also assigned into a fresh frame map written to ``out``
+    (core.windowed_match)."""
     with _MASK:
         z, u, v, ur_pred = _project(cam, R, t, prev_pw)
         in_img = (z > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
@@ -167,19 +169,23 @@ def search_by_projection_frame(cam, R, t, prev_pw, prev_feats: FeatureSet,
     with _MATCH:
         return core.windowed_match(prev_feats.desc, feats.desc, mask,
                                    desc_th, angle_q=prev_feats.angle,
-                                   angle_t=feats.angle)
+                                   angle_t=feats.angle, values=values,
+                                   out=out)
 
 
 def search_brute(desc_q, desc_t, valid_q, valid_t, ratio: float,
-                 max_dist: int = core.TH_LOW, angle_q=None, angle_t=None):
+                 max_dist: int = core.TH_LOW, angle_q=None, angle_t=None,
+                 values=None, out=None):
     """Full masked Hamming sweep standing in for SearchByBoW (reference:
-    ORBmatcher.cc:211-344); a superset of the bucketed candidates."""
+    ORBmatcher.cc:211-344); a superset of the bucketed candidates. With
+    ``values`` the matches are also assigned into a fresh frame map written
+    to ``out`` (core.windowed_match)."""
     with _MASK:
         mask = valid_q[:, None] & valid_t[None, :]
     with _MATCH:
         return core.windowed_match(desc_q, desc_t, mask, max_dist,
                                    ratio=ratio, angle_q=angle_q,
-                                   angle_t=angle_t)
+                                   angle_t=angle_t, values=values, out=out)
 
 
 def initialization_mask(feats1: FeatureSet, feats2: FeatureSet, prev_xy,
@@ -257,10 +263,10 @@ def fuse_candidates(cam, R, t, lm: LandmarkSet, feats: FeatureSet,
                          err2 * inv_s2 <= 5.99)
     mask = (in_win & lvl_ok & chi_ok & fr.visible[:, None]
             & feats.valid[None, :])
-    best, idx, _, _ = hamming.masked_best_two(lm.desc, feats.desc, mask)
-    matched = best <= core.TH_LOW
-    matched &= core.dedupe_matches(idx, best, matched, feats.desc.shape[0])
-    return idx, best, matched
+    best, idx, second, idx2 = hamming.masked_best_two(lm.desc, feats.desc,
+                                                      mask)
+    return core.match_tail(best, idx, second, idx2, feats.desc.shape[0],
+                           core.TH_LOW)
 
 
 def search_by_sim3(cam, R12, t12, s12, R1w, t1w, R2w, t2w,

@@ -44,8 +44,7 @@ from ..frontend.extractor import OrbExtractor
 from ..geometry import se3
 from ..mapstate.map import (MapState, compact_keyframes, compact_landmarks,
                             covisibility_weights, empty_map,
-                            keyframe_compaction, landmark_compaction_order,
-                            set_last)
+                            keyframe_compaction, landmark_compaction_order)
 from ..matching import search as msearch
 from ..matching.search import FeatureSet
 from ..ops.fast import sort_top_k
@@ -601,16 +600,14 @@ class AutoStep:
         kf_lm = m.kf_lm[cand]
         kf_has = (kf_lm >= 0) & m.kf_feat_valid[cand] & m.lm_valid[
             kf_lm.clamp(min=0).long()]
-        idx, _, matched = msearch.search_brute(
+        frame_lm = torch.empty(feats.xy.shape[0], dtype=torch.int32,
+                               device=d.device)
+        _, _, matched = msearch.search_brute(
             m.kf_desc[cand], feats.desc, kf_has, feats.valid, ratio=0.75,
-            angle_q=m.kf_angle[cand], angle_t=feats.angle)
+            angle_q=m.kf_angle[cand], angle_t=feats.angle, values=kf_lm,
+            out=frame_lm)
         if int(spans.to_host("do_relocalize.matches", matched.sum())) < 15:
             return stay()
-        N = feats.xy.shape[0]
-        frame_lm = set_last(torch.full((N,), -1, dtype=torch.int32,
-                                       device=d.device),
-                            torch.where(matched, idx, 0),
-                            torch.where(matched, kf_lm, -1))
         cam = self.cam
         res = pnp.solve_ransac(
             s.loop.gen, (cam.fx, cam.fy, cam.cx, cam.cy),

@@ -25,11 +25,11 @@ from ..optim.residuals import CamParams
 N_LEVELS = 8
 I32 = torch.int32
 MAX_SCALE = float(msearch.SCALE_FACTORS[N_LEVELS - 1])
-# the halves of each tracking search (matching/search.py has the same):
-# the projection and the candidate mask, then K1 with the ratio test, the
-# rotation histogram, the dedupe and the assignment
+# the first half of each tracking search (matching/search.py has both): the
+# projection and the candidate mask; the second, search.match, is K1 and
+# the match tail (the ratio test, the rotation histogram, the dedupe and
+# the assignment)
 _MASK = spans.span("search.mask")
-_MATCH = spans.span("search.match")
 _DEPTH = spans.span("frontend.depth")
 
 
@@ -57,6 +57,10 @@ def _ids(n: int, device) -> torch.Tensor:
 
 def _full(n: int, v: int, device) -> torch.Tensor:
     return torch.full((n,), v, dtype=I32, device=device)
+
+
+def _empty(n: int, device) -> torch.Tensor:
+    return torch.empty((n,), dtype=I32, device=device)
 
 
 def _kf_featureset(m: MapState, kf: int) -> FeatureSet:
@@ -338,14 +342,6 @@ def pose_optimize_one(cam, m: MapState, feats: FeatureSet, frame_lm, R0,
     return TrackResult(*(a[0] for a in res))
 
 
-def _assign(frame_lm, matched, idx, values):
-    """frame_lm with frame_lm[idx] = values for matched queries (unmatched
-    queries rewrite slot 0 with its own value, last write winning)."""
-    safe = torch.where(matched, idx, 0)
-    return set_last(frame_lm, safe, torch.where(
-        matched, values, frame_lm[safe.long()]))
-
-
 @spans.span("_match_motion_model")
 def _match_motion_model(cam, m: MapState, prev: FrameObs, feats: FeatureSet,
                         R_pred, t_pred, th, width, height, desc_th):
@@ -355,12 +351,11 @@ def _match_motion_model(cam, m: MapState, prev: FrameObs, feats: FeatureSet,
         pl = prev.lm.clamp(min=0).long()
         ok_lm = m.lm_valid[pl] & (prev.lm >= 0) & prev.feats.valid
         prev_pw = m.lm_pw[pl]
-    idx, _, matched = msearch.search_by_projection_frame(
+    frame_lm = _empty(feats.xy.shape[0], feats.xy.device)
+    msearch.search_by_projection_frame(
         cam, R_pred, t_pred, prev_pw, prev.feats, ok_lm, feats, th,
-        width, height, desc_th=desc_th)
-    with _MATCH:
-        N = feats.xy.shape[0]
-        return _assign(_full(N, -1, feats.xy.device), matched, idx, prev.lm)
+        width, height, desc_th=desc_th, values=prev.lm, out=frame_lm)
+    return frame_lm
 
 
 @spans.span("_match_reference_kf")
@@ -372,12 +367,11 @@ def _match_reference_kf(m: MapState, ref_kf: int, feats: FeatureSet):
         kf_has = ((kf_lm >= 0) & m.kf_feat_valid[ref_kf]
                   & m.lm_valid[kf_lm.clamp(min=0).long()])
         kf_desc, kf_angle = m.kf_desc[ref_kf], m.kf_angle[ref_kf]
-    idx, _, matched = msearch.search_brute(
+    frame_lm = _empty(feats.xy.shape[0], feats.xy.device)
+    msearch.search_brute(
         kf_desc, feats.desc, kf_has, feats.valid, ratio=0.7,
-        angle_q=kf_angle, angle_t=feats.angle)
-    with _MATCH:
-        N = feats.xy.shape[0]
-        return _assign(_full(N, -1, feats.xy.device), matched, idx, kf_lm)
+        angle_q=kf_angle, angle_t=feats.angle, values=kf_lm, out=frame_lm)
+    return frame_lm
 
 
 def track_motion_model(cam, m: MapState, prev: FrameObs, prev_R, prev_t,
@@ -420,11 +414,11 @@ def track_local_map(cam, m: MapState, feats: FeatureSet, frame_lm, R, t,
                             m.lm_dmax[sel], m.lm_desc[sel], g_ok)
         fr = msearch.frustum_check(cam, R, t, lmset, width, height)
         already_matched = frame_lm >= 0
-    idx, _, matched = msearch.search_local_points(
+        values, new_lm = sel.to(I32), _empty(frame_lm.shape[0], dev)
+    msearch.search_local_points(
         cam, R, t, lmset, fr, feats, th=th, already_matched=already_matched,
-        desc_th=desc_th)
-    with _MATCH:
-        frame_lm = _assign(frame_lm, matched, idx, sel.to(I32))
+        desc_th=desc_th, values=values, frame_lm=frame_lm, out=new_lm)
+    frame_lm = new_lm
     res = pose_optimize_one(cam, m, feats, frame_lm, R, t)
     vis_inc = (torch.zeros(L, dtype=I32, device=dev).index_add(
         0, sel, fr.visible.to(I32)) + already_lm.to(I32))

@@ -36,7 +36,7 @@ from ..frontend.extractor import OrbExtractor
 from ..geometry import se3
 from ..mapstate.map import (MapConfig, MapState, compact_keyframes,
                             compact_landmarks, empty_map, grow_map,
-                            landmark_compaction_order, set_last)
+                            landmark_compaction_order)
 from ..matching import search as msearch
 from ..matching.search import FeatureSet
 from ..optim.residuals import CamParams
@@ -852,10 +852,12 @@ class Tracker:
                                     m.lm_desc[safe_lm], has)
         fr = msearch.frustum_check(self.cam, R, t, lmset, cfg.width,
                                    cfg.height)
-        idx, _, matched = msearch.search_local_points(
+        new_lm = self._new_lm(frame_lm.shape[0])
+        msearch.search_local_points(
             self.cam, R, t, lmset, fr, obs.feats, th=th,
-            already_matched=frame_lm >= 0, desc_th=desc_th)
-        frame_lm = steps._assign(frame_lm, matched, idx, safe_lm.to(I32))
+            already_matched=frame_lm >= 0, desc_th=desc_th,
+            values=safe_lm.to(I32), frame_lm=frame_lm, out=new_lm)
+        frame_lm = new_lm
         tr = steps.pose_optimize_one(self.cam, m, obs.feats, frame_lm, R, t)
         return tr, frame_lm
 
@@ -874,13 +876,13 @@ class Tracker:
             kf_lm = m.kf_lm[c]
             kf_has = ((kf_lm >= 0) & m.kf_feat_valid[c]
                       & m.lm_valid[kf_lm.clamp(min=0).long()])
-            idx, _, matched = msearch.search_brute(
+            frame_lm = self._new_lm(N)
+            _, _, matched = msearch.search_brute(
                 m.kf_desc[c], obs.feats.desc, kf_has, obs.feats.valid,
-                ratio=0.75, angle_q=m.kf_angle[c], angle_t=obs.feats.angle)
+                ratio=0.75, angle_q=m.kf_angle[c], angle_t=obs.feats.angle,
+                values=kf_lm, out=frame_lm)
             if int(matched.sum()) < 15:  # :1625
                 continue
-            frame_lm = set_last(self._new_lm(N), torch.where(matched, idx, 0),
-                                torch.where(matched, kf_lm, -1))
             has = (frame_lm >= 0) & obs.feats.valid
             res = pnp.solve_ransac(
                 self.gen, K, m.lm_pw[frame_lm.clamp(min=0).long()],
