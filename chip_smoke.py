@@ -329,10 +329,13 @@ Phases (any failure raises and the script exits nonzero without the final
    c. the street circuit (dataio/fixtures.py make_kitti_street, rendered
       on the card: 300 stereo pairs at the KITTI 00-02 camera, 1241x376,
       a 65 m lap and 8% more, 22 cm a frame) through examples.eval_street:
-      stereo_kitti --auto --kmax 40 (2000 features; the circuit inserts
-      about 45 keyframes and culls none, so the map fills up before the
-      lap ends). As many frames tracked as the JAX package's run
-      (STREET_REF), every keyframe slot used, as many keyframe compactions
+      stereo_kitti --auto --kmax 40 (2000 features) at the JAX package's
+      schedule, one maintenance phase a tracked frame
+      (AutoTrackerConfig(whole_cycle=False)): the circuit inserts about 45
+      keyframes and culls none, so the map fills up before the lap ends.
+      (At the whole cycle that the --auto drivers run it inserts a
+      keyframe every other frame and fills its 40 slots by frame 81.) As many frames tracked as the
+      JAX package's run (STREET_REF), every keyframe slot used, as many keyframe compactions
       as the JAX run (none: an insert needs a live slot below the
       capacity, and no keyframe is culled), ATE at most twice the JAX
       run's, both kernels launched. Prints ms per frame, the reader's wait, K1 launches per
@@ -407,6 +410,7 @@ line is the JSON ``ok`` record.
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
 import importlib
 import io
 import json
@@ -3847,6 +3851,25 @@ def constructed(*classes):
             cls.__init__ = init
 
 
+@contextlib.contextmanager
+def jax_schedule():
+    """Within the block, every AutoTracker made runs the JAX package's
+    maintenance schedule, one phase a tracked frame
+    (AutoTrackerConfig(whole_cycle=False)), for a gate held to the JAX
+    package's own run of a driver."""
+    init = AutoTracker.__init__
+
+    def run(self, cfg, auto_cfg=None, device="cuda"):
+        init(self, cfg, dataclasses.replace(
+            auto_cfg or AutoTrackerConfig(), whole_cycle=False), device)
+
+    AutoTracker.__init__ = run
+    try:
+        yield
+    finally:
+        AutoTracker.__init__ = init
+
+
 def driver_argv(name: str, seq: str, auto: bool) -> list:
     settings = os.path.join(seq, "settings.yaml")
     args = ([settings, os.path.join(seq, "mav0"),
@@ -4315,9 +4338,9 @@ def run_batched(dev):
 # The street circuit (dataio/fixtures.py make_kitti_street): frames and the
 # keyframe capacity of phase 16c. 500 frames took 272 s of tracking on an
 # H100 80GB HBM3 at 700 W (300 frames: 154 s), so the circuit is cut to 300
-# frames (still the whole lap and 8% more, 22 cm a frame). It inserts
-# about 45 keyframes and culls none, and an insert needs a live slot below
-# the capacity (in both packages), so no capacity compacts keyframe slots
+# frames (still the whole lap and 8% more, 22 cm a frame). At the JAX
+# package's schedule it inserts about 45 keyframes and culls none, and an
+# insert needs a live slot below the capacity (in both packages), so no capacity compacts keyframe slots
 # here; a capacity of 40 makes the map full before the lap ends. The JAX package's stereo_kitti
 # --auto on the same fixture (rendered by numpy), on the CPU:
 #   JAX_PLATFORMS=cpu python3 scripts/jax_reference_runs.py street 300 40
@@ -4374,8 +4397,8 @@ def run_street(dev, root, workers):
         f"{time.perf_counter() - t0:.2f} s")
     reset_launches()
     t0 = time.perf_counter()
-    with constructed(AutoTracker) as made, captured_problems() as problems, \
-            timed_loop_steps() as steps_ms:
+    with jax_schedule(), constructed(AutoTracker) as made, \
+            captured_problems() as problems, timed_loop_steps() as steps_ms:
         rc = eval_street.main(["--root", root, "--kmax", str(STREET_KMAX),
                                "--device", str(dev)])
     wall = time.perf_counter() - t0

@@ -7,6 +7,8 @@ from __future__ import annotations
 import json
 import time
 
+from ..pipeline.auto import AutoTrackerConfig
+
 
 def parse_args(argv, doc: str, n_required: int, options=()):
     """(positional arguments with the program first, --auto given, option
@@ -28,6 +30,15 @@ def parse_args(argv, doc: str, n_required: int, options=()):
         print(doc)
         return None
     return argv, auto, opts
+
+
+def auto_tracker_config():
+    """The ``--auto`` drivers' AutoTrackerConfig: loop closing on, and each
+    keyframe's whole maintenance cycle in the frame after its insert
+    (``whole_cycle``), as ORB-SLAM2's LocalMapping finishes each keyframe.
+    A vehicle at speed inserts every other frame or so, and then the
+    default one phase a frame never reaches local BA or loop detection."""
+    return AutoTrackerConfig(whole_cycle=True)
 
 
 class TimedFrames:

@@ -11,7 +11,7 @@ from .. import Sensor, System
 from ..dataio.datasets import EurocDataset
 from ..dataio.settings import load_tracker_config
 from ..pipeline import AutoTracker
-from ._util import parse_args, run_auto, run_system
+from ._util import auto_tracker_config, parse_args, run_auto, run_system
 
 
 def main(argv):
@@ -26,7 +26,8 @@ def main(argv):
         cfg = load_tracker_config(settings_path, expected_frames=len(ds),
                                   sensor="mono")
         cfg.sensor = "mono"
-        tracker = AutoTracker(cfg, device=opts["--device"])
+        tracker = AutoTracker(cfg, auto_tracker_config(),
+                              device=opts["--device"])
         return run_auto(tracker, ds, lambda ts, img:
                         tracker.process_mono(img, timestamp=ts))
     slam = System(settings_path=settings_path, sensor=Sensor.MONOCULAR,

@@ -17,7 +17,7 @@ from .. import Sensor, System
 from ..dataio.datasets import TumRgbdDataset
 from ..dataio.settings import load_settings, load_tracker_config
 from ..pipeline import AutoTracker
-from ._util import parse_args, run_auto, run_system
+from ._util import auto_tracker_config, parse_args, run_auto, run_system
 
 
 def main(argv):
@@ -34,7 +34,8 @@ def main(argv):
     if auto:
         cfg = load_tracker_config(settings_path, expected_frames=len(ds))
         cfg.sensor = "rgbd"  # loader yields meters; cfg.depth_factor is 1.0
-        tracker = AutoTracker(cfg, device=opts["--device"])
+        tracker = AutoTracker(cfg, auto_tracker_config(),
+                              device=opts["--device"])
         return run_auto(tracker, ds.prefetch(), lambda ts, rgb, depth:
                         tracker.process_rgbd(rgb, depth, timestamp=ts))
     slam = System(settings_path=settings_path, sensor=Sensor.RGBD,

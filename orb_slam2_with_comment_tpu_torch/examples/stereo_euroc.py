@@ -15,7 +15,7 @@ from ..dataio.datasets import EurocDataset
 from ..dataio.rectify import StereoRectifier
 from ..dataio.settings import load_settings, load_tracker_config
 from ..pipeline import AutoTracker
-from ._util import parse_args, run_auto, run_system
+from ._util import auto_tracker_config, parse_args, run_auto, run_system
 
 
 def main(argv):
@@ -35,7 +35,8 @@ def main(argv):
     if auto:
         cfg = load_tracker_config(settings_path, expected_frames=len(ds))
         cfg.sensor = "stereo"
-        tracker = AutoTracker(cfg, device=opts["--device"])
+        tracker = AutoTracker(cfg, auto_tracker_config(),
+                              device=opts["--device"])
         return run_auto(tracker, ds, lambda ts, left, right:
                         tracker.process_stereo(*rect(left, right),
                                                timestamp=ts))

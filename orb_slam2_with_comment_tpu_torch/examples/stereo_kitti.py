@@ -15,7 +15,7 @@ from .. import Sensor, System
 from ..dataio.datasets import KittiDataset
 from ..dataio.settings import load_tracker_config
 from ..pipeline import AutoTracker
-from ._util import parse_args, run_auto, run_system
+from ._util import auto_tracker_config, parse_args, run_auto, run_system
 
 
 def main(argv):
@@ -31,7 +31,8 @@ def main(argv):
         cfg = load_tracker_config(settings_path, expected_frames=len(ds),
                                   k_max=kmax)
         cfg.sensor = "stereo"
-        tracker = AutoTracker(cfg, device=opts["--device"])
+        tracker = AutoTracker(cfg, auto_tracker_config(),
+                              device=opts["--device"])
         return run_auto(tracker, ds, lambda ts, left, right:
                         tracker.process_stereo(left, right, timestamp=ts),
                         kitti=True)

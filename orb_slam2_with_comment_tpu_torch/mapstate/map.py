@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
+
 I32 = torch.int32
 F32 = torch.float32
 
@@ -127,6 +129,7 @@ def covisibility_weights(m: MapState, kf_idx) -> torch.Tensor:
     ok = (lms >= 0) & m.kf_feat_valid[kf_idx] & m.lm_valid[safe]
     rows = m.lm_obs_kf[safe]
     feat = m.lm_obs_feat[safe]
+    spans.table_read("covisibility_weights", lms, rows, feat, m.kf_valid)
     feat_ids = torch.arange(N, dtype=I32, device=lms.device)[:, None]
     primary = ((rows == kf_idx) & (feat == feat_ids)).any(1)
     contrib = ((ok & primary)[:, None] & (rows >= 0)).to(I32)
@@ -161,6 +164,8 @@ def covisibility_matrix(m: MapState) -> torch.Tensor:
     ok = (m.kf_lm >= 0) & m.kf_feat_valid & m.lm_valid[safe]  # [K, N]
     rows = m.lm_obs_kf[safe]  # [K, N, D]
     feat = m.lm_obs_feat[safe]
+    spans.table_read("covisibility_matrix", m.kf_lm, m.kf_feat_valid, rows,
+                     feat)
     kf_ids = torch.arange(K, dtype=I32, device=dev)
     primary = ((rows == kf_ids[:, None, None])
                & (feat == torch.arange(N, dtype=I32, device=dev)[None, :, None])
@@ -176,6 +181,7 @@ def covisibility_matrix(m: MapState) -> torch.Tensor:
 
 def landmark_obs_count(m: MapState) -> torch.Tensor:
     """[L] number of observations per landmark."""
+    spans.table_read("landmark_obs_count", m.lm_obs_kf)
     return (m.lm_obs_kf >= 0).sum(1, dtype=I32)
 
 
@@ -213,10 +219,16 @@ def add_observation(m: MapState, lm_idx, kf_idx, feat_idx, mask) -> MapState:
 def rebuild_observations(m: MapState) -> MapState:
     """Rebuild the observation table from the back-references kf_lm: per
     landmark up to D observations in (keyframe, feature) order, one per
-    keyframe; entries of dead landmarks, features or keyframes cleared."""
+    keyframe; entries of dead landmarks, features or keyframes cleared.
+    Each kept observation has a table slot of its own and is written there;
+    the references not kept go to spare slots past the table, one each,
+    and are dropped, so no two writes meet (at K x N references, most of
+    them empty, a shared target would serialize millions of writes)."""
     K, N = m.kf_lm.shape
     L, D = m.lm_obs_kf.shape
     dev = m.kf_lm.device
+    spans.table_read("rebuild_observations", m.kf_lm, m.kf_feat_valid,
+                     m.lm_valid)
     kf_lm = torch.where(
         (m.kf_lm >= 0) & m.lm_valid[m.kf_lm.clamp(min=0).long()]
         & m.kf_feat_valid & m.kf_valid[:, None], m.kf_lm, -1)
@@ -224,22 +236,20 @@ def rebuild_observations(m: MapState) -> MapState:
     ids = torch.arange(K * N, dtype=I32, device=dev)
     order = torch.argsort(flat, stable=True)
     slm, skf, sft = flat[order], (ids // N)[order], (ids % N)[order]
-    changed = torch.ones_like(slm, dtype=torch.bool)
-    changed[1:] = slm[1:] != slm[:-1]
-    first = torch.cummax(torch.where(changed, ids, 0), 0).values
-    rank = ids - first
+    # the first position of each landmark's run in the sorted references
+    rank = ids - torch.searchsorted(slm, slm).to(I32)
     same_kf_as_prev = (slm == torch.roll(slm, 1)) & (skf == torch.roll(skf, 1))
     same_kf_as_prev[0].fill_(False)  # a fill, not a copy from the host
     ok = (slm < L) & (rank < D) & ~same_kf_as_prev
-    tgt_lm = torch.where(ok, slm, L - 1)
-    tgt_slot = rank.clamp(0, D - 1)
-    obs_kf = set_last(torch.full((L, D), -1, dtype=I32, device=dev),
-                      (tgt_lm, tgt_slot), torch.where(ok, skf, -1))
-    obs_feat = set_last(torch.zeros((L, D), dtype=I32, device=dev),
-                        (tgt_lm, tgt_slot), torch.where(ok, sft, 0))
+    tgt = torch.where(ok, slm.long() * D + rank, L * D + ids.long())
+    obs_kf = torch.full((L * D + K * N,), -1, dtype=I32, device=dev)
+    obs_kf[tgt] = skf
+    obs_feat = torch.zeros((L * D + K * N,), dtype=I32, device=dev)
+    obs_feat[tgt] = sft
     n_drop = m.n_obs_drop + ((slm < L) & ~same_kf_as_prev & (rank >= D)).sum(
         dtype=I32)
-    return m._replace(kf_lm=kf_lm, lm_obs_kf=obs_kf, lm_obs_feat=obs_feat,
+    return m._replace(kf_lm=kf_lm, lm_obs_kf=obs_kf[:L * D].view(L, D),
+                      lm_obs_feat=obs_feat[:L * D].view(L, D),
                       n_obs_drop=n_drop)
 
 
@@ -279,6 +289,9 @@ def compact_landmarks(m: MapState) -> MapState:
     keyframe back-references and rewind n_lm to the live count (slots are
     append-only; culls and merges only clear lm_valid)."""
     L = m.lm_pw.shape[0]
+    spans.table_read("compact_landmarks", *(
+        getattr(m, f) for f in MapState._fields if f.startswith("lm_")),
+        m.kf_lm)
     order = landmark_compaction_order(m.lm_valid)
     inv = torch.empty(L, dtype=I32, device=order.device)
     inv[order] = torch.arange(L, dtype=I32, device=order.device)
@@ -313,6 +326,9 @@ def compact_keyframes(m: MapState) -> MapState:
     the live rank, which keeps their order. Holders of keyframe slots
     outside the map remap them with keyframe_compaction's rank."""
     K = m.kf_R.shape[0]
+    spans.table_read("compact_keyframes", *(
+        getattr(m, f) for f in MapState._fields if f.startswith("kf_")),
+        m.lm_obs_kf, m.lm_obs_feat, m.lm_first_kf, m.lm_ref_kf)
     order, rank = keyframe_compaction(m.kf_valid)
     n_live = m.kf_valid.sum(dtype=I32)
 

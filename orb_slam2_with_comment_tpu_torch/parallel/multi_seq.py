@@ -96,7 +96,8 @@ class MultiSeqTracker:
             voc = V.load_default_vocabulary(dev)
             auto_loop.warm_up_autodiff()
         self.step = auto_mod.build_auto_step(
-            extractor, cfg, self.auto_cfg.traj_capacity, voc)
+            extractor, cfg, self.auto_cfg.traj_capacity, voc,
+            whole_cycle=self.auto_cfg.whole_cycle)
         self.states = [auto_mod.empty_auto_state(
             cfg, self.auto_cfg.traj_capacity, dev) for _ in self.seq_ids]
         self.frame_count = 0

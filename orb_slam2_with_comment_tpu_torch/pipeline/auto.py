@@ -58,6 +58,7 @@ NO_NEIGHBORS = (-1,) * N_NEIGHBORS
 _FRONTEND = spans.span("frontend")
 _UPLOAD = spans.span("upload")
 _DECIDE = spans.span("do_track.decide")
+_INSERT_BOW = spans.span("_insert.bow")
 
 
 class AutoState(NamedTuple):
@@ -160,7 +161,8 @@ class AutoStep:
 
     def __init__(self, extractor: OrbExtractor, cfg: TrackerConfig,
                  traj_capacity: int, voc: V.Vocabulary | None = None,
-                 localization_only: bool = False):
+                 localization_only: bool = False,
+                 whole_cycle: bool = False):
         self.extractor = extractor
         self.localization_only = localization_only
         self.cfg = cfg
@@ -186,6 +188,8 @@ class AutoStep:
             self.maint_phases = [self.ph_fuse_in] + tail
             if voc is not None:
                 self.maint_phases.append(self.ph_loop)
+        # maintenance phases a tracked frame without an insert runs
+        self.phases_per_frame = len(self.maint_phases) if whole_cycle else 1
 
     def __call__(self, s: AutoState, img: torch.Tensor,
                  depth_raw: torch.Tensor) -> AutoState:
@@ -448,8 +452,9 @@ class AutoStep:
             m = self.triangulate_at_insert(m, kf)
         else:
             m = steps.create_depth_landmarks(m, self.cam, kf, self.th_depth)
-        return (m, self._add_bow(loop, m, kf), kf, m.kf_lm[kf], int(did_lm),
-                int(did_kf), kf_remap)
+        with _INSERT_BOW:
+            loop = self._add_bow(loop, m, kf)
+        return m, loop, kf, m.kf_lm[kf], int(did_lm), int(did_kf), kf_remap
 
     def triangulate_at_insert(self, m: MapState, kf: int) -> MapState:
         """The monocular landmark supply cannot wait for the maintenance
@@ -506,7 +511,9 @@ class AutoStep:
                 traj_ref)
         lam, phase = s.maint_lambda, s.maint_phase
         m_pre, anchor = m, max(mkf, 0)
-        if not inserted and mkf >= 0:
+        for _ in range(self.phases_per_frame):
+            if inserted or mkf < 0:
+                break
             step = self.maint_phases[min(max(phase, 0),
                                          len(self.maint_phases) - 1)]
             m, loop, nbrs, lam = step(m, loop, nbrs, lam, mkf)
@@ -683,8 +690,10 @@ class AutoStep:
 
 def build_auto_step(extractor: OrbExtractor, cfg: TrackerConfig,
                     traj_capacity: int, voc: V.Vocabulary | None = None,
-                    localization_only: bool = False) -> AutoStep:
-    return AutoStep(extractor, cfg, traj_capacity, voc, localization_only)
+                    localization_only: bool = False,
+                    whole_cycle: bool = False) -> AutoStep:
+    return AutoStep(extractor, cfg, traj_capacity, voc, localization_only,
+                    whole_cycle)
 
 
 @dataclass
@@ -699,6 +708,15 @@ class AutoTrackerConfig:
     # RGB-D frames uploaded per batch: > 1 buffers frames on the host and
     # uploads B at a time (B frames of latency); 1 = each frame at once
     batch_frames: int = 1
+    # run a keyframe's whole maintenance cycle (7 phases for stereo and
+    # RGB-D with loop closing, 8 mono) in the frame after its insert, as
+    # ORB-SLAM2's LocalMapping thread finishes each keyframe it keeps up
+    # with (LocalMapping.cc:47-128); the --auto drivers turn it on. False:
+    # one phase a tracked frame, as the JAX package does; a fresh insert
+    # restarts the cycle, so when keyframes come faster than that gets
+    # through it (a vehicle at speed) local BA, keyframe culling and loop
+    # detection never run
+    whole_cycle: bool = False
 
 
 class AutoTracker:
@@ -741,7 +759,8 @@ class AutoTracker:
             auto_loop.warm_up_autodiff()
         self._step = build_auto_step(self.extractor, cfg,
                                      auto_cfg.traj_capacity, self.voc,
-                                     auto_cfg.localization_only)
+                                     auto_cfg.localization_only,
+                                     auto_cfg.whole_cycle)
         self.state = empty_auto_state(cfg, auto_cfg.traj_capacity,
                                       self.device)
         self.frame_count = 0

@@ -50,6 +50,9 @@ TOP_COVISIBLE = 8  # covisibility edges kept per vertex in the bounded list
 LOOP_EDGE_CAP = 64  # stored loop edges the bounded list takes
 SEED = 7  # the JAX package's loop carry starts from PRNGKey(7)
 I32 = torch.int32
+# detection's two table-wide passes, inside the loop phase's span
+_COVISIBILITY = spans.span("ph_loop.covisibility")
+_SCORE = spans.span("ph_loop.score")
 
 
 class LoopCarry(NamedTuple):
@@ -101,6 +104,8 @@ def permute_loop_carry(loop: LoopCarry, order, rank, valid) -> LoopCarry:
     liveness before compaction. A culled last-loop keyframe drops to the
     no-loop-yet value -MIN_GAP."""
     K = loop.bow_idx.shape[0]
+    spans.table_read("permute_loop_carry", loop.bow_idx, loop.bow_w,
+                     loop.prev_groups, loop.loop_edges)
     live_new = valid[order]
     edges = loop.loop_edges[order][:, order]
     last = loop.last_loop_kf
@@ -123,6 +128,7 @@ def add_keyframe_bow(loop: LoopCarry, voc: V.Vocabulary, kf: int, desc,
     KeyFrameDatabase::add)."""
     idx, w = V.bow_sparse(voc, V.transform(voc, desc, valid), valid,
                           loop.bow_idx.shape[1])
+    spans.table_read("add_keyframe_bow", loop.bow_idx, loop.bow_w)
     bow_idx = loop.bow_idx.clone()
     bow_w = loop.bow_w.clone()
     bow_idx[kf] = idx
@@ -136,10 +142,12 @@ def detect(loop: LoopCarry, m: MapState, kf: int,
     K = loop.bow_idx.shape[0]
     dev = loop.bow_idx.device
     ids = torch.arange(K, dtype=I32, device=dev)
-    W_cov = covisibility_matrix(m)
+    with _COVISIBILITY:
+        W_cov = covisibility_matrix(m)
     covis_row = W_cov[kf] > 0
-    s = V.score_l1_sparse(loop.bow_idx[kf], loop.bow_w[kf], loop.bow_idx,
-                          loop.bow_w, n_words)
+    with _SCORE:
+        s = V.score_l1_sparse(loop.bow_idx[kf], loop.bow_w[kf],
+                              loop.bow_idx, loop.bow_w, n_words)
     live = m.kf_valid & (ids != kf) & (ids < m.n_kf)
     covis_live = covis_row & live
     min_score = torch.where(covis_live.any(),

@@ -405,6 +405,8 @@ def track_local_map(cam, m: MapState, feats: FeatureSet, frame_lm, R, t,
     L = m.lm_pw.shape[0]
     lm_cap = min(lm_cap, L)
     dev = frame_lm.device
+    spans.table_read("track_local_map", local_lm_mask, m.lm_valid,
+                     m.lm_visible, m.lm_found)
     with _MASK:
         already_lm = torch.zeros(L, dtype=I32, device=dev).index_add(
             0, frame_lm.clamp(min=0).long(), (frame_lm >= 0).to(I32)) > 0
@@ -437,6 +439,7 @@ def local_landmark_mask(m: MapState, ref_kf: int) -> torch.Tensor:
     w = covisibility_weights(m, ref_kf)
     local_kf = (w > 0) | (torch.arange(K, device=w.device) == ref_kf)
     obs = m.lm_obs_kf
+    spans.table_read("local_landmark_mask", obs, m.lm_valid)
     return ((local_kf[obs.clamp(min=0).long()] & (obs >= 0)).any(1)
             & m.lm_valid)
 
@@ -639,6 +642,8 @@ def merge_duplicate_landmarks(m: MapState, cur_kf: int,
     desc_r = m.lm_desc[win]
     recent = (m.lm_valid[win] & (m.lm_first_kf[win] == cur_kf)
               & (slot < m.n_lm))
+    spans.table_read("merge_duplicate_landmarks", m.lm_pw, m.lm_desc,
+                     m.lm_dmax, m.lm_valid)
     CH = 16384
     best_d2 = torch.full((Rb,), float("inf"), device=dev)
     best_tgt = torch.zeros(Rb, dtype=I32, device=dev)
@@ -701,16 +706,20 @@ def _refresh_rows(m: MapState, sel, g_ok) -> MapState:
     med = srt.gather(2, mid[:, None, None].expand(-1, D, 1))[..., 0]
     best = torch.argmin(torch.where(valid_obs, med, hamming.BIG), 1)
     new_desc = descs.gather(1, best[:, None, None].expand(-1, 1, 8))[:, 0]
-    Ow = -(m.kf_R.transpose(1, 2) @ m.kf_t[..., None])[..., 0]
+    # the observing keyframes' centres, gathered first: a product over
+    # every keyframe slot would change its rounding with the table's size
+    # on the card (the batched product's kernel depends on the batch)
+    Ow = -(m.kf_R[kf_idx].transpose(-1, -2) @ m.kf_t[kf_idx][..., None])[
+        ..., 0]
     pw = m.lm_pw[sel]
-    dirs = pw[:, None, :] - Ow[kf_idx]
+    dirs = pw[:, None, :] - Ow
     norms = torch.linalg.norm(dirs, dim=-1).clamp(min=1e-9)
     dirs = torch.where(valid_obs[..., None], dirs / norms[..., None], 0.0)
     nsum = dirs.sum(1)
     normal = nsum / torch.linalg.norm(nsum, dim=-1, keepdim=True).clamp(
         min=1e-9)
     # the scale band comes from the reference observation (slot 0)
-    dist_ref = torch.linalg.norm(pw - Ow[kf_idx[:, 0]], dim=-1)
+    dist_ref = torch.linalg.norm(pw - Ow[:, 0], dim=-1)
     dmax = dist_ref * scale_at(m.kf_octave[kf_idx[:, 0], obs_feat[:, 0]])
     upd = g_ok & (cnt > 0)
 
@@ -737,6 +746,7 @@ def cull_landmarks(m: MapState, cur_kf: int) -> MapState:
 
 def repack_obs_rows(m: MapState) -> MapState:
     """Make each observation row's valid entries an in-order prefix again."""
+    spans.table_read("repack_obs_rows", m.lm_obs_kf, m.lm_obs_feat)
     order = torch.argsort((m.lm_obs_kf < 0).to(torch.uint8), dim=1,
                           stable=True)
     return m._replace(lm_obs_kf=m.lm_obs_kf.gather(1, order),
@@ -800,6 +810,7 @@ def local_bundle_adjustment(m: MapState, cam, cur_kf: int, iters_a: int = 5,
     free_mask = torch.zeros(K, dtype=I32, device=dev).scatter_reduce(
         0, torch.where(free_ok, free_list, 0).long(), free_ok.to(I32),
         "amax") > 0
+    spans.table_read("local_bundle_adjustment", m.lm_obs_kf, m.lm_valid)
     obs_valid = m.lm_obs_kf >= 0
     lm_local = ((free_mask[m.lm_obs_kf.clamp(min=0).long()] & obs_valid).any(1)
                 & m.lm_valid)

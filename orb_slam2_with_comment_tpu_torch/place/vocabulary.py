@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..ops.hamming import BIG, hamming_pair
 
 DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -225,6 +226,7 @@ def bow_sparse(voc: Vocabulary, words: torch.Tensor, valid: torch.Tensor,
 def score_l1_sparse(q_idx, q_w, rows_idx, rows_w, n_words: int):
     """L1 score of one sparse query (q_idx/q_w [T]) against K sparse rows
     (rows_idx/rows_w [K, T]): [K] scores, 0 for empty rows."""
+    spans.table_read("score_l1_sparse", rows_idx, rows_w)
     # padding (-1) lands in a spare slot past the last word
     safe = torch.where(q_idx >= 0, q_idx, n_words).long()
     scratch = torch.zeros(n_words + 1, dtype=q_w.dtype, device=q_w.device)

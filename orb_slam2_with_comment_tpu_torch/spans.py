@@ -27,6 +27,13 @@ from torch.cuda's sync debug mode, so that the mode flags every other
 synchronizing call. A copy that does not block (the pinned, non-blocking
 frame upload) is not counted.
 
+The map's table-wide passes (the local landmark mask over every landmark,
+the covisibility weights and matrix, the BoW scores and the BoW table's
+clone, the compactions) count the bytes they read through ``table_read``
+under a site name, on the host from the tensors' shapes: no readback and
+no device operation. A frame's record keeps them by site
+(``table_bytes``).
+
 ``LAYERS`` maps span names to the benchmark's layers: a span belongs to
 the layer of its nearest ancestor-or-self that the table names, and
 anything unnamed under ``frame`` to the tracker's host loop. A span's self
@@ -72,14 +79,15 @@ class SpanRecord:
 
 class FrameRecord:
     """One traced frame: its index, its spans (root first, in the order
-    they opened), its blocking transfers by site, and whether a profiler
-    recorded it."""
-    __slots__ = ("index", "spans", "transfers", "profiled")
+    they opened), its blocking transfers by site, the bytes its table-wide
+    passes read by site, and whether a profiler recorded it."""
+    __slots__ = ("index", "spans", "transfers", "table_bytes", "profiled")
 
     def __init__(self, index: int, profiled: bool):
         self.index, self.profiled = index, profiled
         self.spans: list[SpanRecord] = []
         self.transfers: dict[str, int] = {}
+        self.table_bytes: dict[str, int] = {}
 
     @property
     def duration_ns(self) -> int:
@@ -249,6 +257,17 @@ def put(site: str, dst: torch.Tensor, index, value) -> None:
         _exempt(lambda: dst.__setitem__(index, value))
     else:
         dst[index] = value
+
+
+def table_read(site: str, *tensors: torch.Tensor) -> None:
+    """Count the bytes of ``tensors``, what a table-wide pass reads, at
+    ``site`` while tracing is on: their sizes from their shapes, on the
+    host."""
+    if not _on:
+        return
+    t = _frame.table_bytes
+    t[site] = t.get(site, 0) + sum(x.numel() * x.element_size()
+                                   for x in tensors)
 
 
 def layers_of(rec: FrameRecord) -> list[str]:

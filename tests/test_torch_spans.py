@@ -285,6 +285,98 @@ def test_reader_stops_the_run_on_a_frame_count_mismatch(metric):
         _reset()
 
 
+# where each new span opens: its parent span
+NESTED = {"ph_loop.covisibility": "ph_loop", "ph_loop.score": "ph_loop",
+          "_insert.bow": "_insert"}
+# the table-wide passes every tracked frame runs, and the bytes each
+# reads at the suite's map (K 8, N 500, L 3000, D 8)
+K_, N_, L_, D_ = (MAP[k] for k in ("k_max", "n_feat", "l_max", "d_max"))
+TRACKED_TABLES = {
+    "local_landmark_mask": L_ * D_ * 4 + L_,
+    "covisibility_weights": N_ * 4 + 2 * N_ * D_ * 4 + K_,
+    "track_local_map": 2 * L_ + 2 * L_ * 4,
+    "landmark_obs_count": L_ * D_ * 4}
+
+
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_new_spans_open_inside_their_phases(runs, sensor):
+    seen = set()
+    for r in runs[sensor, "records"]:
+        layers = spans.layers_of(r)
+        for s, layer in zip(r.spans, layers):
+            if s.name in NESTED:
+                seen.add(s.name)
+                assert r.spans[s.parent].name == NESTED[s.name]
+                assert layer == "maintenance"
+    assert seen == set(NESTED)
+
+
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_table_bytes_of_each_frame(runs, sensor):
+    """Each tracked frame counts its table-wide passes' reads from the
+    tensors' shapes; maintenance adds its own sites; the counts leave the
+    trajectory as it is (test_trajectory_is_bit_identical_...)."""
+    sites = set()
+    for r in runs[sensor, "records"][1:]:
+        for site, n in TRACKED_TABLES.items():
+            assert r.table_bytes[site] >= n, (r.index, site)
+        assert r.table_bytes["local_landmark_mask"] == TRACKED_TABLES[
+            "local_landmark_mask"]
+        sites |= set(r.table_bytes)
+    assert {"covisibility_matrix", "score_l1_sparse", "add_keyframe_bow",
+            "merge_duplicate_landmarks", "local_bundle_adjustment",
+            "rebuild_observations"} <= sites
+    loop = [r for r in runs[sensor, "records"]
+            if "ph_loop" in {s.name for s in r.spans}]
+    assert loop and all(r.table_bytes["covisibility_matrix"] >= K_ * N_ * (
+        4 + 1 + 2 * D_ * 4) for r in loop)
+
+
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_maintenance_readers_on_a_traced_run(runs, sensor):
+    recs = runs[sensor, "records"]
+    spans.FRAMES[:] = recs
+    for r in recs:
+        r.profiled = True
+    try:
+        run = types.SimpleNamespace(trace=types.SimpleNamespace(
+            frames=len(recs)))
+        maint = spec.reader("maintenance_host_ms")(run)
+        loop = spec.reader("loop_detect_host_ms")(run)
+        mb = spec.reader("map_table_mb_per_frame")(run)
+    finally:
+        for r in recs:
+            r.profiled = False
+        _reset()
+    want_maint = sum(spans.layer_ns(r).get("maintenance", 0)
+                     for r in recs) / 1e6 / len(recs)
+    want_loop = sum(s.duration_ns for r in recs for s in r.spans
+                    if s.name == "ph_loop") / 1e6 / len(recs)
+    want_mb = sum(sum(r.table_bytes.values()) for r in recs) / 1e6 / len(
+        recs)
+    assert maint == pytest.approx(want_maint) and maint > 0
+    assert loop == pytest.approx(want_loop) and 0 < loop < maint
+    assert mb == pytest.approx(want_mb) and mb > 0
+
+
+def test_table_reader_without_the_counter_reads_nothing():
+    """A program whose frame records have no ``table_bytes`` (an older
+    commit) gives None."""
+    _filled_store(2)
+    try:
+        got = spec.reader("map_table_mb_per_frame")(types.SimpleNamespace(
+            trace=types.SimpleNamespace(frames=2)))
+        old = [types.SimpleNamespace(profiled=True, spans=r.spans,
+                                     transfers=r.transfers)
+               for r in spans.FRAMES]
+        spans.FRAMES[:] = old
+        none = spec.reader("map_table_mb_per_frame")(types.SimpleNamespace(
+            trace=types.SimpleNamespace(frames=2)))
+    finally:
+        _reset()
+    assert got == 0.0 and none is None
+
+
 def _tiny_frame(index, site="unit.site"):
     with spans.frame(index):
         with spans.span("outer"):
@@ -298,7 +390,25 @@ def test_off_records_nothing_and_keeps_values():
     _reset()
     value, row = _tiny_frame(0)
     assert value == 3 and row.tolist() == [5, 2] and row.dtype == torch.int32
+    spans.table_read("unit.table", row)
     assert spans.FRAMES == []
+
+
+def test_table_read_counts_bytes_on_a_traced_frame_only():
+    _reset()
+    try:
+        spans.enable()
+        spans.table_read("unit.outside", torch.zeros(4))
+        with spans.frame(0):
+            spans.table_read("unit.table",
+                             torch.zeros((3, 5), dtype=torch.int32),
+                             torch.zeros(7, dtype=torch.bool))
+            spans.table_read("unit.table",
+                             torch.zeros(2, dtype=torch.float64))
+        assert spans.FRAMES[0].table_bytes == {"unit.table": 60 + 7 + 16}
+        assert spans.FRAMES[0].transfers == {}
+    finally:
+        _reset()
 
 
 def test_enable_clears_and_disable_keeps_the_store():
@@ -314,6 +424,7 @@ def test_enable_clears_and_disable_keeps_the_store():
         r = spans.FRAMES[0]
         assert [s.name for s in r.spans] == ["frame", "outer"]
         assert r.transfers == {"unit.site": 3} and not r.profiled
+        assert r.table_bytes == {}
         # a transfer outside a frame is not counted
         spans.enable()
         spans.to_host("unit.outside", torch.tensor(1))
